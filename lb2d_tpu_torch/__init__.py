@@ -1,0 +1,15 @@
+"""lb2d_tpu_torch — the PyTorch / CUDA port of lb2d_tpu.
+
+The JAX package ``lb2d_tpu`` stays the reference; this package mirrors its
+layout (``core``, ``ops``, ``models``) with plain PyTorch functions on
+tensors, and replaces each Pallas kernel with a CUDA kernel written for
+Hopper (``csrc/``), built with ``nvcc`` on first use.
+
+Populations are ``f[Q, ny, nx]`` float32 tensors, exactly the JAX layout, so
+state moves between the two packages as a numpy array. This package never
+imports ``jax``; the numpy-only ``lb2d_tpu.core`` is re-exported.
+"""
+
+from .core import D2Q9, FlowUnits, Lattice
+
+__all__ = ["D2Q9", "Lattice", "FlowUnits"]

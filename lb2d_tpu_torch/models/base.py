@@ -1,0 +1,111 @@
+"""Base machinery shared by the port's models (counterpart of
+``lb2d_tpu.models.base``).
+
+A model owns its populations ``state`` (``[Q, ny, nx]`` on its device) and a
+``step(f) -> f`` function from :meth:`make_step`. ``run(n)`` advances ``n``
+steps through it (or through the run hooks that ``make_step`` sets); on
+CUDA each call enqueues kernels on PyTorch's current stream and the host
+never waits inside the loop.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+__all__ = ["LBModel", "resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """The model's device; a CUDA device on a machine without CUDA raises
+    (no silent move to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the eager path on the CPU")
+    return device
+
+
+class LBModel:
+    """Owns ``state`` and the step function.
+
+    Subclasses set ``self.state`` and ``self.device``, implement
+    :meth:`make_step` and ``num_cells``, then call ``LBModel.__init__``.
+    ``make_step`` may set two run hooks:
+
+    * ``steps_per_call`` > 1 with ``_single_step``: the step advances that
+      many steps (temporal blocking) and ``_single_step`` runs the rest of
+      ``run(n)``;
+    * ``_run_n(f, n) -> f``: the whole ``run(n)`` in one call.
+    """
+
+    steps_per_call = 1
+    _single_step = None
+    _run_n = None
+
+    def __init__(self):
+        self._step = self.make_step()
+        self.steps_taken = 0
+        self.last_mlups = None
+
+    def make_step(self):
+        raise NotImplementedError
+
+    @property
+    def num_cells(self) -> int:
+        raise NotImplementedError
+
+    def _synchronize(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run(self, num_iterations: int, *, timed: bool = False):
+        """Advance ``num_iterations`` steps on the model's device.
+
+        With ``timed=True`` the device is synchronised before and after, and
+        ``last_mlups`` records million lattice-site updates per second.
+        Kernels are built when the model is constructed, never in here.
+        """
+        if timed:
+            self._synchronize()
+            t0 = time.perf_counter()
+        f = self.state
+        if self._run_n is not None:
+            f = self._run_n(f, num_iterations)
+        else:
+            calls, rest = divmod(num_iterations, self.steps_per_call)
+            for _ in range(calls):
+                f = self._step(f)
+            for _ in range(rest):
+                f = self._single_step(f)
+        self.state = f
+        if timed:
+            self._synchronize()
+            dt = time.perf_counter() - t0
+            self.last_mlups = self.num_cells * num_iterations / dt / 1e6
+        self.steps_taken += num_iterations
+        return self
+
+    # -- state carried across packages ------------------------------------------
+    def state_numpy(self) -> np.ndarray:
+        """The populations as a float32 numpy array ``[Q, ny, nx]`` (in JAX:
+        ``np.asarray(sim.state)``)."""
+        return self.state.detach().cpu().numpy().copy()
+
+    def load_numpy_state(self, f) -> None:
+        """Replace the populations with a ``[Q, ny, nx]`` numpy array, for
+        example the state of the JAX model built from the same arguments."""
+        f = np.ascontiguousarray(f)
+        if f.shape != tuple(self.state.shape):
+            raise ValueError(f"state must be {tuple(self.state.shape)}, "
+                             f"got {f.shape}")
+        self.state = torch.tensor(f, dtype=self.state.dtype, device=self.device)
+
+    @staticmethod
+    def _to_host_xy(t: torch.Tensor) -> np.ndarray:
+        """Device ``[..., ny, nx]`` -> host ``[..., nx, ny]``, the reference's
+        (x, y)-indexed layout (``opencl_dim.py:390-415``)."""
+        return np.swapaxes(t.detach().cpu().numpy(), -1, -2)

@@ -1,0 +1,89 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in ``lb2d_tpu_torch/csrc`` have a plain C interface. On first
+use they are compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared
+library under ``lb2d_tpu_torch/_build/`` and loaded with ``ctypes`` (the
+pattern of ``lb2d_tpu/native``). The library is rebuilt when a source is
+newer than it. No fast-math flags: the kernels keep IEEE division and
+denormals, as the plain PyTorch versions do.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["load_library", "LIB_PATH"]
+
+_PKG = Path(__file__).resolve().parent.parent
+_SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
+_HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
+LIB_PATH = _PKG / "_build" / "liblb2d_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point -> argument types; each returns a CUDA error code (int)
+_ENTRY_POINTS = {
+    # f_in, f_out, mask, ny, nx, omega, rho in, rho out, incompressible, stream
+    "lb2d_pipe_step": [_P, _P, _P, _I, _I, _F, _F, _F, _I, _P],
+    # f_in, f_out, mask, ny, nx, k_steps, omega, rho in/out, incomp., stream
+    "lb2d_temporal_step": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P],
+    # f_in, f_out, mask, ny, nx, k_steps, omega, u_w, u_e, velocity outlet,
+    # incompressible, stream
+    "lb2d_temporal_velocity_step": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I,
+                                    _P],
+    # f, scratch, mask, ny, nx, n, omega, rho in/out, incomp., stream
+    "lb2d_resident_run": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P],
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin "
+                       f"({cuda_home}); the CUDA kernels cannot be built")
+
+
+def _stale() -> bool:
+    if not LIB_PATH.exists():
+        return True
+    built = LIB_PATH.stat().st_mtime
+    return any(p.stat().st_mtime > built for p in _SOURCES + _HEADERS)
+
+
+def _compile():
+    LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
+    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
+    os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader sees old or new
+
+
+def load_library() -> ctypes.CDLL:
+    """Compile the kernels if needed and return the loaded library."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    if _stale():
+        _compile()
+    lib = ctypes.CDLL(str(LIB_PATH))
+    for name, argtypes in _ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib

@@ -1,0 +1,42 @@
+"""Equilibrium distributions (counterpart of ``lb2d_tpu.ops.equilibrium``).
+
+Constants are float32 tensors on the field's device, rounded as the JAX
+module rounds them, so both packages evaluate the same float32 expressions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import D2Q9, Lattice
+
+__all__ = ["feq_quadratic", "feq_incompressible"]
+
+
+def _consts(lattice: Lattice, rho: torch.Tensor):
+    def col(values):
+        return torch.tensor(values, dtype=rho.dtype,
+                            device=rho.device)[:, None, None]
+
+    cs2 = torch.tensor(lattice.cs2, dtype=rho.dtype, device=rho.device)
+    return col(lattice.w), col(lattice.cx), col(lattice.cy), cs2
+
+
+def feq_quadratic(rho, u, v, lattice: Lattice = D2Q9) -> torch.Tensor:
+    """``w_j rho (1 + c.u/cs2 + (c.u)^2/(2 cs4) - u^2/(2 cs2))``
+    (``D2Q9.cl:55-60``)."""
+    w, cx, cy, cs2 = _consts(lattice, rho)
+    cu = cx * u + cy * v
+    usq = u * u + v * v
+    inner = 1.0 + cu / cs2 + (cu * cu) / (2.0 * cs2 * cs2) - usq / (2.0 * cs2)
+    return w * rho * inner
+
+
+def feq_incompressible(rho, u, v, lattice: Lattice = D2Q9) -> torch.Tensor:
+    """He-Luo: ``w_j (rho + c.u/cs2 + (c.u)^2/(2 cs4) - u^2/(2 cs2))``
+    (``D2Q9i.cl:55-60``)."""
+    w, cx, cy, cs2 = _consts(lattice, rho)
+    cu = cx * u + cy * v
+    usq = u * u + v * v
+    inner = rho + cu / cs2 + (cu * cu) / (2.0 * cs2 * cs2) - usq / (2.0 * cs2)
+    return w * inner
