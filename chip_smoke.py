@@ -5,14 +5,25 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``lb2d_tpu_torch/csrc``, holds each against
-its plain PyTorch version on the card, drives the main path (``PipeFlow``
-at 4096^2, the ``bench.py`` workload, and at the reference's 32x256
-benchmark grid; ``PipeFlowVelocityInlet`` at its default 401x401) through
-the kernels that ``backend="auto"`` picks, checks the physics (Poiseuille
-profile through each kernel backend, cylinder mass), and prints the
-measured numbers. Every phase raises on failure; the
-last line is the JSON result and is printed only when all phases passed.
-Uses no JAX.
+its plain PyTorch version on the card, and drives the main paths through
+the kernels that ``backend="auto"`` picks, each path with the launch counts
+set to 0 just before it and read just after:
+
+* the flow slice: ``PipeFlow`` at 4096^2 (the ``bench.py`` workload) and at
+  the reference's 32x256 benchmark grid, ``PipeFlowVelocityInlet`` at its
+  default 401x401 (K2), and the same through ``backend="resident"`` (K3);
+* the diffusion slice, at the reference's own sizes: ``AdvectionDiffusion``
+  at 2048^2 (K2 diffusion), ``ReactionAdvectionDiffusionStochastic`` at
+  2048^2 (K2 noisy_fisher), ``NoisyAdvectedFisherWave`` at 256^2 (K3
+  noisy_fisher, and the Philox normals of its next step, P1) and
+  ``ReactionAdvectionDiffusion`` at 512^2 (K3 diffusion).
+
+It checks the physics (Poiseuille profile through each flow backend,
+cylinder mass, Gaussian spreading, advection, mass, noise amplitude and
+normal moments), sweeps K2's steps per launch for the diffusion physics,
+and prints the measured numbers. Every phase raises on failure; the last
+line is the JSON result and is printed only when all phases passed. Uses
+no JAX.
 """
 
 from __future__ import annotations
@@ -24,20 +35,43 @@ import time
 import numpy as np
 import torch
 
+from lb2d_tpu_torch.core import D2Q9
 from lb2d_tpu_torch.models import (
+    AdvectionDiffusion,
+    Diffusion,
+    NoisyAdvectedFisherWave,
     PipeFlow,
     PipeFlowCylinder,
     PipeFlowVelocityInlet,
+    ReactionAdvectionDiffusion,
+    ReactionAdvectionDiffusionStochastic,
+)
+from lb2d_tpu_torch.models.diffusion import (
+    DIFFUSION_TEMPORAL_K,
+    NOISY_TEMPORAL_K,
 )
 from lb2d_tpu_torch.models.pipe_flow import TEMPORAL_K
 from lb2d_tpu_torch.ops import _build
 from lb2d_tpu_torch.ops.fused import (
+    MAX_TEMPORAL_K,
+    diffusion_run_reference,
     pipe_run_reference,
     pipe_step,
+    resident_diffusion_run,
     resident_pipe_run,
+    resident_velocity_run,
+    temporal_diffusion_step,
     temporal_pipe_step,
     temporal_velocity_step,
     velocity_step_reference,
+)
+from lb2d_tpu_torch.ops.moments import density
+from lb2d_tpu_torch.ops.random import (
+    normals,
+    normals_reference,
+    philox4x32_10,
+    philox_bits,
+    philox_key,
 )
 
 BENCH_PHYS = dict(diameter=1.0, rho=1.0, viscosity=0.1, pressure_grad=-0.01,
@@ -49,14 +83,36 @@ SMALL = dict(POISEUILLE, pipe_length=1.5 * 254.5 / 31)  # N=31 -> 32x256,
 CYLINDER = dict(diameter=1.0, rho=1.0, viscosity=1.0, pressure_grad=-10.0,
                 pipe_length=3.0, cylinder_center=(0.75, 0.5),
                 cylinder_radius=0.1)  # examples/backend_comparison.py
-KERNEL_TOL = 1e-6   # ~30 ulp at |f| <= 0.45: nvcc's FMA contraction
+# the diffusion slice's workloads, at the sizes the reference runs them
+ADVECTION = dict(N=341, z=0.1, D=0.005, vx=1.0, vy=0.0, vc=1.0, Lx=0.61,
+                 Ly=0.61)   # 2048^2, benchmarks/run_all.py:93
+STOCHASTIC = dict(N=341, z=0.1, Lx=0.61, Ly=0.61, g=1.0, vx=1.0, vy=1.0,
+                  vc=1.0, Dg=0.05)  # 2048^2, examples/zoo_drive.py:80-83
+NOISY_WAVE = dict(N=127, z=0.1, D=1.0, g=50.0, Nc=10.0, Lx=0.202,
+                  Ly=0.202)  # 256^2, benchmarks/tpu_tests.py:87
+REACTION = dict(N=170, g=5.0, z=0.1, D=0.01, vx=1.0, vy=0.5, vc=1.0,
+                Lx=0.302, Ly=0.302)  # 512^2, benchmarks/profile_r4.py:65-70
+KERNEL_TOL = 1e-6   # ~30 ulp at |f| <= 0.45: nvcc's FMA contraction; the
+# noisy kernels too: their Philox bits are exact, their normals a few ulp off
+NORMALS_TOL = 5e-6  # |eta| < 6: the card's logf/cosf against torch's
 BYTES_PER_CELL = 72  # 9 float32 reads + 9 writes per cell-step
 MAIN_STEPS = 1000    # 4096^2: 333 K2 launches of 3 steps and 1 K1 step
 SMALL_STEPS = 20000  # 32x256: one K3 launch
-INLET_STEPS = 1000   # 401x401 velocity inlet: 334 K2 launches
+INLET_STEPS = 1000   # 401x401 velocity inlet: 334 K2 launches, or one K3
+DIFFUSION_STEPS = 2000  # 2048^2: run_all.py's step count
+RESIDENT_DIFFUSION_STEPS = 20000  # 256^2 and 512^2: one K3 launch each
 RESIDENT_CHECK_STEPS = (8, 9)  # both parities of the K3 buffer swap
+STEP0 = 2**32 - 3   # a global step whose K steps cross the counter's high word
 H100_SXM = "H100 80GB HBM3"
 H100_SXM_HBM = 3.35e12  # B/s, NVIDIA's H100 SXM data sheet
+H100_SXM_FP32 = 67e12   # FLOP/s outside the tensor cores, the same data sheet
+# operations per cell-step, counted from the kernels' arithmetic (integer
+# Philox operations and logf/sqrtf/cosf counted as one each at the float32
+# rate, which only lowers the bound)
+FLOW_OPS = 150        # BCs, 3 moments, 9 x (feq + BGK)
+DIFFUSION_OPS = 95    # density, growth, 9 x (linear feq + BGK + source)
+NOISY_OPS = 220       # + noise, clip, 10 Philox rounds, Box-Muller
+NORMAL_OPS = 112      # 10 Philox rounds (8 ops + 2 key adds), Box-Muller
 
 
 def device_phase() -> str:
@@ -290,6 +346,32 @@ def timing_phase(main, small, inlet):
     return times, steps, copy_bw
 
 
+COUNTERS = {"K1": pipe_step, "K2": temporal_pipe_step,
+            "K3": resident_pipe_run, "K2v": temporal_velocity_step,
+            "K3v": resident_velocity_run,
+            "K2 diffusion family": temporal_diffusion_step,
+            "K3 diffusion family": resident_diffusion_run, "P1": normals,
+            "philox_bits": philox_bits}
+
+
+def _window(label, drive, expected):
+    """Drive one main path with every launch count set to 0 just before it;
+    read the counts just after and require exactly ``expected``."""
+    torch.cuda.synchronize()
+    for wrapper in COUNTERS.values():
+        wrapper.launches = 0
+    drive()
+    torch.cuda.synchronize()
+    counts = {name: w.launches for name, w in COUNTERS.items()}
+    want = {name: expected.get(name, 0) for name in COUNTERS}
+    print(f"{label}: launches "
+          f"{ {k: v for k, v in counts.items() if v} } (expected {expected})",
+          flush=True)
+    if counts != want or min(expected.values()) < 1:
+        raise RuntimeError(f"{label}: kernel launches {counts} != {want}")
+    return counts
+
+
 def main_path_phase(main, small, inlet, card, times, copy_bw):
     """The user's path: ``run(n, timed=True)`` on the models that
     ``backend="auto"`` built, with every kernel's launch count read around
@@ -297,24 +379,17 @@ def main_path_phase(main, small, inlet, card, times, copy_bw):
     main.run(2 * TEMPORAL_K + 1)  # warm every kernel this path launches
     small.run(10)
     inlet.run(TEMPORAL_K + 1)
-    torch.cuda.synchronize()
-    pipe_step.launches = 0
-    temporal_pipe_step.launches = 0
-    resident_pipe_run.launches = 0
-    temporal_velocity_step.launches = 0
-    main.run(MAIN_STEPS, timed=True)
-    small.run(SMALL_STEPS, timed=True)
-    inlet.run(INLET_STEPS, timed=True)
-    launches = {"K1": pipe_step.launches,
-                "K2": temporal_pipe_step.launches,
-                "K3": resident_pipe_run.launches,
-                "K2v": temporal_velocity_step.launches}
+
+    def drive():
+        main.run(MAIN_STEPS, timed=True)
+        small.run(SMALL_STEPS, timed=True)
+        inlet.run(INLET_STEPS, timed=True)
+
     expected = {"K1": MAIN_STEPS % TEMPORAL_K,
                 "K2": MAIN_STEPS // TEMPORAL_K, "K3": 1,
                 "K2v": -(-INLET_STEPS // TEMPORAL_K)}
-    print(f"main path launches {launches} (expected {expected})", flush=True)
-    if launches != expected or min(launches.values()) < 1:
-        raise RuntimeError(f"kernel launches {launches} != {expected}")
+    counts = _window("main path (flow)", drive, expected)
+    launches = {k: counts[k] for k in expected}
     for sim in (main, small, inlet):
         if not torch.isfinite(sim.state).all():
             raise RuntimeError("non-finite state after the main path")
@@ -378,6 +453,356 @@ def physics_phase(cyl):
         raise RuntimeError("cylinder run is not finite or lost mass")
 
 
+# -- the diffusion slice ---------------------------------------------------
+
+def _random_state(ny, nx):
+    """f = w rho (1 + 1% noise) with rho uniform in [0.1, 0.9] (numpy seed
+    1): noise of full amplitude in every cell."""
+    rng = np.random.RandomState(1)
+    rho = 0.1 + 0.8 * rng.rand(ny, nx)
+    w = np.asarray(D2Q9.w)[:, None, None]
+    return torch.tensor(w * rho * (1.0 + 0.01 * rng.randn(9, ny, nx)),
+                        dtype=torch.float32, device="cuda")
+
+
+def compare_k2_diffusion(kw, f0, k):
+    out = temporal_diffusion_step(f0, torch.empty_like(f0), k, step0=STEP0,
+                                  **kw)
+    return _max_diff(out, diffusion_run_reference(f0, k, step0=STEP0, **kw))
+
+
+def compare_k3_diffusion(kw, f0, n):
+    f = f0.clone()
+    resident_diffusion_run(f, torch.empty_like(f), n, step0=STEP0, **kw)
+    return _max_diff(f, diffusion_run_reference(f0, n, step0=STEP0, **kw))
+
+
+def compare_k3_velocity(sim, obstacle, outlet, incompressible, n):
+    f0, kw = _inputs(sim, obstacle)
+    kw = dict(omega=sim.omega, u_w=sim.u_w, u_e=sim.u_e, outlet=outlet,
+              incompressible=incompressible, mask=kw["mask"])
+    f = f0.clone()
+    resident_velocity_run(f, torch.empty_like(f), n, **kw)
+    want = f0
+    for _ in range(n):
+        want = velocity_step_reference(want, **kw)
+    return _max_diff(f, want)
+
+
+def compare_normals(seed, step, ny, nx):
+    """P1 against the plain Philox: the words bit for bit (returns the
+    normals' max |d|)."""
+    cell = torch.arange(ny * nx, dtype=torch.int64, device="cuda")
+    want = philox4x32_10((cell, step & 0xFFFFFFFF, step >> 32, 0),
+                         philox_key(seed))
+    if not torch.equal(philox_bits(seed, step, ny * nx, "cuda"), want):
+        raise RuntimeError("P1: the Philox words differ from the plain ones")
+    eta = normals(seed, step, (ny, nx), "cuda")
+    return _max_diff(eta, normals_reference(seed, step, ny, nx, "cuda"))
+
+
+def diffusion_kernel_phase(adv, sto, wave, rad, inlet):
+    """Each new kernel against its plain version: at the main path's models
+    and shapes (from step STEP0, noise on), and on random densities at an
+    unaligned grid with the stochastic model's noise amplitude."""
+    worst = dict.fromkeys(("K2d", "K2n", "K3d", "K3n", "K3v", "P1"), 0.0)
+
+    def check(key, label, d, tol=KERNEL_TOL):
+        print(f"{label}: max|d| = {d:.3e}", flush=True)
+        if not d <= tol:
+            raise RuntimeError(f"{label}: kernel disagrees, {d} > {tol}")
+        worst[key] = max(worst[key], d)
+
+    odd = _random_state(254, 382)
+    for key, sim in (("K2d", adv), ("K2n", sto)):
+        kw = sim.step_kwargs()
+        for k in sorted({1, sim.temporal_k, MAX_TEMPORAL_K}):
+            check(key, f"{key} vs plain {sim.ny}x{sim.nx} model state, k={k}",
+                  compare_k2_diffusion(kw, sim.state, k))
+        for k in range(1, MAX_TEMPORAL_K + 1):
+            check(key, f"{key} vs plain 254x382 random rho, k={k}",
+                  compare_k2_diffusion(dict(kw, **_noise_of(sto, key)), odd,
+                                       k))
+    for key, sim in (("K3d", rad), ("K3n", wave)):
+        kw = sim.step_kwargs()
+        rand = _random_state(sim.ny, sim.nx)
+        for n in RESIDENT_CHECK_STEPS:
+            check(key, f"{key} vs plain {sim.ny}x{sim.nx} model state, n={n}",
+                  compare_k3_diffusion(kw, sim.state, n))
+            check(key, f"{key} vs plain {sim.ny}x{sim.nx} random rho, n={n}",
+                  compare_k3_diffusion(dict(kw, **_noise_of(sto, key)), rand,
+                                       n))
+    for outlet in ("zero_gradient", "velocity"):
+        for incompressible in (False, True):
+            for obstacle in (False, True):
+                for n in RESIDENT_CHECK_STEPS:
+                    check("K3v", f"K3 velocity inlet vs plain "
+                          f"{inlet.ny}x{inlet.nx} outlet={outlet} "
+                          f"incompressible={incompressible} "
+                          f"obstacle={obstacle}, n={n}",
+                          compare_k3_velocity(inlet, obstacle or None, outlet,
+                                              incompressible, n))
+    for step in (0, STEP0 + 4):
+        check("P1", f"P1 vs plain {sto.ny}x{sto.nx} step {step} (words "
+              "equal)", compare_normals(sto.rng_seed, step, sto.ny, sto.nx),
+              NORMALS_TOL)
+    return worst
+
+
+def _noise_of(sto, key):
+    """The stochastic model's noise for the noisy kernels' random-density
+    checks (none for the deterministic ones)."""
+    if key in ("K2n", "K3n"):
+        return dict(lb_Dg=sto.Dg, noisy=True, seed=sto.rng_seed)
+    return {}
+
+
+def k_sweep_phase(adv, sto, card):
+    """Device ms per step of K2 at K = 1..8 for each diffusion physics, at
+    the main path's 2048^2 (CUDA events, 50 launches each)."""
+    best = {}
+    for label, sim in (("diffusion", adv), ("noisy_fisher", sto)):
+        kw = sim.step_kwargs()
+        bufs = [sim.state.clone(), torch.empty_like(sim.state)]
+        per_step = {}
+        for k in range(1, MAX_TEMPORAL_K + 1):
+            def launch(k=k):
+                temporal_diffusion_step(bufs[0], bufs[1], k, step0=STEP0,
+                                        **kw)
+                bufs.reverse()
+
+            launch()
+            per_step[k] = _events_ms(launch, 50) / k
+        best[label] = min(per_step, key=per_step.get)
+        print(f"K sweep, K2 {label} at {sim.ny}x{sim.nx}, ms per step: "
+              + ", ".join(f"K={k} {t:.5f}" for k, t in per_step.items())
+              + f"; fastest K={best[label]} (model uses "
+              f"K={sim.temporal_k}); card: {card}", flush=True)
+        del bufs
+    return best
+
+
+def diffusion_timing_phase(adv, sto, wave, rad, inlet):
+    """Device time per launch of each new kernel at the main path's shapes
+    and of the plain version doing the same work (CUDA events)."""
+    times, steps = {}, {}
+    for key, sim in (("K2d", adv), ("K2n", sto)):
+        kw, k = sim.step_kwargs(), sim.temporal_k
+        bufs = [sim.state.clone(), torch.empty_like(sim.state)]
+
+        def k2():
+            temporal_diffusion_step(bufs[0], bufs[1], k, step0=STEP0, **kw)
+            bufs.reverse()
+
+        def plain():
+            bufs[0] = diffusion_run_reference(bufs[0], k, step0=STEP0, **kw)
+
+        k2()
+        times[key] = _events_ms(k2, 100)
+        plain()
+        times["plain " + key] = _events_ms(plain, 4)
+        steps[key] = k
+        del bufs
+    n = 1000
+    for key, sim in (("K3d", rad), ("K3n", wave)):
+        kw = sim.step_kwargs()
+        f, scratch = sim.state.clone(), torch.empty_like(sim.state)
+        resident_diffusion_run(f, scratch, n, step0=STEP0, **kw)
+        times[key] = _events_ms(
+            lambda: resident_diffusion_run(f, scratch, n, step0=STEP0, **kw),
+            5)
+        g = [sim.state.clone()]
+
+        def plain_run(m):
+            g[0] = diffusion_run_reference(g[0], m, step0=STEP0, **kw)
+
+        plain_run(10)
+        times["plain " + key] = _events_ms(lambda: plain_run(n), 1)
+        steps[key] = n
+    kw = dict(omega=inlet.omega, u_w=inlet.u_w, u_e=inlet.u_e,
+              outlet=inlet.outlet, incompressible=False)
+    f, scratch = inlet.state.clone(), torch.empty_like(inlet.state)
+    resident_velocity_run(f, scratch, n, **kw)
+    times["K3v"] = _events_ms(
+        lambda: resident_velocity_run(f, scratch, n, **kw), 5)
+    g = [inlet.state.clone()]
+
+    def plain_inlet(m):
+        for _ in range(m):
+            g[0] = velocity_step_reference(g[0], **kw)
+
+    plain_inlet(10)
+    times["plain K3v"] = _events_ms(lambda: plain_inlet(n), 1)
+    steps["K3v"] = n
+    shape = (sto.ny, sto.nx)
+    normals(sto.rng_seed, 0, shape, "cuda")
+    times["P1"] = _events_ms(lambda: normals(sto.rng_seed, 0, shape, "cuda"),
+                             100)
+    normals_reference(sto.rng_seed, 0, *shape, "cuda")
+    times["plain P1"] = _events_ms(
+        lambda: normals_reference(sto.rng_seed, 0, *shape, "cuda"), 5)
+    steps["P1"] = 1
+    randn_ms = _events_ms(lambda: torch.randn(shape, device="cuda"), 100)
+    for key, sim in (("K2d", adv), ("K2n", sto), ("K3d", rad), ("K3n", wave),
+                     ("K3v", inlet), ("P1", sto)):
+        print(f"{key} at {sim.ny}x{sim.nx}: {times[key]:.4f} ms per launch "
+              f"of {steps[key]} step(s); plain version "
+              f"{times['plain ' + key]:.4f} ms for the same work (CUDA "
+              f"events)", flush=True)
+    print(f"for scale, not the same function: torch.randn {shape} "
+          f"(cuRAND's Philox normals) {randn_ms:.4f} ms", flush=True)
+    return times, steps
+
+
+def diffusion_main_path_phase(adv, sto, wave, rad, inlet_k3, card):
+    """The diffusion slice's paths and the velocity inlet through K3, each
+    as a user runs it (``run(n, timed=True)`` on the model ``backend``
+    built), each in its own counted window; then the plain (eager) models
+    at the same sizes."""
+    for sim in (adv, sto):  # warm every kernel the paths launch
+        sim.run(sim.temporal_k + 1)
+    for sim in (wave, rad, inlet_k3):
+        sim.run(10)
+    wave.noise()
+    launches, eta = {}, []
+    k2 = "K2 diffusion family"
+    k3 = "K3 diffusion family"
+    launches["K2d"] = _window(
+        f"AdvectionDiffusion {adv.ny}x{adv.nx}",
+        lambda: adv.run(DIFFUSION_STEPS, timed=True),
+        {k2: -(-DIFFUSION_STEPS // adv.temporal_k)})[k2]
+    launches["K2n"] = _window(
+        f"ReactionAdvectionDiffusionStochastic {sto.ny}x{sto.nx}",
+        lambda: sto.run(DIFFUSION_STEPS, timed=True),
+        {k2: -(-DIFFUSION_STEPS // sto.temporal_k)})[k2]
+
+    def drive_wave():
+        wave.run(RESIDENT_DIFFUSION_STEPS, timed=True)
+        eta.append(wave.noise())  # the normals its next step draws
+
+    counts = _window(f"NoisyAdvectedFisherWave {wave.ny}x{wave.nx}",
+                     drive_wave, {k3: 1, "P1": 1})
+    launches["K3n"], launches["P1"] = counts[k3], counts["P1"]
+    launches["K3d"] = _window(
+        f"ReactionAdvectionDiffusion {rad.ny}x{rad.nx}",
+        lambda: rad.run(RESIDENT_DIFFUSION_STEPS, timed=True), {k3: 1})[k3]
+    launches["K3v"] = _window(
+        f"PipeFlowVelocityInlet {inlet_k3.ny}x{inlet_k3.nx} "
+        "backend='resident'", lambda: inlet_k3.run(INLET_STEPS, timed=True),
+        {"K3v": 1})["K3v"]
+
+    plain = {}
+    for name, sim, make in (
+            ("adv", adv, lambda: AdvectionDiffusion(backend="eager",
+                                                    device="cuda",
+                                                    **ADVECTION)),
+            ("sto", sto, lambda: ReactionAdvectionDiffusionStochastic(
+                backend="eager", device="cuda", **STOCHASTIC)),
+            ("wave", wave, lambda: NoisyAdvectedFisherWave(
+                backend="eager", device="cuda", **NOISY_WAVE)),
+            ("rad", rad, lambda: ReactionAdvectionDiffusion(
+                backend="eager", device="cuda", **REACTION)),
+            ("inlet", inlet_k3, lambda: PipeFlowVelocityInlet(
+                backend="eager", device="cuda"))):
+        ref = make()
+        ref.run(3)
+        ref.run(20, timed=True)
+        plain[name] = ref.last_mlups
+        del ref
+    for name, sim, steps, key in (
+            ("adv", adv, DIFFUSION_STEPS, "K2d"),
+            ("sto", sto, DIFFUSION_STEPS, "K2n"),
+            ("wave", wave, RESIDENT_DIFFUSION_STEPS, "K3n"),
+            ("rad", rad, RESIDENT_DIFFUSION_STEPS, "K3d"),
+            ("inlet", inlet_k3, INLET_STEPS, "K3v")):
+        print(f"main path {type(sim).__name__} {sim.ny}x{sim.nx} "
+              f"backend={sim.backend}: {sim.last_mlups:.1f} MLUPS over "
+              f"{steps} steps, {launches[key]} launch(es) of {key}; plain "
+              f"(eager) {plain[name]:.1f} MLUPS; card: {card}", flush=True)
+    return launches, eta[0]
+
+
+def diffusion_physics_phase(adv, sto, wave, rad, eta, mass0):
+    """The outputs of the diffusion paths, by the repo's own checks
+    (tests/test_diffusion.py, tests/test_noisy_kernel.py,
+    benchmarks/tpu_tests.py)."""
+    for sim in (adv, sto, wave, rad):
+        if not torch.isfinite(sim.state).all():
+            raise RuntimeError(f"{type(sim).__name__}: non-finite state")
+        fields = sim.get_physical_fields()
+        if fields["rho"].shape != (sim.nx, sim.ny):
+            raise RuntimeError(f"{type(sim).__name__}: bad field shape")
+    for sim in (sto, wave):
+        if float(sim.state.min()) < 0.0:
+            raise RuntimeError(f"{type(sim).__name__}: negative populations "
+                               "after the clip")
+    if float(density(rad.state).max()) > 1.01:
+        raise RuntimeError("ReactionAdvectionDiffusion: rho above 1.01")
+    mass = float(density(adv.state).double().sum())
+    drift = abs(mass - mass0) / mass0
+    w = density(adv.state).double().sum(dim=0).cpu().numpy()  # per column
+    ang = 2 * np.pi * np.arange(adv.nx) / adv.nx
+    cx = (np.angle(np.sum(w * np.exp(1j * ang))) / (2 * np.pi) * adv.nx
+          ) % adv.nx
+    want_cx = (adv.nx // 2 + adv.u_lb * adv.steps_taken) % adv.nx
+    print(f"AdvectionDiffusion {adv.ny}x{adv.nx} after {adv.steps_taken} "
+          f"steps: centroid x {cx:.3f} (advected {want_cx:.3f}), mass drift "
+          f"{drift:.3e}", flush=True)
+    if not (abs(cx - want_cx) < 1.0 and drift < 1e-3):
+        raise RuntimeError("AdvectionDiffusion: blob not advected or mass "
+                           "not conserved")
+    for backend in ("resident", "temporal"):
+        sim = Diffusion(N=25, z=0.1, D=1.0, Lx=0.4, Ly=0.4, backend=backend,
+                        device="cuda")
+        steps = int(round(0.05 / sim.delta_t))
+        sim.run(steps)
+        t = steps * sim.delta_t
+        rho = sim.get_fields()["rho"].T
+        X, Y = np.meshgrid(np.arange(sim.nx), np.arange(sim.ny))
+        r2 = ((X - sim.nx // 2) ** 2 + (Y - sim.ny // 2) ** 2) / sim.N ** 2
+        expected = np.exp(-r2 / (1.0 + 4.0 * t)) / (1.0 + 4.0 * t)
+        b = sim.N // 2
+        err = float(np.abs(rho - expected)[b:-b, b:-b].max())
+        print(f"Diffusion N=25 through backend={backend}: max error against "
+              f"the spreading Gaussian {err:.5f} (limit 0.02)", flush=True)
+        if not err < 0.02:
+            raise RuntimeError(f"Gaussian spreading error {err} >= 0.02")
+    e = eta.double().cpu().numpy()
+    n = e.size
+    kurt = ((e - e.mean()) ** 4).mean() / e.var() ** 2 - 3.0
+    print(f"P1 normals of the wave's next step ({n} draws): mean "
+          f"{e.mean():.5f}, std {e.std():.5f}, excess kurtosis {kurt:.4f}",
+          flush=True)
+    if not (abs(e.mean()) < 5 / np.sqrt(n) and abs(e.std() - 1) < 5 / np.sqrt(
+            2 * n) and abs(kurt) < 5 * np.sqrt(24.0 / n)):
+        raise RuntimeError("P1 normals are not N(0, 1) within 5 sigma")
+    kw = wave.step_kwargs()
+    w9 = torch.tensor(D2Q9.w, device="cuda")[:, None, None]
+    uniform = (0.5 * w9).expand(9, wave.ny, wave.nx).contiguous()
+    runs = []
+    for dg in (kw["lb_Dg"], 0.0):
+        f = uniform.clone()
+        resident_diffusion_run(f, torch.empty_like(f), 1,
+                               **dict(kw, lb_Dg=dg))
+        runs.append(density(f))
+    std = float((runs[0] - runs[1]).double().std())
+    expected = float(np.sqrt(kw["lb_Dg"] * 0.25))
+    print(f"noise amplitude through K3 from uniform rho = 0.5: std "
+          f"{std:.6e}, sqrt(Dg/4) = {expected:.6e}", flush=True)
+    if not abs(std / expected - 1.0) < 0.03:
+        raise RuntimeError("noise amplitude off by more than 3%")
+
+
+def _bound(cells, steps, ops_per_cell, bytes_per_cell=BYTES_PER_CELL):
+    """The least time the card could take (ms): each input read and each
+    output written once over the data sheet's HBM rate, or the operations
+    over its float32 rate, whichever is larger."""
+    t_bytes = cells * bytes_per_cell / H100_SXM_HBM
+    t_ops = cells * steps * ops_per_cell / H100_SXM_FP32
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def main():
     card = device_phase()
     build_phase()
@@ -385,34 +810,77 @@ def main():
     small = PipeFlow(N=31, device="cuda", **SMALL)
     cyl = PipeFlowCylinder(N=125, device="cuda", **CYLINDER)
     inlet = PipeFlowVelocityInlet(device="cuda")  # the reference's defaults
-    shapes = {"main": (main_sim.backend, main_sim.ny, main_sim.nx),
-              "small": (small.backend, small.ny, small.nx),
-              "cylinder": (cyl.backend, cyl.ny, cyl.nx),
-              "inlet": (inlet.backend, inlet.ny, inlet.nx)}
+    inlet_k3 = PipeFlowVelocityInlet(device="cuda", backend="resident")
+    adv = AdvectionDiffusion(device="cuda", **ADVECTION)
+    sto = ReactionAdvectionDiffusionStochastic(device="cuda", **STOCHASTIC)
+    wave = NoisyAdvectedFisherWave(device="cuda", **NOISY_WAVE)
+    rad = ReactionAdvectionDiffusion(device="cuda", **REACTION)
+    sims = {"main": main_sim, "small": small, "cylinder": cyl,
+            "inlet": inlet, "inlet_k3": inlet_k3, "adv": adv, "sto": sto,
+            "wave": wave, "rad": rad}
+    shapes = {k: (sim.backend, sim.ny, sim.nx) for k, sim in sims.items()}
     print(f"backend='auto' picked {shapes}", flush=True)
     if shapes != {"main": ("temporal", 4096, 4096),
                   "small": ("resident", 32, 256),
                   "cylinder": ("temporal", 1251, 3751),
-                  "inlet": ("temporal", 401, 401)}:
+                  "inlet": ("temporal", 401, 401),
+                  "inlet_k3": ("resident", 401, 401),
+                  "adv": ("temporal", 2048, 2048),
+                  "sto": ("temporal", 2048, 2048),
+                  "wave": ("resident", 256, 256),
+                  "rad": ("resident", 512, 512)}:
         raise RuntimeError(f"unexpected backends or grids {shapes}")
     max_err = kernel_phase(main_sim, small, cyl, inlet)
+    max_err.update(diffusion_kernel_phase(adv, sto, wave, rad, inlet))
     times, steps, copy_bw = timing_phase(main_sim, small, inlet)
+    more_times, more_steps = diffusion_timing_phase(adv, sto, wave, rad,
+                                                    inlet)
+    times.update(more_times)
+    steps.update(more_steps)
+    k_sweep_phase(adv, sto, card)
     launches = main_path_phase(main_sim, small, inlet, card, times, copy_bw)
+    mass0 = float(density(adv.state).double().sum())
+    more_launches, eta = diffusion_main_path_phase(adv, sto, wave, rad,
+                                                   inlet_k3, card)
+    launches.update(more_launches)
     physics_phase(cyl)
-    sources = {"K1": ("pipe_step", "pipe_step.cu", "lb2d_tpu/ops/fused.py:682"),
-               "K2": ("temporal_pipe_step", "temporal_step.cu",
-                      "lb2d_tpu/ops/fused.py:888"),
-               "K3": ("resident_pipe_run", "resident_run.cu",
-                      "lb2d_tpu/ops/fused.py:1193"),
-               "K2v": ("temporal_velocity_step", "temporal_step.cu",
-                       "lb2d_tpu/ops/fused.py:888")}
-    print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda",
-        "source": f"lb2d_tpu_torch/csrc/{src}", "replaces": tpu,
-        "launches": launches[k], "max_abs_err": max_err[k],
-        "ms": times[k], "plain_ms": times["plain " + k],
-        "steps_per_launch": steps[k]}
-        for k, (name, src, tpu) in sources.items()]}))
+    diffusion_physics_phase(adv, sto, wave, rad, eta, mass0)
+    k2, k3 = "lb2d_tpu/ops/fused.py:888", "lb2d_tpu/ops/fused.py:1193"
+    kernels = {  # key: (wrapper, source, TPU kernel, model, ops per cell)
+        "K1": ("pipe_step", "pipe_step.cu", "lb2d_tpu/ops/fused.py:682",
+               main_sim, FLOW_OPS),
+        "K2": ("temporal_pipe_step", "temporal_step.cu", k2, main_sim,
+               FLOW_OPS),
+        "K3": ("resident_pipe_run", "resident_run.cu", k3, small, FLOW_OPS),
+        "K2v": ("temporal_velocity_step", "temporal_step.cu", k2, inlet,
+                FLOW_OPS),
+        "K2d": ("temporal_diffusion_step (diffusion)", "temporal_step.cu",
+                k2, adv, DIFFUSION_OPS),
+        "K2n": ("temporal_diffusion_step (noisy_fisher)", "temporal_step.cu",
+                k2, sto, NOISY_OPS),
+        "K3d": ("resident_diffusion_run (diffusion)", "resident_run.cu", k3,
+                rad, DIFFUSION_OPS),
+        "K3n": ("resident_diffusion_run (noisy_fisher)", "resident_run.cu",
+                k3, wave, NOISY_OPS),
+        "K3v": ("resident_velocity_run", "resident_run.cu", k3, inlet,
+                FLOW_OPS),
+        "P1": ("normals", "normals.cu", "benchmarks/tpu_tests.py:25", sto,
+               NORMAL_OPS),
+    }
+    rows = []
+    for key, (name, src, tpu, sim, ops) in kernels.items():
+        bound_ms, bound_by = _bound(sim.num_cells, steps[key], ops,
+                                    4 if key == "P1" else BYTES_PER_CELL)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"lb2d_tpu_torch/csrc/{src}", "replaces": tpu,
+            "launches": launches[key], "max_abs_err": max_err[key],
+            "ms": times[key], "plain_ms": times["plain " + key],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call computes the same
+            "steps_per_launch": steps[key],
+            "shape": [sim.ny, sim.nx]})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

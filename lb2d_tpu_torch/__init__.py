@@ -7,7 +7,8 @@ Hopper (``csrc/``), built with ``nvcc`` on first use.
 
 Populations are ``f[Q, ny, nx]`` float32 tensors, exactly the JAX layout, so
 state moves between the two packages as a numpy array. This package never
-imports ``jax``; the numpy-only ``lb2d_tpu.core`` is re-exported.
+imports ``jax`` or anything of ``lb2d_tpu``; ``core`` holds its own copies
+of the JAX package's numpy-only lattice and unit modules.
 """
 
 from .core import D2Q9, FlowUnits, Lattice

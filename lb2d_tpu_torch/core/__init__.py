@@ -1,10 +1,10 @@
-"""Lattice descriptors and the unit system, shared with the JAX package.
+"""Lattice descriptors and the unit system.
 
-``lb2d_tpu.core`` is numpy-only (importing ``lb2d_tpu`` pulls in no JAX),
-so the port re-exports it instead of keeping a copy.
+``lattice`` and ``nondim`` are the port's own copies of the numpy-only
+modules of ``lb2d_tpu.core``; the port imports nothing of the JAX package.
 """
 
-from lb2d_tpu.core.lattice import D2Q9, Lattice
-from lb2d_tpu.core.nondim import FlowUnits
+from .lattice import D2Q9, Lattice
+from .nondim import FlowUnits
 
 __all__ = ["D2Q9", "Lattice", "FlowUnits"]

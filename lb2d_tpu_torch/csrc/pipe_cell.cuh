@@ -10,12 +10,16 @@
 // equilibrium u and v are zeroed inside the mask, fused.py:170-173), feq
 // per direction and BGK. velocity_cell_update is the same step with the
 // velocity-inlet BCs of _velocity_inlet_tile (fused.py:334-354) and of
-// ops/boundary.py, periodic in y.
+// ops/boundary.py, periodic in y. diffusion_cell_update is the step of the
+// periodic advection-diffusion family (fused.py:250-270 and 1019-1041):
+// linear feq, BGK, Fisher growth and, with kNoisy, multiplicative noise
+// from philox.cuh and the negativity clip.
 //
 // Numerics: no fast math (IEEE division, denormals kept). Expressions
-// follow the JAX float32 order term by term; nvcc may contract a multiply
-// and an add into one FMA, so results differ from the plain PyTorch step by
-// a few ulp.
+// follow the JAX float32 order term by term; in the flow updates nvcc may
+// contract a multiply and an add into one FMA, so results differ from the
+// plain PyTorch step by a few ulp. The diffusion update rounds every
+// operation on its own and matches the plain step bit for bit.
 
 #pragma once
 
@@ -23,7 +27,20 @@
 
 #include <cstddef>
 
+#include "philox.cuh"
+
 namespace {
+
+// The scalars of one launch, by physics. a, b: inlet and outlet density
+// (flow), inlet and outlet velocity (velocity inlet), or the imposed
+// lattice velocity u, v (diffusion family). g, dg: Fisher growth and noise
+// amplitude; k0, k1: Philox key; step0: global step of the launch's first
+// step (diffusion family only).
+struct StepParams {
+  float omega, a, b, g, dg;
+  unsigned k0, k1;
+  unsigned long long step0;
+};
 
 constexpr float kW0 = (float)(4.0 / 9.0);
 constexpr float kW1 = (float)(1.0 / 9.0);
@@ -241,6 +258,50 @@ __device__ __forceinline__ void velocity_cell_update(
   apply_velocity_bcs<kPair>(s, up, st, x, nx, uw, ue);
   if (kObstacle && solid) bounce_back(st);
   collide<false, kIncompFeq>(st, out, kObstacle && solid, omega);
+}
+
+// One step of the periodic advection-diffusion family for the cell with
+// global index `cell` at global step `step`, from its pulled values s
+// (no BCs): rho = sum f in direction order, feq_j = (w_j rho)(1 + c_j.u /
+// cs2), BGK, then + w_j react with react = g rho (1 - rho), plus with
+// kNoisy sqrt(max(dg rho (1 - rho), 0)) eta and the clip max(f, 0)
+// (D2Q9_diffusion.cl:95-167), in the order of lb2d_tpu_torch/ops/fused.py's
+// plain steps. Every operation rounds on its own (__fmul_rn and __fadd_rn
+// are never contracted into FMAs), so the update equals the plain step's
+// separate torch operations bit for bit. The noise needs that:
+// sqrt(rho (1 - rho)) has an unbounded slope at rho = 1, where one ulp of
+// rho moves the noise by up to ~1e-5. With g = 0 the growth adds an exact
+// zero; with dg = 0 no normal is drawn, as the plain step draws none.
+template <bool kNoisy>
+__device__ __forceinline__ void diffusion_cell_update(
+    const float (&s)[9], float (&out)[9], const StepParams& p,
+    unsigned long long cell, unsigned long long step) {
+  float rho = s[0];
+#pragma unroll
+  for (int j = 1; j < 9; ++j) rho = __fadd_rn(rho, s[j]);
+  const float one_minus = __fsub_rn(1.0f, rho);
+  float react = __fmul_rn(__fmul_rn(p.g, rho), one_minus);
+  if (kNoisy && p.dg != 0.0f) {
+    const float var = __fmul_rn(__fmul_rn(p.dg, rho), one_minus);
+    // NaN passes through both clips, as in torch.clamp and jnp.maximum
+    const float amp = __fsqrt_rn(var < 0.0f ? 0.0f : var);
+    react = __fadd_rn(react,
+                      __fmul_rn(amp, cell_normal(cell, step, p.k0, p.k1)));
+  }
+  const float A = __fsub_rn(1.0f, p.omega);
+  const float u = p.a, v = p.b;
+  const float cu[9] = {0.0f, u, v, -u, -v, __fadd_rn(u, v), __fadd_rn(-u, v),
+                       __fadd_rn(-u, -v), __fadd_rn(u, -v)};
+  const float w[9] = {kW0, kW1, kW1, kW1, kW1, kW2, kW2, kW2, kW2};
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    const float feq = __fmul_rn(__fmul_rn(w[j], rho),
+                                __fadd_rn(1.0f, __fdiv_rn(cu[j], kCs2)));
+    const float o = __fadd_rn(
+        __fadd_rn(__fmul_rn(s[j], A), __fmul_rn(p.omega, feq)),
+        __fmul_rn(w[j], react));
+    out[j] = kNoisy && o < 0.0f ? 0.0f : o;
+  }
 }
 
 }  // namespace

@@ -1,14 +1,16 @@
-// K D2Q9 pipe-flow steps per pass over f, for Hopper (sm_90a): K2.
+// K D2Q9 lattice-Boltzmann steps per pass over f, for Hopper (sm_90a): K2.
 //
-// Replaces lb2d_tpu/ops/fused.py:make_temporal_pipe_step with
-// physics="flow" (the pressure-driven pipe flow, with or without an
-// obstacle) and physics="velocity_inlet" (the velocity inlet with the
-// zero-gradient outlet, periodic in y; here also with the velocity outlet
-// and an obstacle, as the model's plain step allows). The TPU kernel sweeps
-// 16-row chunks in order and keeps K-1 VMEM rings of intermediate steps;
-// its skewed loop, DMA semaphores and 128-lane alignment are scheduling for
-// a sequential grid and are not carried over. What is kept is the idea: read f once and write it once for
-// K steps, so HBM traffic per step falls from 72 B/cell towards 72/K.
+// Replaces lb2d_tpu/ops/fused.py:make_temporal_pipe_step with each of its
+// physics: "flow" (the pressure-driven pipe flow, with or without an
+// obstacle), "velocity_inlet" (the velocity inlet with the zero-gradient
+// outlet, periodic in y; here also with the velocity outlet and an
+// obstacle, as the model's plain step allows), and the fully periodic
+// "diffusion" and "noisy_fisher" of the advection-diffusion family. The
+// TPU kernel sweeps 16-row chunks in order and keeps K-1 VMEM rings of
+// intermediate steps; its skewed loop, DMA semaphores and 128-lane
+// alignment are scheduling for a sequential grid and are not carried over.
+// What is kept is the idea: read f once and write it once for K steps, so
+// HBM traffic per step falls from 72 B/cell towards 72/K.
 //
 // Design: each block owns a 32 x 32 region of cells (kTile) whose inner
 // (32 - 2K)^2 cells it writes; the K-cell ring around them is the halo.
@@ -17,15 +19,25 @@
 // then runs K steps between two shared-memory buffers. Step s is computed
 // on the cells at least s from the region's edge, which pull only from
 // cells valid at step s-1; the last step writes the inner cells straight
-// to f_out. Each cell uses cell_update or velocity_cell_update
-// (pipe_cell.cuh) with its wrapped global coordinates, so the BCs and the
-// mask apply exactly as in K single steps, and the y-periodic velocity
-// family needs no seam patch (the TPU kernel's chunks do not wrap in y, so
-// lb2d_tpu's model recomputes the seam rows with plain steps).
+// to f_out. Each cell uses cell_update, velocity_cell_update or
+// diffusion_cell_update (pipe_cell.cuh) with its wrapped global
+// coordinates, so the BCs and the mask apply exactly as in K single steps,
+// and the y-periodic families need no seam patch (the TPU kernel's chunks
+// do not wrap in y, so lb2d_tpu's models recompute the seam rows with
+// plain steps). The noise of a cell at stage s is the Philox normal of
+// (its global index, step0 + s - 1) (philox.cuh): a halo cell recomputed
+// here draws the same normal as the block that owns it, so K2 at any K
+// follows K single plain steps with noise on.
 //
 // Bound: per cell written, the block reads 1024/(32-2K)^2 cells' 36 B
 // (neighbouring blocks' overlapping halos mostly come from L2) and writes
 // 36 B once for K steps; it recomputes the halo, (32-2s)^2 cells at step s.
+// The noisy update adds ten Philox rounds and logf/sqrtf/cosf per
+// cell-step, paid again on every recomputed halo cell, so each physics has
+// its own best K (PERF.md: 3 for flow and diffusion, 2 for noisy_fisher
+// at 2048^2-4096^2; the diffusion update, though cheaper than flow's,
+// takes as long per cell-step, so the tile structure, not arithmetic,
+// bounds this kernel).
 // Two 36 KB buffers (plus 1 KB of mask) let three blocks share an SM. This
 // first version loads with plain loads and synchronises the whole block
 // between steps; cp.async/TMA double buffering, larger tiles and warp
@@ -46,6 +58,8 @@ constexpr int kMaxK = 8;                        // inner edge >= 16
 constexpr int kFlow = 0;          // pressure inlet/outlet, walls (a, b = rho)
 constexpr int kVelocityOpen = 1;  // velocity inlet, open outlet (a, b = u)
 constexpr int kVelocityPair = 2;  // velocity inlet and outlet (a, b = u)
+constexpr int kDiffusion = 3;     // periodic, linear feq, growth (a, b = u, v)
+constexpr int kNoisyFisher = 4;   // kDiffusion + Philox noise and clip
 
 __device__ __forceinline__ int wrap(int v, int n) {
   const int m = v % n;
@@ -56,7 +70,7 @@ template <int kPhys, bool kIncomp, bool kObstacle>
 __global__ void __launch_bounds__(kThreads, 3)
 temporal_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
                      const int* __restrict__ mask, int ny, int nx, int K,
-                     float omega, float a, float b) {
+                     StepParams prm) {
   extern __shared__ float smem[];
   float* cur = smem;
   float* nxt = smem + 9 * kPlane;
@@ -101,9 +115,12 @@ temporal_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
       v[7] = p[7 * kPlane + kTile + 1];
       v[8] = p[8 * kPlane + kTile - 1];
       const bool sol = kObstacle && solid[r * kTile + c];
-      if (kPhys == kFlow) {
-        cell_update<kIncomp, kObstacle>(v, out, gy, gx, ny, nx, sol, omega, a,
-                                        b);
+      if constexpr (kPhys == kFlow) {
+        cell_update<kIncomp, kObstacle>(v, out, gy, gx, ny, nx, sol, prm.omega,
+                                        prm.a, prm.b);
+      } else if constexpr (kPhys == kDiffusion || kPhys == kNoisyFisher) {
+        diffusion_cell_update<kPhys == kNoisyFisher>(
+            v, out, prm, (unsigned long long)gy * nx + gx, prm.step0 + (s - 1));
       } else {
         float up[3] = {0.0f, 0.0f, 0.0f};
         if (kPhys == kVelocityOpen && gx == nx - 1) {
@@ -112,7 +129,7 @@ temporal_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
           up[2] = p[7 * kPlane + kTile];
         }
         velocity_cell_update<kPhys == kVelocityPair, kIncomp, kObstacle>(
-            v, up, out, gx, nx, sol, omega, a, b);
+            v, up, out, gx, nx, sol, prm.omega, prm.a, prm.b);
       }
       if (last) {
         const size_t g = (size_t)gy * nx + gx;
@@ -134,8 +151,7 @@ temporal_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
 
 template <int kPhys, bool kIncomp, bool kObstacle>
 cudaError_t launch(const float* f_in, float* f_out, const int* mask, int ny,
-                   int nx, int K, float omega, float a, float b,
-                   cudaStream_t stream) {
+                   int nx, int K, const StepParams& prm, cudaStream_t stream) {
   const int smem = 18 * kPlane * (int)sizeof(float) + (kObstacle ? kPlane : 0);
   static bool configured = false;  // once per instantiation
   if (!configured) {
@@ -149,22 +165,21 @@ cudaError_t launch(const float* f_in, float* f_out, const int* mask, int ny,
   const dim3 grid((nx + inner - 1) / inner, (ny + inner - 1) / inner);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   temporal_step_kernel<kPhys, kIncomp, kObstacle>
-      <<<grid, kThreads, smem, stream>>>(f_in, f_out, mask, ny, nx, K, omega,
-                                         a, b);
+      <<<grid, kThreads, smem, stream>>>(f_in, f_out, mask, ny, nx, K, prm);
   return cudaGetLastError();
 }
 
 template <int kPhys>
 cudaError_t dispatch(const float* f_in, float* f_out, const int* mask, int ny,
-                     int nx, int K, float omega, float a, float b,
-                     int incompressible, void* stream) {
+                     int nx, int K, const StepParams& prm, int incompressible,
+                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (incompressible) {
-    return mask ? launch<kPhys, true, true>(f_in, f_out, mask, ny, nx, K, omega, a, b, s)
-                : launch<kPhys, true, false>(f_in, f_out, mask, ny, nx, K, omega, a, b, s);
+    return mask ? launch<kPhys, true, true>(f_in, f_out, mask, ny, nx, K, prm, s)
+                : launch<kPhys, true, false>(f_in, f_out, mask, ny, nx, K, prm, s);
   }
-  return mask ? launch<kPhys, false, true>(f_in, f_out, mask, ny, nx, K, omega, a, b, s)
-              : launch<kPhys, false, false>(f_in, f_out, mask, ny, nx, K, omega, a, b, s);
+  return mask ? launch<kPhys, false, true>(f_in, f_out, mask, ny, nx, K, prm, s)
+              : launch<kPhys, false, false>(f_in, f_out, mask, ny, nx, K, prm, s);
 }
 
 }  // namespace
@@ -180,8 +195,9 @@ extern "C" int lb2d_temporal_step(const float* f_in, float* f_out,
                                   void* stream) {
   if (ny < 1 || nx < 1 || k_steps < 1 || k_steps > kMaxK)
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch<kFlow>(f_in, f_out, mask, ny, nx, k_steps, omega,
-                              inlet_rho, outlet_rho, incompressible, stream);
+  const StepParams prm = {omega, inlet_rho, outlet_rho, 0.0f, 0.0f, 0u, 0u, 0ull};
+  return (int)dispatch<kFlow>(f_in, f_out, mask, ny, nx, k_steps, prm,
+                              incompressible, stream);
 }
 
 // k_steps velocity-inlet steps of f_in into f_out (inlet velocity u_w;
@@ -194,10 +210,29 @@ extern "C" int lb2d_temporal_velocity_step(const float* f_in, float* f_out,
                                            int incompressible, void* stream) {
   if (ny < 1 || nx < 2 || k_steps < 1 || k_steps > kMaxK)
     return (int)cudaErrorInvalidValue;
+  const StepParams prm = {omega, u_w, u_e, 0.0f, 0.0f, 0u, 0u, 0ull};
   if (velocity_outlet)
     return (int)dispatch<kVelocityPair>(f_in, f_out, mask, ny, nx, k_steps,
-                                        omega, u_w, u_e, incompressible,
-                                        stream);
-  return (int)dispatch<kVelocityOpen>(f_in, f_out, mask, ny, nx, k_steps,
-                                      omega, u_w, u_e, incompressible, stream);
+                                        prm, incompressible, stream);
+  return (int)dispatch<kVelocityOpen>(f_in, f_out, mask, ny, nx, k_steps, prm,
+                                      incompressible, stream);
+}
+
+// k_steps steps of the periodic advection-diffusion family of f_in into
+// f_out: imposed lattice velocity (u, v), growth g; with noisy, noise
+// amplitude dg, Philox key (key0, key1), global steps step0 .. step0 +
+// k_steps - 1, and the clip. Arguments and result as lb2d_temporal_step.
+extern "C" int lb2d_temporal_diffusion_step(
+    const float* f_in, float* f_out, int ny, int nx, int k_steps, float omega,
+    float u, float v, float g, float dg, int noisy, unsigned key0,
+    unsigned key1, unsigned long long step0, void* stream) {
+  if (ny < 1 || nx < 1 || k_steps < 1 || k_steps > kMaxK)
+    return (int)cudaErrorInvalidValue;
+  const StepParams prm = {omega, u, v, g, dg, key0, key1, step0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (noisy)
+    return (int)launch<kNoisyFisher, false, false>(f_in, f_out, nullptr, ny,
+                                                   nx, k_steps, prm, s);
+  return (int)launch<kDiffusion, false, false>(f_in, f_out, nullptr, ny, nx,
+                                               k_steps, prm, s);
 }

@@ -1,12 +1,23 @@
+from .diffusion import (
+    AdvectionDiffusion,
+    Diffusion,
+    ReactionAdvectionDiffusion,
+    ReactionAdvectionDiffusionStochastic,
+    ReactionDiffusion,
+)
 from .lattice_units import (
     LatticePipeFlow,
     LatticePipeFlowPeriodicBC,
     PipeFlowVelocityInlet,
 )
 from .pipe_flow import PipeFlow, PipeFlowCylinder, PipeFlowObstacles, disk_mask
+from .waves import NoisyAdvectedFisherWave
 
 __all__ = [
     "PipeFlow", "PipeFlowCylinder", "PipeFlowObstacles",
     "PipeFlowVelocityInlet", "disk_mask", "LatticePipeFlow",
     "LatticePipeFlowPeriodicBC",
+    "Diffusion", "AdvectionDiffusion", "ReactionDiffusion",
+    "ReactionAdvectionDiffusion", "ReactionAdvectionDiffusionStochastic",
+    "NoisyAdvectedFisherWave",
 ]

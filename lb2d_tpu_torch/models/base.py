@@ -40,6 +40,10 @@ class LBModel:
       many steps (temporal blocking) and ``_single_step`` runs the rest of
       ``run(n)``;
     * ``_run_n(f, n) -> f``: the whole ``run(n)`` in one call.
+
+    ``steps_taken`` counts the steps run so far; during ``run`` it is the
+    global index of the run's first step, which the stochastic models'
+    ``_run_n`` uses as the noise's step counter.
     """
 
     steps_per_call = 1

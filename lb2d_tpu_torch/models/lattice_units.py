@@ -8,7 +8,11 @@ import torch
 
 from ..core import D2Q9
 from ..ops import _build
-from ..ops.fused import temporal_velocity_step, velocity_step_reference
+from ..ops.fused import (
+    resident_velocity_run,
+    temporal_velocity_step,
+    velocity_step_reference,
+)
 from ..ops.moments import hydro_compressible
 from .pipe_flow import TEMPORAL_K, PipeFlow
 
@@ -68,14 +72,16 @@ class PipeFlowVelocityInlet(LatticePipeFlow):
     (``OLD/opencl.py:281-375``), with the stability fixes of DIVERGENCES.md
     #20-21; uniform initial state rho = 1, u = u_w, v = 0.
 
-    On CUDA it runs K2 with the velocity BCs (``backend="temporal"``,
+    On CUDA ``"auto"`` runs K2 with the velocity BCs (``backend="temporal"``,
     :func:`~lb2d_tpu_torch.ops.fused.temporal_velocity_step`), as the JAX
     model runs ``make_temporal_pipe_step(physics="velocity_inlet")`` on a
     TPU: ``TEMPORAL_K`` steps per launch, and one shorter launch for the
-    rest of ``run(n)``.
+    rest of ``run(n)``. ``backend="resident"``, asked for by name, runs all
+    of ``run(n)`` as one K3 launch with the same BCs
+    (:func:`~lb2d_tpu_torch.ops.fused.resident_velocity_run`).
     """
 
-    _kernel_backends = ("temporal",)
+    _kernel_backends = ("temporal", "resident")
 
     def __init__(self, u_w=0.1, omega=0.99, lx=400, ly=400,
                  outlet="zero_gradient", **kwargs):
@@ -95,6 +101,12 @@ class PipeFlowVelocityInlet(LatticePipeFlow):
         v0 = torch.zeros((ny, nx), **like)
         return self._feq_fn()(rho0, u0, v0).contiguous()
 
+    def _pick_backend(self, backend):
+        picked = super()._pick_backend(backend)
+        if backend == "auto" and picked == "resident":
+            return "temporal"  # the JAX model's choice at every grid size
+        return picked
+
     def _velocity_kwargs(self, mask):
         return dict(omega=self.omega, u_w=self.u_w, u_e=self.u_e,
                     outlet=self.outlet,
@@ -106,13 +118,20 @@ class PipeFlowVelocityInlet(LatticePipeFlow):
         return lambda f: velocity_step_reference(f, **kw)
 
     def _make_kernel_step(self):
-        """K2 over two buffers; ``run(n)`` is ``n // TEMPORAL_K`` launches
-        and one of ``n % TEMPORAL_K`` steps."""
+        """K2 over two buffers, ``run(n)`` as ``n // TEMPORAL_K`` launches
+        and one of ``n % TEMPORAL_K`` steps; or K3, ``run(n)`` as one
+        launch."""
         _build.load_library()  # build now, outside any timed region
         kw = self._velocity_kwargs(
             None if self.obstacle_mask is None
             else self.obstacle_mask.to(torch.int32).contiguous())
         spare = [torch.empty_like(self.state)]
+        if self.backend == "resident":
+            def run_resident(f, n):  # K3, in place
+                return resident_velocity_run(f, spare[0], n, **kw)
+
+            self._run_n = run_resident
+            return lambda f: run_resident(f, 1)
 
         def step(f, k=1):
             out = temporal_velocity_step(f, spare[0], k, **kw)

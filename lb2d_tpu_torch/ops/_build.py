@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``lb2d_tpu_torch/csrc`` have a plain C interface. On first
-use they are compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared
-library under ``lb2d_tpu_torch/_build/`` and loaded with ``ctypes`` (the
+use each ``.cu`` file is compiled with its own ``nvcc`` for Hopper
+(``sm_90a``), all at once, and the objects are linked into one shared
+library under ``lb2d_tpu_torch/_build/``, loaded with ``ctypes`` (the
 pattern of ``lb2d_tpu/native``). The library is rebuilt when a source is
 newer than it. No fast-math flags: the kernels keep IEEE division and
 denormals, as the plain PyTorch versions do.
@@ -23,9 +24,10 @@ _SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
 _HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
 LIB_PATH = _PKG / "_build" / "liblb2d_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U, _LL, _ULL = ctypes.c_uint, ctypes.c_longlong, ctypes.c_ulonglong
 # C entry point -> argument types; each returns a CUDA error code (int)
 _ENTRY_POINTS = {
     # f_in, f_out, mask, ny, nx, omega, rho in, rho out, incompressible, stream
@@ -36,8 +38,23 @@ _ENTRY_POINTS = {
     # incompressible, stream
     "lb2d_temporal_velocity_step": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I,
                                     _P],
+    # f_in, f_out, ny, nx, k_steps, omega, u, v, G, Dg, noisy, key0, key1,
+    # step0, stream
+    "lb2d_temporal_diffusion_step": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
+                                     _I, _U, _U, _ULL, _P],
     # f, scratch, mask, ny, nx, n, omega, rho in/out, incomp., stream
     "lb2d_resident_run": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P],
+    # f, scratch, mask, ny, nx, n, omega, u_w, u_e, velocity outlet,
+    # incompressible, stream
+    "lb2d_resident_velocity_run": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I,
+                                   _P],
+    # f, scratch, ny, nx, n, omega, u, v, G, Dg, noisy, key0, key1, step0,
+    # stream
+    "lb2d_resident_diffusion_run": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
+                                    _I, _U, _U, _ULL, _P],
+    # out, n, key0, key1, step, stream
+    "lb2d_normals": [_P, _LL, _U, _U, _ULL, _P],
+    "lb2d_philox_bits": [_P, _LL, _U, _U, _ULL, _P],
 }
 
 _lib = None
@@ -62,15 +79,32 @@ def _stale() -> bool:
     return any(p.stat().st_mtime > built for p in _SOURCES + _HEADERS)
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; raise with the stderr of the first
+    that fails, after every one has ended."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    errors = [proc.communicate()[1] for proc in procs]
+    for cmd, proc, err in zip(cmds, procs, errors):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{err}")
+
+
 def _compile():
     LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader sees old or new
+    nvcc, tag = _nvcc(), f"{os.getpid()}"
+    objs = [LIB_PATH.parent / f"{src.stem}.{tag}.o" for src in _SOURCES]
+    tmp = LIB_PATH.with_suffix(f".{tag}.tmp")
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(_SOURCES, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader sees old or new
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
 
 
 def load_library() -> ctypes.CDLL:

@@ -10,7 +10,7 @@ import torch
 
 from ..core import D2Q9, Lattice
 
-__all__ = ["feq_quadratic", "feq_incompressible"]
+__all__ = ["feq_quadratic", "feq_incompressible", "feq_linear"]
 
 
 def _consts(lattice: Lattice, rho: torch.Tensor):
@@ -40,3 +40,11 @@ def feq_incompressible(rho, u, v, lattice: Lattice = D2Q9) -> torch.Tensor:
     usq = u * u + v * v
     inner = rho + cu / cs2 + (cu * cu) / (2.0 * cs2 * cs2) - usq / (2.0 * cs2)
     return w * inner
+
+
+def feq_linear(rho, u, v, lattice: Lattice = D2Q9) -> torch.Tensor:
+    """Advection-diffusion feq, linear in velocity:
+    ``w_j rho (1 + c.u/cs2)`` (``D2Q9_diffusion.cl:27-36``)."""
+    w, cx, cy, cs2 = _consts(lattice, rho)
+    cu = cx * u + cy * v
+    return w * rho * (1.0 + cu / cs2)

@@ -1,26 +1,45 @@
-"""The CUDA pipe-flow kernels against their plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: they skip without a CUDA device. Imports no JAX, so it
 runs on a machine that has none; ``tests/conftest.py`` imports JAX, so run
 it there with ``python -m pytest --noconftest tests/test_torch_kernel_cuda.py``.
 Tolerance 1e-6 after up to 9 steps (~30 ulp at |f| <= 0.45): nvcc
 contracts multiply-adds into FMAs where PyTorch runs separate elementwise
-kernels.
+kernels. The diffusion family's kernels round every operation on their own
+and, on an H100 with torch 2.11, match the plain step bit for bit, noise
+included; they are held to the same 1e-6 (densities away from 1, where
+the noise's sqrt(rho (1 - rho)) would magnify an ulp of rho).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from lb2d_tpu_torch.models import PipeFlow, PipeFlowVelocityInlet
+from lb2d_tpu_torch.core import D2Q9
+from lb2d_tpu_torch.models import (
+    NoisyAdvectedFisherWave,
+    PipeFlow,
+    PipeFlowVelocityInlet,
+    ReactionAdvectionDiffusion,
+)
 from lb2d_tpu_torch.ops.fused import (
+    diffusion_run_reference,
     pipe_run_reference,
     pipe_step,
     pipe_step_reference,
+    resident_diffusion_run,
     resident_pipe_run,
+    resident_velocity_run,
+    temporal_diffusion_step,
     temporal_pipe_step,
     temporal_velocity_step,
     velocity_step_reference,
+)
+from lb2d_tpu_torch.ops.random import (
+    normals,
+    normals_reference,
+    philox4x32_10,
+    philox_bits,
 )
 
 pytestmark = pytest.mark.cuda
@@ -150,5 +169,137 @@ def test_velocity_model_kernel_backend_matches_eager(cuda):
         model.load_numpy_state(f0)
         model.run(50)
     assert temporal_velocity_step.launches > before
+    d = float((sim.state - eager.state).abs().max())
+    assert d <= 1e-5, d
+
+
+# the diffusion family: omega, imposed velocity and growth of
+# ReactionAdvectionDiffusionStochastic at 2048^2 (chip_smoke.py), noise
+# amplitude Dg = 0.05; step0 just below 2^32, so that the K steps cross
+# into the counter's high word
+DIFFUSION = dict(omega=1.6, u_lb=0.0029, v_lb=-0.0017, lb_G=0.0025)
+NOISE = dict(noisy=True, lb_Dg=0.05, seed=2**40 + 7, step0=2**32 - 3)
+PHYSICS = {"diffusion": {}, "noisy_fisher": NOISE}
+
+
+def _diffusion_inputs(device, shape):
+    ny, nx = shape
+    rng = np.random.RandomState(1)
+    rho = 0.1 + 0.8 * rng.rand(ny, nx)
+    w = np.asarray(D2Q9.w)[:, None, None]
+    f = w * rho * (1.0 + 0.01 * rng.randn(9, ny, nx))
+    return torch.tensor(f, dtype=torch.float32, device=device)
+
+
+@pytest.mark.parametrize("shape", [(254, 382), (128, 128)],
+                         ids=["254x382", "128x128"])
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("physics", list(PHYSICS))
+def test_temporal_diffusion_kernel_matches_reference(cuda, physics, k,
+                                                     shape):
+    f = _diffusion_inputs(cuda, shape)
+    kw = dict(DIFFUSION, **PHYSICS[physics])
+    before = temporal_diffusion_step.launches
+    out = temporal_diffusion_step(f, torch.empty_like(f), k, **kw)
+    want = diffusion_run_reference(f, k, **kw)
+    torch.cuda.synchronize()
+    assert temporal_diffusion_step.launches == before + 1
+    d = float((out - want).abs().max())
+    assert d <= TOL, d
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (31, 61)],
+                         ids=["256x256", "31x61"])
+@pytest.mark.parametrize("n", [8, 9])
+@pytest.mark.parametrize("physics", list(PHYSICS))
+def test_resident_diffusion_kernel_matches_reference(cuda, physics, n, shape):
+    f = _diffusion_inputs(cuda, shape)
+    kw = dict(DIFFUSION, **PHYSICS[physics])
+    g = f.clone()
+    before = resident_diffusion_run.launches
+    assert resident_diffusion_run(g, torch.empty_like(g), n, **kw) is g
+    want = diffusion_run_reference(f, n, **kw)
+    torch.cuda.synchronize()
+    assert resident_diffusion_run.launches == before + 1
+    d = float((g - want).abs().max())
+    assert d <= TOL, d
+
+
+@pytest.mark.parametrize("shape", [(32, 256), (31, 61)],
+                         ids=["32x256", "31x61"])
+@pytest.mark.parametrize("n", [8, 9])
+@pytest.mark.parametrize("outlet", ["zero_gradient", "velocity"])
+@pytest.mark.parametrize("equilibrium,obstacle", VARIANTS, ids=IDS)
+def test_resident_velocity_kernel_matches_reference(cuda, equilibrium,
+                                                    obstacle, outlet, n,
+                                                    shape):
+    f, kw = _inputs(cuda, shape, equilibrium, obstacle)
+    kw = dict(kw, outlet=outlet, u_w=0.05, u_e=0.04)
+    del kw["inlet_rho"], kw["outlet_rho"]
+    g = f.clone()
+    before = resident_velocity_run.launches
+    assert resident_velocity_run(g, torch.empty_like(g), n, **kw) is g
+    want = f
+    for _ in range(n):
+        want = velocity_step_reference(want, **kw)
+    torch.cuda.synchronize()
+    assert resident_velocity_run.launches == before + 1
+    d = float((g - want).abs().max())
+    assert d <= TOL, d
+
+
+@pytest.mark.parametrize("step", [0, 5, 2**32 + 1])
+def test_normals_kernel_matches_reference(cuda, step):
+    """The Philox words bit for bit; the normals within 5e-6, the card's
+    logf/cosf against torch's (|eta| < 6, a few ulp each)."""
+    seed, ny, nx = 2**33 + 12345, 254, 382
+    bits = philox_bits(seed, step, ny * nx, cuda)
+    cell = torch.arange(ny * nx, dtype=torch.int64, device=cuda)
+    want_bits = philox4x32_10((cell, step & 0xFFFFFFFF, step >> 32, 0),
+                              (seed & 0xFFFFFFFF, seed >> 32))
+    assert torch.equal(bits, want_bits)
+    before = normals.launches
+    eta = normals(seed, step, (ny, nx), cuda)
+    want = normals_reference(seed, step, ny, nx, device=cuda)
+    torch.cuda.synchronize()
+    assert normals.launches == before + 1
+    assert torch.isfinite(eta).all()
+    d = float((eta - want).abs().max())
+    assert d <= 5e-6, d
+
+
+@pytest.mark.parametrize("noisy", [False, True], ids=["det", "noisy"])
+def test_diffusion_model_kernel_backends_match_eager(cuda, noisy):
+    """20 steps through each backend from one state: K3 in one launch, K2 as
+    launches of temporal_k steps and one of the rest."""
+    grid = dict(N=42, z=0.1, Lx=0.31, Ly=0.31, device=cuda)
+    if noisy:
+        make = lambda b: NoisyAdvectedFisherWave(vx=1.0, vy=0.5, vc=1.0,
+                                                 backend=b, **grid)
+    else:
+        make = lambda b: ReactionAdvectionDiffusion(g=5.0, D=0.01, vx=1.0,
+                                                    vy=0.5, backend=b, **grid)
+    eager = make("eager")
+    eager.run(7)
+    eager.run(13)
+    assert make("auto").backend == "resident"
+    for backend in ("resident", "temporal"):
+        sim = make(backend)
+        sim.run(7)
+        sim.run(13)
+        d = float((sim.state - eager.state).abs().max())
+        assert d <= 1e-5, (backend, d)
+
+
+def test_velocity_model_resident_backend_matches_eager(cuda):
+    kw = dict(u_w=0.05, omega=1.2, lx=127, ly=95, device=cuda)
+    eager = PipeFlowVelocityInlet(backend="eager", **kw)
+    sim = PipeFlowVelocityInlet(backend="resident", **kw)
+    before = resident_velocity_run.launches
+    f0 = eager.state_numpy() * np.float32(1.001)  # start off equilibrium
+    for model in (eager, sim):
+        model.load_numpy_state(f0)
+        model.run(50)
+    assert resident_velocity_run.launches == before + 1
     d = float((sim.state - eager.state).abs().max())
     assert d <= 1e-5, d
