@@ -16,12 +16,17 @@ set to 0 just before it and read just after:
   at 2048^2 (K2 diffusion), ``ReactionAdvectionDiffusionStochastic`` at
   2048^2 (K2 noisy_fisher), ``NoisyAdvectedFisherWave`` at 256^2 (K3
   noisy_fisher, and the Philox normals of its next step, P1) and
-  ``ReactionAdvectionDiffusion`` at 512^2 (K3 diffusion).
+  ``ReactionAdvectionDiffusion`` at 512^2 (K3 diffusion);
+* the multifield slice, at the reference's own sizes: ``FisherExpansion``
+  at 2048^2 with 2 populations (K4 fisher), ``Expansion`` at 1024^2 with 2
+  populations and the nutrient (K4 expansion), and K5, the Expansion's
+  seam-band op, through its own entry point on that model's band.
 
 It checks the physics (Poiseuille profile through each flow backend,
 cylinder mass, Gaussian spreading, advection, mass, noise amplitude and
-normal moments), sweeps K2's steps per launch for the diffusion physics,
-and prints the measured numbers. Every phase raises on failure; the last
+normal moments, wall mass conservation and the logistic cap, nutrient
+consumption), sweeps K2's steps per launch for the diffusion physics and
+K4's for the multifield physics, and prints the measured numbers. Every phase raises on failure; the last
 line is the JSON result and is printed only when all phases passed. Uses
 no JAX.
 """
@@ -39,6 +44,8 @@ from lb2d_tpu_torch.core import D2Q9
 from lb2d_tpu_torch.models import (
     AdvectionDiffusion,
     Diffusion,
+    Expansion,
+    FisherExpansion,
     NoisyAdvectedFisherWave,
     PipeFlow,
     PipeFlowCylinder,
@@ -50,17 +57,27 @@ from lb2d_tpu_torch.models.diffusion import (
     DIFFUSION_TEMPORAL_K,
     NOISY_TEMPORAL_K,
 )
+from lb2d_tpu_torch.models.multifield import (
+    EXPANSION_TEMPORAL_K,
+    FISHER_TEMPORAL_K,
+)
 from lb2d_tpu_torch.models.pipe_flow import TEMPORAL_K
 from lb2d_tpu_torch.ops import _build
 from lb2d_tpu_torch.ops.fused import (
+    MAX_MULTIFIELD_FIELDS,
     MAX_TEMPORAL_K,
     diffusion_run_reference,
+    expansion_band_reference,
+    expansion_band_step,
+    multifield_max_k,
+    multifield_run_reference,
     pipe_run_reference,
     pipe_step,
     resident_diffusion_run,
     resident_pipe_run,
     resident_velocity_run,
     temporal_diffusion_step,
+    temporal_multifield_step,
     temporal_pipe_step,
     temporal_velocity_step,
     velocity_step_reference,
@@ -92,6 +109,14 @@ NOISY_WAVE = dict(N=127, z=0.1, D=1.0, g=50.0, Nc=10.0, Lx=0.202,
                   Ly=0.202)  # 256^2, benchmarks/tpu_tests.py:87
 REACTION = dict(N=170, g=5.0, z=0.1, D=0.01, vx=1.0, vy=0.5, vc=1.0,
                 Lx=0.302, Ly=0.302)  # 512^2, benchmarks/profile_r4.py:65-70
+# the multifield slice's workloads, at the sizes the reference runs them
+FISHER_EXP = dict(Lx=4.1, Ly=4.1, mu_standard=1.0, mu_list=[1.0, 1.0],
+                  D_standard=1.0, D_list=[1.0, 1.0], N=1023,
+                  initial_frac_widths=[0.5, 0.5],
+                  initial_frac_indices=[0, 1])  # 2048^2, run_all.py:100-110
+EXPANSION = dict(Lx=4.1, Ly=4.1, mu_standard=1.0, mu_list=[1.0, 0.8],
+                 D_standard=1.0, D_list=[1.0, 1.2], N=511, Nb=10.0,
+                 Dc=1.0)  # 1024^2, benchmarks/profile_r4.py:38-48
 KERNEL_TOL = 1e-6   # ~30 ulp at |f| <= 0.45: nvcc's FMA contraction; the
 # noisy kernels too: their Philox bits are exact, their normals a few ulp off
 NORMALS_TOL = 5e-6  # |eta| < 6: the card's logf/cosf against torch's
@@ -102,6 +127,9 @@ INLET_STEPS = 1000   # 401x401 velocity inlet: 334 K2 launches, or one K3
 DIFFUSION_STEPS = 2000  # 2048^2: run_all.py's step count
 RESIDENT_DIFFUSION_STEPS = 20000  # 256^2 and 512^2: one K3 launch each
 RESIDENT_CHECK_STEPS = (8, 9)  # both parities of the K3 buffer swap
+FISHER_STEPS = 1000     # 2048^2 FisherExpansion
+EXPANSION_STEPS = 2048  # 1024^2 Expansion, profile_r4.py's step count
+BAND_LAUNCHES = 100     # K5 on the Expansion's seam band
 STEP0 = 2**32 - 3   # a global step whose K steps cross the counter's high word
 H100_SXM = "H100 80GB HBM3"
 H100_SXM_HBM = 3.35e12  # B/s, NVIDIA's H100 SXM data sheet
@@ -113,6 +141,9 @@ FLOW_OPS = 150        # BCs, 3 moments, 9 x (feq + BGK)
 DIFFUSION_OPS = 95    # density, growth, 9 x (linear feq + BGK + source)
 NOISY_OPS = 220       # + noise, clip, 10 Philox rounds, Box-Muller
 NORMAL_OPS = 112      # 10 Philox rounds (8 ops + 2 key adds), Box-Muller
+FIELD_OPS = 70        # per field: walls, density, 9 x (linear feq + BGK + source)
+POPULATION_NOISE_OPS = 70  # per noisy population: half a Philox call, one
+# Box-Muller normal, the Milstein term and the clips
 
 
 def device_phase() -> str:
@@ -351,7 +382,8 @@ COUNTERS = {"K1": pipe_step, "K2": temporal_pipe_step,
             "K3v": resident_velocity_run,
             "K2 diffusion family": temporal_diffusion_step,
             "K3 diffusion family": resident_diffusion_run, "P1": normals,
-            "philox_bits": philox_bits}
+            "philox_bits": philox_bits, "K4": temporal_multifield_step,
+            "K5": expansion_band_step}
 
 
 def _window(label, drive, expected):
@@ -793,14 +825,308 @@ def diffusion_physics_phase(adv, sto, wave, rad, eta, mass0):
         raise RuntimeError("noise amplitude off by more than 3%")
 
 
-def _bound(cells, steps, ops_per_cell, bytes_per_cell=BYTES_PER_CELL):
-    """The least time the card could take (ms): each input read and each
-    output written once over the data sheet's HBM rate, or the operations
-    over its float32 rate, whichever is larger."""
-    t_bytes = cells * bytes_per_cell / H100_SXM_HBM
-    t_ops = cells * steps * ops_per_cell / H100_SXM_FP32
+# -- the multifield slice --------------------------------------------------
+
+def _mf_random_state(F, ny, nx, physics):
+    """f = w rho (1 + 1% noise) (numpy seed 2): Fisher densities summing to
+    at most 0.9; Expansion densities in [0, 0.3], many below the 0.01
+    cutoff, and a nutrient in [0, 1]."""
+    rng = np.random.RandomState(2)
+    if physics == "fisher":
+        rho = 0.9 * rng.rand(F, ny, nx) / F
+    else:
+        rho = 0.3 * rng.rand(F, ny, nx) ** 2
+        rho[-1] = rng.rand(ny, nx)
+    w = np.asarray(D2Q9.w)[:, None, None, None]
+    return torch.tensor(w * rho * (1.0 + 0.01 * rng.randn(9, F, ny, nx)),
+                        dtype=torch.float32, device="cuda")
+
+
+def _mf_kwargs(F, physics):
+    """Per-field constants for F fields (numpy seed F), with an imposed
+    velocity; Expansion noise on populations 0, 2, 3, 5, ... (Dg = 0 on
+    every third, so that pairs with one noiseless member are checked)."""
+    rng = np.random.RandomState(F)
+    P = F if physics == "fisher" else F - 1
+    kw = dict(omegas=(1.9 + 0.09 * rng.rand(P)).astype(np.float32),
+              lb_G=(1e-4 * (1 + rng.rand(P))).astype(np.float32),
+              u_lb=0.0021, v_lb=-0.0013, physics=physics)
+    if physics == "expansion":
+        kw.update(omega_nutrient=np.float32(1.95), cutoff=0.01,
+                  seed=2**40 + 7,
+                  lb_Dg=np.where(np.arange(P) % 3 == 1, 0.0,
+                                 0.02 * (1 + rng.rand(P))).astype(np.float32))
+    return kw
+
+
+_BAND_ARGS = ("omegas", "omega_nutrient", "lb_G", "lb_Dg", "cutoff", "u_lb",
+              "v_lb")
+
+
+def _band_of(f, B):
+    """Rows [-B, B) of a [9, F, ny, nx] state, contiguous."""
+    return torch.cat([f[:, :, -B:], f[:, :, :B]], dim=2).contiguous()
+
+
+def compare_k4(kw, f0, k, step0=STEP0):
+    out = temporal_multifield_step(f0, torch.empty_like(f0), k, step0=step0,
+                                   **kw)
+    return _max_diff(out, multifield_run_reference(f0, k, step0=step0, **kw))
+
+
+def compare_k5(kw, f0, k, B, step0=STEP0):
+    """K5 on rows [-B, B) of f0 against its plain version and against rows
+    [-k, k) of K4 on the whole grid; returns the larger max |d|."""
+    kw = dict(kw)
+    kw.pop("physics")
+    ny = f0.shape[2]
+    args = [kw[n] for n in _BAND_ARGS]
+    band_kw = dict(seed=kw["seed"], step0=step0, row0=ny - B, ny=ny)
+    band = _band_of(f0, B)
+    got = expansion_band_step(band, k, *args, **band_kw)
+    plain = expansion_band_reference(band, k, *args, **band_kw)
+    whole = temporal_multifield_step(f0, torch.empty_like(f0), k,
+                                     physics="expansion", step0=step0, **kw)
+    return max(_max_diff(got, plain), _max_diff(got, _band_of(whole, k)))
+
+
+def multifield_kernel_phase(fe, ex):
+    """K4 and K5 against their plain versions: at the main path's models
+    and shapes (from step STEP0, noise on), and on random states at an
+    unaligned grid for F = 1, 2, 3 and the largest F. K4 fisher is held to
+    KERNEL_TOL; K4 expansion and K5, whose clips turn an ulp into a jump,
+    to 0."""
+    worst = dict.fromkeys(("K4f", "K4e", "K5"), 0.0)
+
+    def check(key, label, d):
+        tol = KERNEL_TOL if key == "K4f" else 0.0
+        print(f"{label}: max|d| = {d:.3e} (limit {tol:g})", flush=True)
+        if not d <= tol:
+            raise RuntimeError(f"{label}: kernel disagrees, {d} > {tol}")
+        worst[key] = max(worst[key], d)
+
+    rng = np.random.RandomState(0)
+    noise = torch.tensor((1 + 0.01 * rng.randn(*fe.state.shape)).astype(
+        np.float32), device="cuda")
+    f_fe = (fe.state * noise).contiguous()
+    for k in range(1, multifield_max_k(fe.num_fields) + 1):
+        check("K4f", f"K4 fisher vs plain {fe.ny}x{fe.nx} F={fe.num_fields} "
+              f"model state (1% perturbed), k={k}",
+              compare_k4(fe.step_kwargs(), f_fe, k))
+    del f_fe, noise
+    kw = ex.step_kwargs()
+    for k in sorted({1, ex.temporal_k, multifield_max_k(ex.num_fields)}):
+        check("K4e", f"K4 expansion vs plain {ex.ny}x{ex.nx} "
+              f"F={ex.num_fields} model state, noise on, k={k}",
+              compare_k4(kw, ex.state, k))
+        for B in (2 * k, 2 * k + 5):
+            check("K5", f"K5 vs plain and vs K4 rows [-{k}, {k}), band of "
+                  f"{2 * B} rows of the {ex.ny}x{ex.nx} model state, k={k}",
+                  compare_k5(kw, ex.state, k, B))
+    for F in (1, 2, 3, MAX_MULTIFIELD_FIELDS):
+        f0 = _mf_random_state(F, 254, 382, "fisher")
+        for k in range(1, multifield_max_k(F) + 1):
+            check("K4f", f"K4 fisher vs plain 254x382 F={F} random rho, k={k}",
+                  compare_k4(_mf_kwargs(F, "fisher"), f0, k))
+        if F == 1:
+            continue  # Expansion has a nutrient and at least one population
+        f0 = _mf_random_state(F, 254, 382, "expansion")
+        kw = _mf_kwargs(F, "expansion")
+        for k in range(1, multifield_max_k(F) + 1):
+            check("K4e", f"K4 expansion vs plain 254x382 F={F} random rho, "
+                  f"noise on, k={k}", compare_k4(kw, f0, k))
+        check("K5", f"K5 vs plain and vs K4 rows, 254x382 F={F} random rho, "
+              f"k={multifield_max_k(F)}",
+              compare_k5(kw, f0, multifield_max_k(F), 2 * multifield_max_k(F)))
+    return worst
+
+
+def multifield_k_sweep_phase(fe, ex, card):
+    """Device ms per step of K4 at K = 1..K_max for each physics, at the
+    main path's 2048^2 (fisher) and 1024^2 (expansion) (CUDA events, 30
+    launches each)."""
+    best = {}
+    for label, sim in (("fisher", fe), ("expansion", ex)):
+        kw = sim.step_kwargs()
+        bufs = [sim.state.clone(), torch.empty_like(sim.state)]
+        per_step = {}
+        for k in range(1, multifield_max_k(sim.num_fields) + 1):
+            def launch(k=k):
+                temporal_multifield_step(bufs[0], bufs[1], k, step0=STEP0,
+                                         **kw)
+                bufs.reverse()
+
+            launch()
+            per_step[k] = _events_ms(launch, 30) / k
+        best[label] = min(per_step, key=per_step.get)
+        print(f"K sweep, K4 {label} at {sim.ny}x{sim.nx} F={sim.num_fields}, "
+              f"ms per step: "
+              + ", ".join(f"K={k} {t:.5f}" for k, t in per_step.items())
+              + f"; fastest K={best[label]} (model uses "
+              f"K={sim.temporal_k}); card: {card}", flush=True)
+        del bufs
+    return best
+
+
+def _band_launch_args(ex, k):
+    kw = ex.step_kwargs()
+    B = 2 * k
+    band = _band_of(ex.state, B)
+    args = [kw[n] for n in _BAND_ARGS]
+    band_kw = dict(seed=kw["seed"], step0=ex.steps_taken, row0=ex.ny - B,
+                   ny=ex.ny)
+    return band, args, band_kw
+
+
+def multifield_timing_phase(fe, ex):
+    """Device time per launch of K4 (each physics, at the model's K) and K5
+    (a band of 4K rows at the Expansion's K) at the main path's shapes, and
+    of the plain versions doing the same work (CUDA events)."""
+    times, steps = {}, {}
+    for key, sim in (("K4f", fe), ("K4e", ex)):
+        kw, k = sim.step_kwargs(), sim.temporal_k
+        bufs = [sim.state.clone(), torch.empty_like(sim.state)]
+
+        def k4():
+            temporal_multifield_step(bufs[0], bufs[1], k, step0=STEP0, **kw)
+            bufs.reverse()
+
+        def plain():
+            bufs[0] = multifield_run_reference(bufs[0], k, step0=STEP0, **kw)
+
+        k4()
+        times[key] = _events_ms(k4, 100)
+        plain()
+        times["plain " + key] = _events_ms(plain, 3)
+        steps[key] = k
+        del bufs
+    k = ex.temporal_k
+    band, args, band_kw = _band_launch_args(ex, k)
+    expansion_band_step(band, k, *args, **band_kw)
+    times["K5"] = _events_ms(
+        lambda: expansion_band_step(band, k, *args, **band_kw), 200)
+    expansion_band_reference(band, k, *args, **band_kw)
+    times["plain K5"] = _events_ms(
+        lambda: expansion_band_reference(band, k, *args, **band_kw), 10)
+    steps["K5"] = k
+    for key, sim in (("K4f", fe), ("K4e", ex), ("K5", ex)):
+        shape = (f"band of {band.shape[2]} rows x {sim.nx}" if key == "K5"
+                 else f"{sim.ny}x{sim.nx}")
+        print(f"{key} at {shape} F={sim.num_fields}: {times[key]:.4f} ms per "
+              f"launch of {steps[key]} step(s); plain version "
+              f"{times['plain ' + key]:.4f} ms for the same work (CUDA "
+              f"events)", flush=True)
+    return times, steps, band.shape[2]
+
+
+def multifield_main_path_phase(fe, ex, card):
+    """The multifield slice's paths as a user runs them (``run(n,
+    timed=True)`` on the models ``backend="auto"`` built), each in its own
+    counted window, then K5's own path (its entry point on the Expansion's
+    seam band, which ``Expansion.run`` does not need); then the plain
+    (eager) models at the same sizes."""
+    for sim in (fe, ex):  # warm every kernel the paths launch
+        sim.run(sim.temporal_k + 1)
+    launches = {}
+    for key, sim, steps in (("K4f", fe, FISHER_STEPS),
+                            ("K4e", ex, EXPANSION_STEPS)):
+        launches[key] = _window(
+            f"{type(sim).__name__} {sim.ny}x{sim.nx} F={sim.num_fields}",
+            lambda sim=sim, steps=steps: sim.run(steps, timed=True),
+            {"K4": -(-steps // sim.temporal_k)})["K4"]
+    k = ex.temporal_k
+    band, args, band_kw = _band_launch_args(ex, k)
+    expansion_band_step(band, k, *args, **band_kw)
+
+    def drive_band():
+        for i in range(BAND_LAUNCHES):
+            expansion_band_step(band, k, *args,
+                                **dict(band_kw, step0=band_kw["step0"] + i))
+
+    launches["K5"] = _window(
+        f"expansion_band_step on the {ex.ny}x{ex.nx} Expansion's seam band "
+        f"({band.shape[2]} rows), {BAND_LAUNCHES} launches of {k} steps",
+        drive_band, {"K5": BAND_LAUNCHES})["K5"]
+
+    plain = {}
+    for key, make in (("K4f", lambda: FisherExpansion(
+            backend="eager", device="cuda", **FISHER_EXP)),
+                      ("K4e", lambda: Expansion(backend="eager",
+                                                device="cuda", **EXPANSION))):
+        ref = make()
+        ref.run(2)
+        ref.run(10, timed=True)
+        plain[key] = ref.last_mlups
+        del ref
+    for key, sim, steps in (("K4f", fe, FISHER_STEPS),
+                            ("K4e", ex, EXPANSION_STEPS)):
+        print(f"main path {type(sim).__name__} {sim.ny}x{sim.nx} "
+              f"F={sim.num_fields} backend={sim.backend}: "
+              f"{sim.last_mlups:.1f} MLUPS over {steps} steps, "
+              f"{launches[key]} launches of K4; plain (eager) "
+              f"{plain[key]:.1f} MLUPS; card: {card}", flush=True)
+    return launches
+
+
+def multifield_physics_phase(fe, ex, ex_rho0):
+    """The outputs of the multifield paths, by the repo's own checks
+    (tests/test_multifield.py): finite fields of the reference layout, the
+    logistic cap, mass through the no-flux walls, nutrient consumption."""
+    for sim in (fe, ex):
+        if not torch.isfinite(sim.state).all():
+            raise RuntimeError(f"{type(sim).__name__}: non-finite state")
+        rho = sim.get_physical_fields()["rho"]
+        if rho.shape != (sim.nx, sim.ny, sim.num_fields):
+            raise RuntimeError(f"{type(sim).__name__}: bad field shape")
+    rho_tot = float(fe.device_field("rho").max())
+    print(f"FisherExpansion {fe.ny}x{fe.nx} after {fe.steps_taken} steps: "
+          f"max rho_tot {rho_tot:.6f} (limit 1.05)", flush=True)
+    if not rho_tot < 1.05:
+        raise RuntimeError("FisherExpansion: rho_tot above the logistic cap")
+    sim = FisherExpansion(Lx=4.0, Ly=4.0, mu_standard=1.0, mu_list=[0.0, 0.0],
+                          D_standard=1.0, D_list=[1.0, 1.0], N=10,
+                          initial_frac_widths=[0.5, 0.5],
+                          initial_frac_indices=[0, 1], device="cuda")
+    sim.run(200)
+    m0 = float(sim.state.double().sum())
+    sim.run(400)
+    m1 = float(sim.state.double().sum())
+    print(f"FisherExpansion {sim.ny}x{sim.nx} mu=0 backend={sim.backend}: "
+          f"mass {m0:.6f} -> {m1:.6f} over 400 steps, relative change "
+          f"{abs(m1 - m0) / m0:.3e} (limit 2e-4)", flush=True)
+    if not abs(m1 - m0) < 2e-4 * m0:
+        raise RuntimeError("FisherExpansion: mass leaks through the walls")
+    if float(ex.state.min()) < 0.0:
+        raise RuntimeError("Expansion: negative populations after the clips")
+    P = ex.num_populations
+    rho = density(ex.state).double().sum(dim=(1, 2))
+    pop0, pop1 = float(ex_rho0[:P].sum()), float(rho[:P].sum())
+    nut0, nut1 = float(ex_rho0[P]), float(rho[P])
+    drift = abs(pop1 + nut1 - pop0 - nut0) / (pop0 + nut0)
+    print(f"Expansion {ex.ny}x{ex.nx} after {ex.steps_taken} steps: "
+          f"populations {pop0:.3f} -> {pop1:.3f}, nutrient {nut0:.3f} -> "
+          f"{nut1:.3f}, total changed by {drift:.3e} (limit 2e-2)",
+          flush=True)
+    if not (nut1 < nut0 and pop1 > pop0 and drift < 2e-2):
+        raise RuntimeError("Expansion: nutrient not consumed, populations "
+                           "not grown, or mass not conserved")
+
+
+def _bound(n_bytes, n_ops):
+    """The least time the card could take (ms): ``n_bytes`` (each input read
+    and each output written once) over the data sheet's HBM rate, or
+    ``n_ops`` over its float32 rate, whichever is larger."""
+    t_bytes = n_bytes / H100_SXM_HBM
+    t_ops = n_ops / H100_SXM_FP32
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _multifield_ops(sim):
+    """Operations per cell-step of a multifield model's update."""
+    noisy = (int(np.count_nonzero(sim.lb_Dg)) if sim.physics == "expansion"
+             else 0)
+    return FIELD_OPS * sim.num_fields + POPULATION_NOISE_OPS * noisy
 
 
 def main():
@@ -815,9 +1141,11 @@ def main():
     sto = ReactionAdvectionDiffusionStochastic(device="cuda", **STOCHASTIC)
     wave = NoisyAdvectedFisherWave(device="cuda", **NOISY_WAVE)
     rad = ReactionAdvectionDiffusion(device="cuda", **REACTION)
+    fe = FisherExpansion(device="cuda", **FISHER_EXP)
+    ex = Expansion(device="cuda", **EXPANSION)
     sims = {"main": main_sim, "small": small, "cylinder": cyl,
             "inlet": inlet, "inlet_k3": inlet_k3, "adv": adv, "sto": sto,
-            "wave": wave, "rad": rad}
+            "wave": wave, "rad": rad, "fisher": fe, "expansion": ex}
     shapes = {k: (sim.backend, sim.ny, sim.nx) for k, sim in sims.items()}
     print(f"backend='auto' picked {shapes}", flush=True)
     if shapes != {"main": ("temporal", 4096, 4096),
@@ -828,23 +1156,33 @@ def main():
                   "adv": ("temporal", 2048, 2048),
                   "sto": ("temporal", 2048, 2048),
                   "wave": ("resident", 256, 256),
-                  "rad": ("resident", 512, 512)}:
+                  "rad": ("resident", 512, 512),
+                  "fisher": ("temporal", 2048, 2048),
+                  "expansion": ("temporal", 1024, 1024)}:
         raise RuntimeError(f"unexpected backends or grids {shapes}")
     max_err = kernel_phase(main_sim, small, cyl, inlet)
     max_err.update(diffusion_kernel_phase(adv, sto, wave, rad, inlet))
+    max_err.update(multifield_kernel_phase(fe, ex))
     times, steps, copy_bw = timing_phase(main_sim, small, inlet)
     more_times, more_steps = diffusion_timing_phase(adv, sto, wave, rad,
                                                     inlet)
     times.update(more_times)
     steps.update(more_steps)
+    more_times, more_steps, band_rows = multifield_timing_phase(fe, ex)
+    times.update(more_times)
+    steps.update(more_steps)
     k_sweep_phase(adv, sto, card)
+    multifield_k_sweep_phase(fe, ex, card)
     launches = main_path_phase(main_sim, small, inlet, card, times, copy_bw)
     mass0 = float(density(adv.state).double().sum())
     more_launches, eta = diffusion_main_path_phase(adv, sto, wave, rad,
                                                    inlet_k3, card)
     launches.update(more_launches)
+    ex_rho0 = density(ex.state).double().sum(dim=(1, 2))
+    launches.update(multifield_main_path_phase(fe, ex, card))
     physics_phase(cyl)
     diffusion_physics_phase(adv, sto, wave, rad, eta, mass0)
+    multifield_physics_phase(fe, ex, ex_rho0)
     k2, k3 = "lb2d_tpu/ops/fused.py:888", "lb2d_tpu/ops/fused.py:1193"
     kernels = {  # key: (wrapper, source, TPU kernel, model, ops per cell)
         "K1": ("pipe_step", "pipe_step.cu", "lb2d_tpu/ops/fused.py:682",
@@ -867,10 +1205,31 @@ def main():
         "P1": ("normals", "normals.cu", "benchmarks/tpu_tests.py:25", sto,
                NORMAL_OPS),
     }
+    k4 = "lb2d_tpu/ops/fused.py:1539"
+    kernels.update({
+        "K4f": ("temporal_multifield_step (fisher)", "multifield_step.cu",
+                k4, fe, _multifield_ops(fe)),
+        "K4e": ("temporal_multifield_step (expansion)", "multifield_step.cu",
+                k4, ex, _multifield_ops(ex)),
+        "K5": ("expansion_band_step", "multifield_step.cu",
+               "lb2d_tpu/ops/fused.py:1784", ex, _multifield_ops(ex)),
+    })
     rows = []
     for key, (name, src, tpu, sim, ops) in kernels.items():
-        bound_ms, bound_by = _bound(sim.num_cells, steps[key], ops,
-                                    4 if key == "P1" else BYTES_PER_CELL)
+        cells = sim.num_cells
+        per_cell = 4 if key == "P1" else BYTES_PER_CELL
+        shape = [sim.ny, sim.nx]
+        if key in ("K4f", "K4e"):
+            per_cell = BYTES_PER_CELL * sim.num_fields
+            shape = [sim.num_fields, sim.ny, sim.nx]
+        elif key == "K5":  # reads the band, writes its central 2K rows
+            cells = (band_rows + 2 * steps[key]) * sim.nx
+            per_cell = BYTES_PER_CELL // 2 * sim.num_fields
+            shape = [sim.num_fields, band_rows, sim.nx]
+        # K5 computes at least the 2K emitted rows at each of its K steps
+        work = (2 * steps[key] * sim.nx if key == "K5" else sim.num_cells)
+        bound_ms, bound_by = _bound(cells * per_cell,
+                                    work * steps[key] * ops)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"lb2d_tpu_torch/csrc/{src}", "replaces": tpu,
@@ -878,8 +1237,7 @@ def main():
             "ms": times[key], "plain_ms": times["plain " + key],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes the same
-            "steps_per_launch": steps[key],
-            "shape": [sim.ny, sim.nx]})
+            "steps_per_launch": steps[key], "shape": shape})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,7 @@ from .diffusion import (
     ReactionAdvectionDiffusionStochastic,
     ReactionDiffusion,
 )
+from .multifield import Expansion, FisherExpansion
 from .lattice_units import (
     LatticePipeFlow,
     LatticePipeFlowPeriodicBC,
@@ -19,5 +20,5 @@ __all__ = [
     "LatticePipeFlowPeriodicBC",
     "Diffusion", "AdvectionDiffusion", "ReactionDiffusion",
     "ReactionAdvectionDiffusion", "ReactionAdvectionDiffusionStochastic",
-    "NoisyAdvectedFisherWave",
+    "NoisyAdvectedFisherWave", "FisherExpansion", "Expansion",
 ]

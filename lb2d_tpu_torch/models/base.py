@@ -1,7 +1,8 @@
 """Base machinery shared by the port's models (counterpart of
 ``lb2d_tpu.models.base``).
 
-A model owns its populations ``state`` (``[Q, ny, nx]`` on its device) and a
+A model owns its populations ``state`` (``[Q, ny, nx]`` on its device,
+``[Q, F, ny, nx]`` for the multifield models) and a
 ``step(f) -> f`` function from :meth:`make_step`. ``run(n)`` advances ``n``
 steps through it (or through the run hooks that ``make_step`` sets); on
 CUDA each call enqueues kernels on PyTorch's current stream and the host
@@ -95,13 +96,14 @@ class LBModel:
 
     # -- state carried across packages ------------------------------------------
     def state_numpy(self) -> np.ndarray:
-        """The populations as a float32 numpy array ``[Q, ny, nx]`` (in JAX:
-        ``np.asarray(sim.state)``)."""
+        """The populations as a numpy array of the state's shape and dtype
+        (in JAX: ``np.asarray(sim.state)``)."""
         return self.state.detach().cpu().numpy().copy()
 
     def load_numpy_state(self, f) -> None:
-        """Replace the populations with a ``[Q, ny, nx]`` numpy array, for
-        example the state of the JAX model built from the same arguments."""
+        """Replace the populations with a numpy array of the state's shape,
+        for example the state of the JAX model built from the same
+        arguments."""
         f = np.ascontiguousarray(f)
         if f.shape != tuple(self.state.shape):
             raise ValueError(f"state must be {tuple(self.state.shape)}, "

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["load_library", "LIB_PATH"]
+__all__ = ["load_library", "LIB_PATH", "MultifieldParams"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
@@ -28,6 +28,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U, _LL, _ULL = ctypes.c_uint, ctypes.c_longlong, ctypes.c_ulonglong
+
+
+class MultifieldParams(ctypes.Structure):
+    """``Lb2dMultifieldParams`` of ``csrc/multifield_cell.cuh``, passed by
+    value to K4 and K5: per field ``omega`` (Expansion: the populations',
+    then the nutrient's), per population growth ``g`` and noise amplitude
+    ``dg``; the clip ``cutoff``, the imposed lattice velocity ``u``, ``v``,
+    the Philox key ``k0``, ``k1`` and the global step ``step0`` of the
+    launch's first step."""
+    _fields_ = [("omega", _F * 8), ("g", _F * 8), ("dg", _F * 8),
+                ("cutoff", _F), ("u", _F), ("v", _F), ("k0", _U), ("k1", _U),
+                ("step0", _ULL)]
+
+
 # C entry point -> argument types; each returns a CUDA error code (int)
 _ENTRY_POINTS = {
     # f_in, f_out, mask, ny, nx, omega, rho in, rho out, incompressible, stream
@@ -52,6 +66,12 @@ _ENTRY_POINTS = {
     # stream
     "lb2d_resident_diffusion_run": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
                                     _I, _U, _U, _ULL, _P],
+    # f_in, f_out, ny, nx, fields, k_steps, expansion, params, stream
+    "lb2d_temporal_multifield_step": [_P, _P, _I, _I, _I, _I, _I,
+                                      MultifieldParams, _P],
+    # band, out, rows, nx, fields, k_steps, row0, ny, params, stream
+    "lb2d_expansion_band_step": [_P, _P, _I, _I, _I, _I, _I, _I,
+                                 MultifieldParams, _P],
     # out, n, key0, key1, step, stream
     "lb2d_normals": [_P, _LL, _U, _U, _ULL, _P],
     "lb2d_philox_bits": [_P, _LL, _U, _U, _ULL, _P],

@@ -14,9 +14,12 @@ __all__ = ["feq_quadratic", "feq_incompressible", "feq_linear"]
 
 
 def _consts(lattice: Lattice, rho: torch.Tensor):
+    """The lattice columns shaped ``(Q, 1, ...)`` to broadcast against
+    ``rho`` of any rank (``[ny, nx]``, or ``[F, ny, nx]`` for the
+    multifield models)."""
     def col(values):
-        return torch.tensor(values, dtype=rho.dtype,
-                            device=rho.device)[:, None, None]
+        return torch.tensor(values, dtype=rho.dtype, device=rho.device
+                            ).reshape((len(values),) + (1,) * rho.dim())
 
     cs2 = torch.tensor(lattice.cs2, dtype=rho.dtype, device=rho.device)
     return col(lattice.w), col(lattice.cx), col(lattice.cy), cs2

@@ -26,17 +26,36 @@ step, cell) (:mod:`lb2d_tpu_torch.ops.random`). The domain is fully
 periodic and the kernels wrap exactly, so the JAX model's seam patch is not
 needed: K2 and K3 equal ``k`` / ``n`` plain steps, noise included.
 
+The multifield range expansions (``F`` fields, state ``[9, F, ny, nx]``,
+plane ``j * F + p`` when flattened) run through K4 and K5
+(``csrc/multifield_step.cu``):
+
+* :func:`temporal_multifield_step` (K4): ``k_steps`` steps per pass, with
+  ``physics="fisher"`` (no-flux walls on all four sides, logistic
+  competition against the total density) or ``"expansion"`` (fully
+  periodic; populations plus a nutrient, Milstein noise, clips); ports
+  ``make_temporal_multifield_step``. The walls apply by global coordinates
+  and the periodic wrap is exact, so K4 equals ``k`` plain steps and the
+  JAX models' wall and seam patches are not needed.
+* :func:`expansion_band_step` (K5): ``k`` Expansion steps on a band of rows
+  that wraps within itself, emitting its central ``2k`` rows; ports
+  ``make_expansion_band_step``. Its noise is keyed to global rows, so the
+  band of rows ``[-B, B)`` gives K4's rows ``[-k, k)`` bit for bit.
+
 The kernels run only on CUDA tensors. On CPU tensors each wrapper runs the
 plain version, :func:`pipe_step_reference`,
-:func:`velocity_step_reference`, :func:`diffusion_step_reference` or
-:func:`noisy_fisher_step_reference` (``k`` / ``n`` times for K2 and K3):
-the same step composed from the plain ops exactly as the JAX models'
-``_make_xla_step`` and ``_make_xla_stochastic_step`` compose it. Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.
+:func:`velocity_step_reference`, :func:`diffusion_step_reference`,
+:func:`noisy_fisher_step_reference`, :func:`fisher_step_reference`,
+:func:`expansion_step_reference` (``k`` / ``n`` times for K2-K4) or
+:func:`expansion_band_reference`: the same step composed from the plain ops
+exactly as the JAX models' ``_make_xla_step`` and
+``_make_xla_stochastic_step`` compose it. Each wrapper counts its kernel
+launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core import D2Q9
@@ -51,7 +70,12 @@ from .boundary import (
 from .collide import bgk
 from .equilibrium import feq_incompressible, feq_linear, feq_quadratic
 from .moments import hydro_compressible, hydro_incompressible
-from .random import normals_reference, philox_key
+from .random import (
+    normals_reference,
+    philox_key,
+    population_normals_at,
+    population_normals_reference,
+)
 from .stream import stream
 
 __all__ = ["pipe_step", "pipe_step_reference", "pipe_run_reference",
@@ -60,12 +84,17 @@ __all__ = ["pipe_step", "pipe_step_reference", "pipe_run_reference",
            "resident_velocity_run", "diffusion_step_reference",
            "noisy_fisher_step_reference", "diffusion_run_reference",
            "temporal_diffusion_step", "resident_diffusion_run",
-           "MAX_TEMPORAL_K", "RESIDENT_MAX_CELLS"]
+           "noflux_walls_reference", "fisher_step_reference",
+           "expansion_step_reference", "multifield_run_reference",
+           "expansion_band_reference", "temporal_multifield_step",
+           "expansion_band_step", "multifield_max_k",
+           "MAX_TEMPORAL_K", "MAX_MULTIFIELD_FIELDS", "RESIDENT_MAX_CELLS"]
 
 MAX_TEMPORAL_K = 8  # the K2 tile is 32 cells wide with a K-cell halo
 # K3 keeps f and its scratch buffer (72 B/cell together) in the 50 MB L2;
 # on an H100 it beats K2 up to 724^2 and loses at 1024^2
 RESIDENT_MAX_CELLS = 1 << 19
+MAX_MULTIFIELD_FIELDS = 8  # K4 and K5 hold 2 x 9F planes of a tile in shared memory
 
 
 def supports_resident(ny: int, nx: int) -> bool:
@@ -440,6 +469,337 @@ def resident_diffusion_run(f: torch.Tensor, scratch: torch.Tensor, n: int,
 resident_diffusion_run.launches = 0
 
 
+# -- the multifield range expansions: K4 and K5 -----------------------------
+
+_PHYSICS = ("fisher", "expansion")
+# no-flux walls and corners, in the order of JAX's _mf_noflux_walls
+# (lb2d_tpu/ops/fused.py:1465-1489): (walls, destination, source) per field
+_WALLS = ((("n",), 7, 5), (("n",), 4, 2), (("n",), 8, 6),
+          (("s",), 2, 4), (("s",), 5, 7), (("s",), 6, 8),
+          (("e",), 3, 1), (("e",), 6, 8), (("e",), 7, 5),
+          (("w",), 1, 3), (("w",), 5, 7), (("w",), 8, 6),
+          (("ul", "bl"), 1, 3), (("ul", "ur"), 4, 2), (("ul",), 8, 6),
+          (("ur", "br"), 3, 1), (("ur",), 7, 5), (("br", "bl"), 2, 4),
+          (("br",), 6, 8), (("bl",), 5, 7))
+
+
+def _multifield_tile(num_fields: int) -> int:
+    """Edge of the square region a K4/K5 block holds in shared memory: two
+    buffers of ``9 F`` planes, ``72 F T^2`` bytes, must fit in the 227 KB a
+    block may have (F = 3 at T = 32: 216 KB)."""
+    return 32 if num_fields <= 3 else 24 if num_fields <= 5 else 16
+
+
+def multifield_max_k(num_fields: int) -> int:
+    """The most steps per K4/K5 launch for ``num_fields`` fields: the inner
+    region a block writes keeps an edge of at least 8 cells."""
+    return min(MAX_TEMPORAL_K, (_multifield_tile(num_fields) - 8) // 2)
+
+
+def _per_field(values, like: torch.Tensor) -> torch.Tensor:
+    """Per-field constants rounded to float32, as the JAX models hold them,
+    as a 1-d tensor of ``like``'s dtype and device."""
+    return torch.tensor(np.asarray(values, np.float32).ravel(),
+                        dtype=like.dtype, device=like.device)
+
+
+def noflux_walls_reference(f: torch.Tensor) -> torch.Tensor:
+    """No-flux walls and corners on every field of a streamed ``[9, F, ny,
+    nx]`` state (returns a new tensor): full bounce-back of the three
+    populations that leave through each wall, three per corner, as masked
+    selects from the pre-wall values, exactly as JAX
+    ``noflux_bcs_multifield`` (``D2Q9_multifield_fisher.cl:184-289``)."""
+    ny, nx = f.shape[-2:]
+    row = torch.arange(ny, device=f.device)[:, None]
+    lane = torch.arange(nx, device=f.device)[None, :]
+    row_int, lane_int = (row >= 1) & (row <= ny - 2), (lane >= 1) & (lane <= nx - 2)
+    row0, row_n, lane0, lane_n = row == 0, row == ny - 1, lane == 0, lane == nx - 1
+    masks = {"n": row_n & lane_int, "s": row0 & lane_int,
+             "e": lane_n & row_int, "w": lane0 & row_int,
+             "ul": row_n & lane0, "ur": row_n & lane_n,
+             "br": row0 & lane_n, "bl": row0 & lane0}
+    pre = [f[j] for j in range(9)]
+    st = list(pre)
+    for walls, dst, src in _WALLS:
+        mask = masks[walls[0]]
+        for wall in walls[1:]:
+            mask = mask | masks[wall]
+        st[dst] = torch.where(mask, pre[src], st[dst])
+    return torch.stack(st)
+
+
+def fisher_step_reference(f: torch.Tensor, omegas, lb_G, u_lb,
+                          v_lb) -> torch.Tensor:
+    """One FisherExpansion step of ``f[9, F, ny, nx]`` in plain PyTorch ops
+    (returns a new tensor), exactly as JAX ``FisherExpansion._make_xla_step``
+    (``lb2d_tpu/models/multifield.py:233-248``): periodic stream -> no-flux
+    walls -> ``rho_p`` (summed in direction order) -> ``rho_tot`` (summed in
+    field order) -> linear feq -> per-field BGK ``+ w G_p rho_p (1 -
+    rho_tot)``. ``omegas`` and ``lb_G`` have one entry per field."""
+    f = noflux_walls_reference(stream(f, D2Q9))
+    rho = _density_in_order(f)                     # [F, ny, nx]
+    rho_tot = _density_in_order(rho)               # [ny, nx]
+    feq = feq_linear(rho, _f32(u_lb, f), _f32(v_lb, f), D2Q9)
+    omega = _per_field(omegas, f)[None, :, None, None]
+    growth = _per_field(lb_G, f)[:, None, None] * rho * (1.0 - rho_tot)
+    return f * (1.0 - omega) + omega * feq + _weights(f)[:, None] * growth
+
+
+def expansion_step_reference(f: torch.Tensor, omegas, omega_nutrient, lb_G,
+                             lb_Dg, cutoff, u_lb, v_lb, *, seed: int,
+                             step: int, eta: torch.Tensor | None = None
+                             ) -> torch.Tensor:
+    """One Expansion step of ``f[9, P + 1, ny, nx]`` (the nutrient last) in
+    plain PyTorch ops (returns a new tensor), exactly as JAX
+    ``Expansion._make_xla_stochastic_step``
+    (``lb2d_tpu/models/multifield.py:421-465``): periodic stream -> ``rho``
+    per field in direction order, zeroed below ``cutoff`` or NaN -> linear
+    feq -> growth ``G_p rho_p c`` plus, where ``Dg_p`` is not 0, the
+    Milstein noise ``sqrt(max(Dg_p rho_p c, 0)) eta_p + (Dg_p c / 4)
+    (eta_p^2 - 1)`` -> nutrient consumption ``-sum_p react_p`` -> BGK per
+    field with ``omegas`` (one per population) and ``omega_nutrient`` ->
+    zero where ``rho`` is below ``cutoff``, the result negative or NaN.
+
+    ``eta`` is the ``[P, ny, nx]`` normal field of global step ``step``:
+    :func:`~lb2d_tpu_torch.ops.random.population_normals_reference` of
+    ``seed`` unless given (a given ``eta`` serves the parity test against
+    JAX, which draws its own). A population with ``Dg_p = 0`` draws
+    nothing; JAX draws for it and multiplies by 0, which gives the same
+    result up to the sign of a zero that the growth's add removes.
+    """
+    f = stream(f, D2Q9)
+    P = f.shape[1] - 1
+    cut = _f32(cutoff, f)
+    rho = _density_in_order(f)
+    rho = torch.where((rho < cut) | torch.isnan(rho), 0.0, rho)
+    feq = feq_linear(rho, _f32(u_lb, f), _f32(v_lb, f), D2Q9)
+    c = rho[P]
+    G, Dg = _per_field(lb_G, f), _per_field(lb_Dg, f)
+    noisy = np.asarray(lb_Dg, np.float32).ravel() != 0
+    if noisy.any() and eta is None:
+        eta = population_normals_reference(seed, step, P, *c.shape,
+                                           device=f.device)
+    reacts = []
+    for p in range(P):
+        react = G[p] * rho[p] * c
+        if noisy[p]:
+            amp = torch.sqrt(torch.clamp(Dg[p] * rho[p] * c, min=0.0))
+            react = react + (amp * eta[p]
+                             + (Dg[p] * c / 4.0) * (eta[p] * eta[p] - 1.0))
+        reacts.append(react)
+    react_p = torch.stack(reacts)
+    react_n = -_density_in_order(react_p)
+    w = _weights(f)
+    omega_p = _per_field(omegas, f)[None, :, None, None]
+    new_p = (f[:, :P] * (1.0 - omega_p) + omega_p * feq[:, :P]
+             + w[:, None] * react_p)
+    new_p = torch.where((rho[:P] < cut) | (new_p < 0) | torch.isnan(new_p),
+                        0.0, new_p)
+    om_n = _f32(np.float32(omega_nutrient), f)
+    new_n = f[:, P] * (1.0 - om_n) + om_n * feq[:, P] + w * react_n
+    new_n = torch.where((c < cut) | (new_n < 0) | torch.isnan(new_n), 0.0,
+                        new_n)
+    return torch.cat([new_p, new_n[:, None]], dim=1)
+
+
+def multifield_run_reference(f: torch.Tensor, n: int, omegas, lb_G, u_lb,
+                             v_lb, *, physics: str = "fisher",
+                             omega_nutrient=None, lb_Dg=None, cutoff=0.01,
+                             seed: int = 0, step0: int = 0) -> torch.Tensor:
+    """``n`` plain multifield steps (the plain version of K4):
+    :func:`fisher_step_reference`, or :func:`expansion_step_reference` at
+    global steps ``step0`` .. ``step0 + n - 1``. Returns ``f`` itself when
+    ``n`` is 0."""
+    _check_physics(physics)
+    for i in range(n):
+        if physics == "fisher":
+            f = fisher_step_reference(f, omegas, lb_G, u_lb, v_lb)
+        else:
+            f = expansion_step_reference(f, omegas, omega_nutrient, lb_G,
+                                         lb_Dg, cutoff, u_lb, v_lb,
+                                         seed=seed, step=step0 + i)
+    return f
+
+
+def expansion_band_reference(band: torch.Tensor, k_steps: int, omegas,
+                             omega_nutrient, lb_G, lb_Dg, cutoff, u_lb, v_lb,
+                             *, seed: int = 0, step0: int = 0, row0: int = 0,
+                             ny: int) -> torch.Tensor:
+    """``k_steps`` plain Expansion steps on a ``[9, F, R, nx]`` band whose
+    rows wrap within the band (the plain version of K5); returns the
+    central ``[9, F, 2 k, nx]`` rows, as JAX ``make_expansion_band_step``
+    (``lb2d_tpu/ops/fused.py:1784-1911``) emits them. Band row ``r`` draws
+    the noise of global row ``(row0 + r) mod ny`` of an ``ny``-row grid, so
+    a band of rows ``[-B, B)`` (``row0 = ny - B``) gives rows ``[-k, k)`` of
+    ``k`` steps on the whole grid."""
+    R, nx = band.shape[2:]
+    _check_band_rows(R, k_steps)
+    rows = (int(row0) + torch.arange(R, device=band.device)) % int(ny)
+    cells = (rows[:, None] * nx
+             + torch.arange(nx, device=band.device)[None, :]).reshape(-1)
+    P = band.shape[1] - 1
+    noisy = bool(np.any(np.asarray(lb_Dg, np.float32)))
+    for i in range(k_steps):
+        eta = (population_normals_at(seed, step0 + i, P, cells).reshape(
+            P, R, nx) if noisy else None)
+        band = expansion_step_reference(band, omegas, omega_nutrient, lb_G,
+                                        lb_Dg, cutoff, u_lb, v_lb, seed=seed,
+                                        step=step0 + i, eta=eta)
+    o0 = (R - 2 * k_steps) // 2
+    return band[:, :, o0:o0 + 2 * k_steps]
+
+
+def temporal_multifield_step(f_in: torch.Tensor, f_out: torch.Tensor,
+                             k_steps: int, omegas, lb_G, u_lb, v_lb, *,
+                             physics: str = "fisher", omega_nutrient=None,
+                             lb_Dg=None, cutoff=0.01, seed: int = 0,
+                             step0: int = 0) -> torch.Tensor:
+    """Write ``k_steps`` multifield steps of ``f_in`` (``[9, F, ny, nx]``
+    float32) into ``f_out`` in one pass over ``f`` and return ``f_out``;
+    arguments as :func:`multifield_run_reference`, ``1 <= k_steps <=
+    multifield_max_k(F)``.
+
+    On CUDA tensors this launches K4 (counted in
+    ``temporal_multifield_step.launches``), for ``F <=
+    MAX_MULTIFIELD_FIELDS``; on CPU tensors it runs
+    :func:`multifield_run_reference`.
+    """
+    F = _check_multifield(f_in, f_out)
+    k_steps = _check_k(k_steps, multifield_max_k(F))
+    step0 = _check_step0(step0, k_steps)
+    consts = _multifield_constants(F, physics, omegas, lb_G, omega_nutrient,
+                                   lb_Dg)
+    if f_in.device.type == "cpu":
+        f_out.copy_(multifield_run_reference(
+            f_in, k_steps, omegas, lb_G, u_lb, v_lb, physics=physics,
+            omega_nutrient=omega_nutrient, lb_Dg=lb_Dg, cutoff=cutoff,
+            seed=seed, step0=step0))
+        return f_out
+    _, _, ny, nx = f_in.shape
+    _launch("lb2d_temporal_multifield_step", f_in, f_out, ny, nx, F, k_steps,
+            int(physics == "expansion"),
+            _multifield_params(*consts, cutoff, u_lb, v_lb, seed, step0))
+    temporal_multifield_step.launches += 1
+    return f_out
+
+
+temporal_multifield_step.launches = 0
+
+
+def expansion_band_step(band: torch.Tensor, k_steps: int, omegas,
+                        omega_nutrient, lb_G, lb_Dg, cutoff, u_lb, v_lb, *,
+                        seed: int = 0, step0: int = 0, row0: int = 0,
+                        ny: int) -> torch.Tensor:
+    """``k_steps`` Expansion steps on the self-wrapping band ``band``
+    (``[9, F, R, nx]`` float32, ``R >= 4 k_steps``); returns a new ``[9, F,
+    2 k_steps, nx]`` tensor of its central rows. Arguments as
+    :func:`expansion_band_reference`.
+
+    On CUDA tensors this launches K5 (counted in
+    ``expansion_band_step.launches``); on CPU tensors it runs
+    :func:`expansion_band_reference`.
+    """
+    F = _check_multifield(band, None)
+    k_steps = _check_k(k_steps, multifield_max_k(F))
+    step0 = _check_step0(step0, k_steps)
+    R, nx = band.shape[2:]
+    _check_band_rows(R, k_steps)
+    ny = int(ny)
+    if ny < 1:
+        raise ValueError(f"ny must be >= 1, got {ny}")
+    consts = _multifield_constants(F, "expansion", omegas, lb_G,
+                                   omega_nutrient, lb_Dg)
+    kw = dict(seed=seed, step0=step0, row0=int(row0) % ny, ny=ny)
+    if band.device.type == "cpu":
+        return expansion_band_reference(band, k_steps, omegas, omega_nutrient,
+                                        lb_G, lb_Dg, cutoff, u_lb, v_lb,
+                                        **kw).clone()
+    out = torch.empty((9, F, 2 * k_steps, nx), dtype=band.dtype,
+                      device=band.device)
+    _launch("lb2d_expansion_band_step", band, out, R, nx, F, k_steps,
+            kw["row0"], ny,
+            _multifield_params(*consts, cutoff, u_lb, v_lb, seed, step0))
+    expansion_band_step.launches += 1
+    return out
+
+
+expansion_band_step.launches = 0
+
+
+def _check_physics(physics):
+    if physics not in _PHYSICS:
+        raise ValueError(f"physics must be 'fisher' or 'expansion', not "
+                         f"{physics!r}")
+
+
+def _check_band_rows(R, k_steps):
+    if R < 4 * k_steps:
+        raise ValueError(f"a band of {R} rows is too short for {k_steps} "
+                         f"steps: the band's own wrap reaches the emitted "
+                         f"rows unless R >= 4 k_steps")
+
+
+def _multifield_constants(F, physics, omegas, lb_G, omega_nutrient, lb_Dg):
+    """Check that there is one omega and one G (and Dg) per field (Fisher)
+    or per population (Expansion, which also needs ``omega_nutrient``);
+    return them as float32 arrays ``(omega per field, G, Dg)``."""
+    _check_physics(physics)
+    P = F if physics == "fisher" else F - 1
+    omegas = np.asarray(omegas, np.float32).ravel()
+    lb_G = np.asarray(lb_G, np.float32).ravel()
+    lb_Dg = np.zeros(P, np.float32) if lb_Dg is None else np.asarray(
+        lb_Dg, np.float32).ravel()
+    if P < 1 or not len(omegas) == len(lb_G) == len(lb_Dg) == P:
+        raise ValueError(f"{physics} on {F} fields needs {max(P, 1)} "
+                         f"population(s) and one omega, G (and Dg) each; "
+                         f"got {len(omegas)}, {len(lb_G)}, {len(lb_Dg)}")
+    if physics == "expansion":
+        if omega_nutrient is None:
+            raise ValueError("expansion needs omega_nutrient")
+        omegas = np.append(omegas, np.float32(omega_nutrient))
+    return omegas, lb_G, lb_Dg
+
+
+def _multifield_params(omegas, lb_G, lb_Dg, cutoff, u_lb, v_lb, seed,
+                       step0):
+    """The constants of one K4/K5 launch as the kernels' by-value struct
+    (at most ``MAX_MULTIFIELD_FIELDS`` fields, checked before)."""
+    prm = _build.MultifieldParams()
+    prm.omega[:len(omegas)] = omegas.tolist()
+    prm.g[:len(lb_G)] = lb_G.tolist()
+    prm.dg[:len(lb_Dg)] = lb_Dg.tolist()
+    prm.cutoff, prm.u, prm.v = float(cutoff), float(u_lb), float(v_lb)
+    prm.k0, prm.k1 = philox_key(seed)
+    prm.step0 = step0
+    return prm
+
+
+def _check_multifield(f_in, f_out):
+    """Check a ``[9, F, ny, nx]`` float32 state (and, unless None, its
+    distinct output of the same shape); return F."""
+    for name, t in (("f_in", f_in), ("f_out", f_out)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dim() != 4 or t.shape[0] != 9:
+            raise ValueError(f"{name} must be [9, F, ny, nx], got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if f_out is not None:
+        if f_out.shape != f_in.shape or f_out.device != f_in.device:
+            raise ValueError("f_out must match f_in in shape and device")
+        if f_out.data_ptr() == f_in.data_ptr():
+            raise ValueError("f_out must be a distinct tensor (the step is "
+                             "out of place)")
+    F = f_in.shape[1]
+    if f_in.device.type == "cuda" and not 1 <= F <= MAX_MULTIFIELD_FIELDS:
+        raise ValueError(f"the multifield kernels take 1..."
+                         f"{MAX_MULTIFIELD_FIELDS} fields, not {F}")
+    return F
+
+
 def _diffusion_args(omega, u_lb, v_lb, lb_G, lb_Dg, noisy, seed, step0):
     key0, key1 = philox_key(seed)
     return (float(omega), float(u_lb), float(v_lb), float(lb_G),
@@ -475,11 +835,10 @@ def _check_step0(step0, n) -> int:
     return step0
 
 
-def _check_k(k_steps) -> int:
+def _check_k(k_steps, max_k=MAX_TEMPORAL_K) -> int:
     k_steps = int(k_steps)
-    if not 1 <= k_steps <= MAX_TEMPORAL_K:
-        raise ValueError(f"k_steps must be in 1..{MAX_TEMPORAL_K}, "
-                         f"got {k_steps}")
+    if not 1 <= k_steps <= max_k:
+        raise ValueError(f"k_steps must be in 1..{max_k}, got {k_steps}")
     return k_steps
 
 

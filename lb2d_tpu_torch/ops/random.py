@@ -30,6 +30,7 @@ import torch
 from . import _build
 
 __all__ = ["philox4x32_10", "box_muller", "normals_reference", "normals",
+           "population_normals_reference", "population_normals_at",
            "philox_bits", "philox_key"]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57   # Philox4x32 multipliers
@@ -105,6 +106,39 @@ def normals_reference(seed: int, step: int, ny: int, nx: int,
     s_lo, s_hi = _counter_step(step)
     bits = philox4x32_10((cell, s_lo, s_hi, 0), philox_key(seed))
     return box_muller(bits[0], bits[1]).reshape(ny, nx)
+
+
+def population_normals_reference(seed: int, step: int, P: int, ny: int,
+                                 nx: int, device=None) -> torch.Tensor:
+    """The float32 ``[P, ny, nx]`` standard normals of populations ``0 ..
+    P-1`` at global step ``step``: the noise of the multifield Expansion.
+
+    One Philox call serves two populations, as the JAX kernel pairs its
+    draws (``lb2d_tpu/ops/fused.py:1616-1650``)::
+
+        bits  = philox4x32_10((cell, step lo, step hi, p >> 1), key)
+        eta_p = box_muller(bits[2 (p % 2)], bits[2 (p % 2) + 1])
+
+    so population 0 equals :func:`normals_reference`. ``csrc/philox.cuh``
+    draws the same bits on the card (``multifield_cell.cuh``).
+    """
+    cell = torch.arange(ny * nx, dtype=torch.int64, device=device)
+    return population_normals_at(seed, step, P, cell).reshape(P, ny, nx)
+
+
+def population_normals_at(seed: int, step: int, P: int,
+                          cell: torch.Tensor) -> torch.Tensor:
+    """:func:`population_normals_reference` at the global cell indices
+    ``cell`` (an int64 tensor ``[n]``): ``[P, n]``."""
+    s_lo, s_hi = _counter_step(step)
+    key = philox_key(seed)
+    out = []
+    for a in range((P + 1) // 2):
+        bits = philox4x32_10((cell, s_lo, s_hi, a), key)
+        out.append(box_muller(bits[0], bits[1]))
+        if 2 * a + 1 < P:
+            out.append(box_muller(bits[2], bits[3]))
+    return torch.stack(out)
 
 
 def normals(seed: int, step: int, shape, device) -> torch.Tensor:

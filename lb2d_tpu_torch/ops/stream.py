@@ -15,15 +15,16 @@ __all__ = ["stream"]
 
 
 def stream(f: torch.Tensor, lattice: Lattice = D2Q9) -> torch.Tensor:
-    """``out[j, y, x] = f[j, y - cy_j, x - cx_j]`` with periodic wrap;
-    ``f`` is ``[Q, ny, nx]``."""
+    """``out[j, ..., y, x] = f[j, ..., y - cy_j, x - cx_j]`` with periodic
+    wrap along the last two axes; ``f`` is ``[Q, ny, nx]`` or, for the
+    multifield models, ``[Q, F, ny, nx]``."""
     planes = []
     for j in range(lattice.q):
         cx, cy = lattice.cx[j], lattice.cy[j]
         p = f[j]
         if cy != 0:
-            p = torch.roll(p, cy, dims=0)
+            p = torch.roll(p, cy, dims=-2)
         if cx != 0:
-            p = torch.roll(p, cx, dims=1)
+            p = torch.roll(p, cx, dims=-1)
         planes.append(p)
     return torch.stack(planes)

@@ -38,5 +38,6 @@ def test_port_and_chip_smoke_import_no_jax_package():
     imported = proc.stdout.split()
     for name in ("lb2d_tpu_torch.core.lattice", "lb2d_tpu_torch.core.nondim",
                  "lb2d_tpu_torch.ops.random", "lb2d_tpu_torch.models.diffusion",
-                 "lb2d_tpu_torch.models.waves"):
+                 "lb2d_tpu_torch.models.waves",
+                 "lb2d_tpu_torch.models.multifield"):
         assert name in imported, imported

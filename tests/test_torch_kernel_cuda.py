@@ -8,7 +8,10 @@ contracts multiply-adds into FMAs where PyTorch runs separate elementwise
 kernels. The diffusion family's kernels round every operation on their own
 and, on an H100 with torch 2.11, match the plain step bit for bit, noise
 included; they are held to the same 1e-6 (densities away from 1, where
-the noise's sqrt(rho (1 - rho)) would magnify an ulp of rho).
+the noise's sqrt(rho (1 - rho)) would magnify an ulp of rho). The
+multifield kernels K4 and K5 round every operation on their own too:
+K4 ``fisher`` is held to 1e-6, K4 ``expansion`` and K5, whose clips turn an
+ulp next to the cutoff into a jump, to 0 with the noise on.
 """
 
 import numpy as np
@@ -17,13 +20,20 @@ import torch
 
 from lb2d_tpu_torch.core import D2Q9
 from lb2d_tpu_torch.models import (
+    Expansion,
+    FisherExpansion,
     NoisyAdvectedFisherWave,
     PipeFlow,
     PipeFlowVelocityInlet,
     ReactionAdvectionDiffusion,
 )
 from lb2d_tpu_torch.ops.fused import (
+    MAX_MULTIFIELD_FIELDS,
     diffusion_run_reference,
+    expansion_band_reference,
+    expansion_band_step,
+    multifield_max_k,
+    multifield_run_reference,
     pipe_run_reference,
     pipe_step,
     pipe_step_reference,
@@ -31,6 +41,7 @@ from lb2d_tpu_torch.ops.fused import (
     resident_pipe_run,
     resident_velocity_run,
     temporal_diffusion_step,
+    temporal_multifield_step,
     temporal_pipe_step,
     temporal_velocity_step,
     velocity_step_reference,
@@ -303,3 +314,126 @@ def test_velocity_model_resident_backend_matches_eager(cuda):
     assert resident_velocity_run.launches == before + 1
     d = float((sim.state - eager.state).abs().max())
     assert d <= 1e-5, d
+
+
+# the multifield kernels: per-field constants of the 2048^2
+# FisherExpansion / 1024^2 Expansion of chip_smoke.py, with an imposed
+# velocity; Expansion noise on every other population (one Philox call
+# serves a pair, a population with Dg = 0 draws nothing), step0 just below
+# 2^32 so that the K steps cross into the counter's high word
+MF_FIELDS = [1, 2, 3, MAX_MULTIFIELD_FIELDS]
+MF_SHAPES = [(254, 382), (128, 128)]
+MF_IDS = ["254x382", "128x128"]
+
+
+def _mf_kwargs(F, physics):
+    rs = np.random.RandomState(F)
+    P = F if physics == "fisher" else F - 1
+    kw = dict(omegas=(1.9 + 0.09 * rs.rand(P)).astype(np.float32),
+              lb_G=(1e-4 * (1 + rs.rand(P))).astype(np.float32),
+              u_lb=0.0021, v_lb=-0.0013, physics=physics)
+    if physics == "expansion":
+        kw.update(omega_nutrient=np.float32(1.95), cutoff=0.01,
+                  lb_Dg=np.where(np.arange(P) % 3 == 1, 0.0,
+                                 0.02 * (1 + rs.rand(P))).astype(np.float32),
+                  seed=2**40 + 7, step0=2**32 - 3)
+    return kw
+
+
+def _mf_inputs(device, F, shape, physics):
+    """f = w rho (1 + 1% noise): Fisher densities summing to at most 0.9;
+    Expansion densities in [0, 0.3] (many below the 0.01 cutoff) and a
+    nutrient in [0, 1]."""
+    ny, nx = shape
+    rs = np.random.RandomState(2)
+    if physics == "fisher":
+        rho = 0.9 * rs.rand(F, ny, nx) / F
+    else:
+        rho = 0.3 * rs.rand(F, ny, nx) ** 2
+        rho[-1] = rs.rand(ny, nx)
+    w = np.asarray(D2Q9.w)[:, None, None, None]
+    f = w * rho * (1.0 + 0.01 * rs.randn(9, F, ny, nx))
+    return torch.tensor(f, dtype=torch.float32, device=device)
+
+
+@pytest.mark.parametrize("shape", MF_SHAPES, ids=MF_IDS)
+@pytest.mark.parametrize("F", MF_FIELDS)
+def test_temporal_multifield_fisher_matches_reference(cuda, F, shape):
+    f = _mf_inputs(cuda, F, shape, "fisher")
+    kw = _mf_kwargs(F, "fisher")
+    for k in range(1, multifield_max_k(F) + 1):
+        before = temporal_multifield_step.launches
+        out = temporal_multifield_step(f, torch.empty_like(f), k, **kw)
+        want = multifield_run_reference(f, k, **kw)
+        torch.cuda.synchronize()
+        assert temporal_multifield_step.launches == before + 1
+        d = float((out - want).abs().max())
+        assert d <= TOL, (k, d)
+
+
+@pytest.mark.parametrize("shape", MF_SHAPES, ids=MF_IDS)
+@pytest.mark.parametrize("F", MF_FIELDS[1:])
+def test_temporal_multifield_expansion_is_exact(cuda, F, shape):
+    f = _mf_inputs(cuda, F, shape, "expansion")
+    kw = _mf_kwargs(F, "expansion")
+    for k in sorted({1, 3, multifield_max_k(F)}):
+        out = temporal_multifield_step(f, torch.empty_like(f), k, **kw)
+        want = multifield_run_reference(f, k, **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all() and (out >= 0).all()
+        assert torch.equal(out, want), (k, float((out - want).abs().max()))
+
+
+@pytest.mark.parametrize("F", [3, MAX_MULTIFIELD_FIELDS])
+@pytest.mark.parametrize("extra", [0, 5], ids=["B=2K", "B=2K+5"])
+def test_expansion_band_kernel_is_exact_and_gives_k4_rows(cuda, extra, F):
+    """K5 on the band of rows [-B, B) equals its plain version and rows
+    [-K, K) of K4 on the whole grid, bit for bit, noise on."""
+    f = _mf_inputs(cuda, F, (254, 382), "expansion")
+    kw = _mf_kwargs(F, "expansion")
+    physics = kw.pop("physics")
+    step0 = kw.pop("step0")
+    ny = f.shape[2]
+    for k in range(1, multifield_max_k(F) + 1):
+        B = 2 * k + extra
+        band = torch.cat([f[:, :, -B:], f[:, :, :B]], dim=2).contiguous()
+        args = [kw[n] for n in ("omegas", "omega_nutrient", "lb_G", "lb_Dg",
+                                "cutoff", "u_lb", "v_lb")]
+        band_kw = dict(seed=kw["seed"], step0=step0, row0=ny - B, ny=ny)
+        before = expansion_band_step.launches
+        got = expansion_band_step(band, k, *args, **band_kw)
+        want = expansion_band_reference(band, k, *args, **band_kw)
+        whole = temporal_multifield_step(f, torch.empty_like(f), k,
+                                         physics=physics, step0=step0, **kw)
+        torch.cuda.synchronize()
+        assert expansion_band_step.launches == before + 1
+        assert torch.equal(got, want), k
+        rows = torch.cat([whole[:, :, -k:], whole[:, :, :k]], dim=2)
+        assert torch.equal(got, rows), k
+
+
+def test_multifield_models_kernel_backend_matches_eager(cuda):
+    """20 steps through K4 (launches of temporal_k steps and one of the
+    rest) against the eager step: FisherExpansion within 1e-6, Expansion
+    (noise on) bit for bit."""
+    grid = dict(Lx=4.1, Ly=4.1, mu_standard=1.0, mu_list=[1.0, 0.8],
+                D_standard=1.0, D_list=[1.0, 1.2], N=63, device=cuda)
+    makers = {
+        "fisher": lambda b: FisherExpansion(
+            initial_frac_widths=[0.5, 0.5], initial_frac_indices=[0, 1],
+            backend=b, **grid),
+        "expansion": lambda b: Expansion(Nb=10.0, Dc=1.0, backend=b, **grid),
+    }
+    for name, make in makers.items():
+        eager, sim = make("eager"), make("auto")
+        assert sim.backend == "temporal"
+        before = temporal_multifield_step.launches
+        for model in (eager, sim):
+            model.run(7)
+            model.run(13)
+        torch.cuda.synchronize()
+        k = sim.temporal_k
+        assert temporal_multifield_step.launches - before == (
+            -(-7 // k) + -(-13 // k))
+        d = float((sim.state - eager.state).abs().max())
+        assert d <= (TOL if name == "fisher" else 0.0), (name, d)
