@@ -20,19 +20,25 @@ set to 0 just before it and read just after:
 * the multifield slice, at the reference's own sizes: ``FisherExpansion``
   at 2048^2 with 2 populations (K4 fisher), ``Expansion`` at 1024^2 with 2
   populations and the nutrient (K4 expansion), and K5, the Expansion's
-  seam-band op, through its own entry point on that model's band.
+  seam-band op, through its own entry point on that model's band;
+* the multicomponent slice (K6, ``mc_density`` + ``mc_step``): the porous
+  two-fluid Shan-Chen ``SimulationRunner`` of BASELINE config 5 at 8192^2
+  (without its screened-Poisson hook), the spinodal decomposition at
+  1024^2 and a D2Q25 two-fluid runner at 1024^2.
 
 It checks the physics (Poiseuille profile through each flow backend,
 cylinder mass, Gaussian spreading, advection, mass, noise amplitude and
 normal moments, wall mass conservation and the logistic cap, nutrient
-consumption), sweeps K2's steps per launch for the diffusion physics and
-K4's for the multifield physics, and prints the measured numbers. Every phase raises on failure; the last
-line is the JSON result and is printed only when all phases passed. Uses
-no JAX.
+consumption, the Darcy balance, mass per fluid and spinodal separation),
+sweeps K2's steps per launch for the diffusion physics and K4's for the
+multifield physics, and prints the measured numbers. Every phase raises on
+failure; the last line is the JSON result and is printed only when all
+phases passed. Uses no JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import time
@@ -40,18 +46,21 @@ import time
 import numpy as np
 import torch
 
-from lb2d_tpu_torch.core import D2Q9
+from lb2d_tpu_torch.core import D2Q9, D2Q25
+from lb2d_tpu_torch.mc_cases import MC_CASES, mc_case
 from lb2d_tpu_torch.models import (
     AdvectionDiffusion,
     Diffusion,
     Expansion,
     FisherExpansion,
+    Fluid,
     NoisyAdvectedFisherWave,
     PipeFlow,
     PipeFlowCylinder,
     PipeFlowVelocityInlet,
     ReactionAdvectionDiffusion,
     ReactionAdvectionDiffusionStochastic,
+    SimulationRunner,
 )
 from lb2d_tpu_torch.models.diffusion import (
     DIFFUSION_TEMPORAL_K,
@@ -81,6 +90,13 @@ from lb2d_tpu_torch.ops.fused import (
     temporal_pipe_step,
     temporal_velocity_step,
     velocity_step_reference,
+)
+from lb2d_tpu_torch.ops.fused_mc import (
+    mc_density,
+    mc_density_reference,
+    mc_params,
+    mc_step,
+    mc_step_reference,
 )
 from lb2d_tpu_torch.ops.moments import density
 from lb2d_tpu_torch.ops.random import (
@@ -130,6 +146,12 @@ RESIDENT_CHECK_STEPS = (8, 9)  # both parities of the K3 buffer swap
 FISHER_STEPS = 1000     # 2048^2 FisherExpansion
 EXPANSION_STEPS = 2048  # 1024^2 Expansion, profile_r4.py's step count
 BAND_LAUNCHES = 100     # K5 on the Expansion's seam band
+MC_CHECK_STEPS = 5      # K6 against the plain step, from one state
+MC_BIG_STEPS = 100      # the 8192^2 porous runner
+MC_SPINODAL_STEPS = 1000  # the 1024^2 spinodal decomposition
+MC_Q25_STEPS = 200      # the 1024^2 D2Q25 runner
+MC_LEAST_BYTES = 144    # K6's step: f of 2 D2Q9 fluids read and written once
+MC_TWO_PASS_BYTES = 232  # mc_density (80) + mc_step (152)
 STEP0 = 2**32 - 3   # a global step whose K steps cross the counter's high word
 H100_SXM = "H100 80GB HBM3"
 H100_SXM_HBM = 3.35e12  # B/s, NVIDIA's H100 SXM data sheet
@@ -383,7 +405,7 @@ COUNTERS = {"K1": pipe_step, "K2": temporal_pipe_step,
             "K2 diffusion family": temporal_diffusion_step,
             "K3 diffusion family": resident_diffusion_run, "P1": normals,
             "philox_bits": philox_bits, "K4": temporal_multifield_step,
-            "K5": expansion_band_step}
+            "K5": expansion_band_step, "K6d": mc_density, "K6s": mc_step}
 
 
 def _window(label, drive, expected):
@@ -1112,6 +1134,298 @@ def multifield_physics_phase(fe, ex, ex_rho0):
                            "not grown, or mass not conserved")
 
 
+# -- the multicomponent slice ---------------------------------------------
+
+def compare_k6(sim, steps=MC_CHECK_STEPS):
+    """``steps`` K6 steps (mc_density + mc_step) of the runner's state
+    against as many plain steps, and mc_density against the plain density
+    of that state; returns max |df| and max |drho|. The kernel steps run
+    first and free their spare buffer before the plain steps start, so at
+    8192^2 the check holds one copy of f more than the plain step itself."""
+    cfg, ext, lat = sim.config(), sim.ext_planes(), sim.lattice
+    rho = mc_density(sim.f, torch.empty_like(sim.rho), cfg, lat)
+    d_rho = _max_diff(rho, mc_density_reference(sim.f, cfg, lat))
+    params = mc_params(cfg, lat)
+    a, spare = sim.f.clone(), torch.empty_like(sim.f)
+    for _ in range(steps):
+        mc_density(a, rho, cfg, lat)
+        a, spare = mc_step(a, spare, rho, ext, cfg, lat, params), a
+    del spare
+    b = sim.f
+    for _ in range(steps):
+        b = mc_step_reference(b, cfg, lat, ext)
+    return _max_diff(a, b), d_rho
+
+
+def _checked_k6(label, sim, worst):
+    """K6 against its plain version from ``sim``'s state (compare_k6),
+    each difference held to KERNEL_TOL and folded into ``worst``."""
+    torch.cuda.reset_peak_memory_stats()
+    d_step, d_rho = compare_k6(sim)
+    where = (f"{label} {sim.ny}x{sim.nx} {sim.lattice.name} "
+             f"C={sim.num_populations}")
+    worst["K6s"] = max(worst["K6s"], _checked(
+        f"K6 (mc_density + mc_step) vs plain, {where}, {MC_CHECK_STEPS} "
+        f"steps (peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB)",
+        d_step))
+    worst["K6d"] = max(worst["K6d"], _checked(
+        f"K6 mc_density vs plain, {where}", d_rho))
+    torch.cuda.empty_cache()
+
+
+def _porous_runner(n, device="cuda"):
+    """The porous two-fluid Shan-Chen runner of BASELINE config 5
+    (``benchmarks/run_all.py:113-140``) at ``n``^2, without its
+    screened-Poisson hook (ROADMAP queue 1 item 6)."""
+    sim = SimulationRunner(nx=n, ny=n, L_lb=n, num_populations=2,
+                           porous=True, device=device)
+    for i in range(2):
+        sim.add_fluid(Fluid(sim, i, nu_e=1.0 / 6.0, epsilon=0.8,
+                            nu_fluid=1.0 / 6.0, K=10.0, Fe=0.1))
+    sim.complete_setup()
+    base = 0.5 + 0.05 * np.random.RandomState(0).rand(n, n).astype(np.float32)
+    sim.fluid_list[0].initialize(base)
+    sim.fluid_list[1].initialize(1.0 - base)
+    sim.add_interaction_force(0, 1, G_int=1.5, potential="shan_chen",
+                              potential_parameters=[1.0])
+    return sim
+
+
+def _spinodal_runner(n, lattice=D2Q9, G_int=1.5, potential="linear",
+                     params=None, seed=1, backend="auto"):
+    """The two-fluid spinodal decomposition (``examples/zoo_drive.py:156-176``,
+    ``examples/spinodal_decomposition.py``) at ``n``^2."""
+    sim = SimulationRunner(nx=n, ny=n, L_lb=n, num_populations=2,
+                           porous=False, lattice=lattice, device="cuda",
+                           backend=backend)
+    for i in range(2):
+        sim.add_fluid(Fluid(sim, i, nu_e=1.0 / 6.0, epsilon=1.0))
+    sim.complete_setup()
+    base = 0.5 + 0.05 * np.random.RandomState(seed).rand(n, n)
+    sim.fluid_list[0].initialize(base)
+    sim.fluid_list[1].initialize(1.0 - base)
+    sim.add_interaction_force(0, 1, G_int=G_int, potential=potential,
+                              potential_parameters=params)
+    return sim
+
+
+def _fluid_mass(sim):
+    """Float64 mass per fluid."""
+    return sim.f.double().sum(dim=(0, 2, 3)).cpu().numpy()
+
+
+def mc_kernel_phase():
+    """K6 against its plain version, 5 steps from one state at 254x382 (an
+    unaligned grid), one check per configuration (a)-(g); mc_density alone
+    against the plain density. Returns max |d| per kernel; the main-path
+    phase adds its runners' checks to it."""
+    worst = {"K6d": 0.0, "K6s": 0.0}
+    for case in MC_CASES:
+        sim = mc_case(case, 254, 382, device="cuda")
+        if sim.backend != "kernel":
+            raise RuntimeError(f"K6 case {case}: backend {sim.backend}")
+        _checked_k6(f"configuration ({case})", sim, worst)
+    return worst
+
+
+def _mc_times(sim, plain_reps):
+    """Device ms per launch of mc_density and mc_step on the runner's state,
+    and of their plain versions (CUDA events)."""
+    cfg, ext, lat = sim.config(), sim.ext_planes(), sim.lattice
+    params = mc_params(cfg, lat)
+    bufs = [sim.f.clone(), torch.empty_like(sim.f)]
+    rho = torch.empty_like(sim.rho)
+
+    def density():
+        mc_density(bufs[0], rho, cfg, lat)
+
+    def step():  # on the density of the last density launch
+        mc_step(bufs[0], bufs[1], rho, ext, cfg, lat, params)
+        bufs.reverse()
+
+    times = {}
+    density()
+    step()
+    times["K6d"] = _events_ms(density, 50)
+    times["K6s"] = _events_ms(step, 50)
+    del bufs
+    g = [sim.f]
+    times["plain K6d"] = _events_ms(
+        lambda: mc_density_reference(g[0], cfg, lat), plain_reps)
+
+    def plain():
+        g[0] = mc_step_reference(g[0], cfg, lat, ext)
+
+    plain()
+    times["plain K6s"] = _events_ms(plain, plain_reps)
+    del g
+    torch.cuda.empty_cache()
+    return times
+
+
+def mc_step_breakdown(sim):
+    """Device ms per launch of the mc_step kernel alone on the runner's
+    state with its interaction hook removed, with a linear pseudopotential,
+    and as registered: what the Shan-Chen part costs."""
+    cfg = sim.config()
+    hook = cfg.interactions[0]
+    linear = hook[:4] + (0, (0.0,)) + hook[6:]
+    rho = mc_density(sim.f, torch.empty_like(sim.rho), cfg, sim.lattice)
+    out = torch.empty_like(sim.f)
+    times = {}
+    for label, hooks in (("no interaction", ()), ("linear psi", (linear,)),
+                         ("as registered", cfg.hooks)):
+        variant = dataclasses.replace(cfg, hooks=hooks)
+        params = mc_params(variant, sim.lattice)
+
+        def launch(variant=variant, params=params):
+            mc_step(sim.f, out, rho, None, variant, sim.lattice, params)
+
+        launch()
+        times[label] = _events_ms(launch, 20)
+    print(f"mc_step at {sim.ny}x{sim.nx} by force hooks: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+          + " (CUDA events)", flush=True)
+    del out, rho
+    return times
+
+
+def mc_timing_phase(big, spin):
+    """Device time per launch of K6's two kernels at 8192^2 (porous) and
+    1024^2 (spinodal), and of the plain versions (CUDA events)."""
+    mc_step_breakdown(big)
+    out = {}
+    for label, sim, reps in (("8192", big, 2), ("1024", spin, 10)):
+        torch.cuda.reset_peak_memory_stats()
+        times = _mc_times(sim, reps)
+        out[label] = times
+        for key, name in (("K6d", "mc_density"), ("K6s", "mc_step")):
+            print(f"{key} ({name}) at {sim.ny}x{sim.nx} "
+                  f"C={sim.num_populations}: "
+                  f"{times[key]:.4f} ms per launch; plain version "
+                  f"{times['plain ' + key]:.4f} ms (CUDA events); peak "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB",
+                  flush=True)
+    return out
+
+
+def mc_main_path_phase(card, worst):
+    """The slice's main paths as a user runs them, each in its own counted
+    window, each big runner freed before the next: the 8192^2 porous
+    two-fluid runner ``run(100, timed=True)`` after a warm run, the 1024^2
+    spinodal ``run(1000)`` and a 1024^2 D2Q25 runner ``run(200)``; mass per
+    fluid conserved (1e-4 relative) on the 1024^2 runs. K6 is held to its
+    plain version at each runner's shape (from the 8192^2 runner's first
+    state, and from each 1024^2 runner's state after its run), the
+    differences folded into ``worst``. Returns the launches of the 8192^2
+    run, its MLUPS and the timing phase's numbers."""
+    big = _porous_runner(8192)
+    _checked_k6("porous runner", big, worst)
+    spin = _spinodal_runner(1024)
+    times = mc_timing_phase(big, spin)
+    big.run(2)
+    counts = _window(f"SimulationRunner porous 2-fluid {big.ny}x{big.nx}",
+                     lambda: big.run(MC_BIG_STEPS, timed=True),
+                     {"K6d": MC_BIG_STEPS, "K6s": MC_BIG_STEPS})
+    if not torch.isfinite(big.f).all():
+        raise RuntimeError("8192^2 porous runner: non-finite state")
+    mlups = big.last_mlups
+    step_ms = big.num_cells / (mlups * 1e6) * 1e3
+    least = _bound(big.num_cells * MC_LEAST_BYTES, 0)[0]
+    two_pass = _bound(big.num_cells * MC_TWO_PASS_BYTES, 0)[0]
+    print(f"main path SimulationRunner porous 2-fluid Shan-Chen "
+          f"{big.ny}x{big.nx} backend={big.backend}: {mlups:.1f} MLUPS over "
+          f"{MC_BIG_STEPS} steps ({step_ms:.4f} ms per step), launches "
+          f"{counts['K6d']} mc_density + {counts['K6s']} mc_step; bound "
+          f"{least:.4f} ms per step at {MC_LEAST_BYTES} B/cell-step (share "
+          f"{least / step_ms:.3f}), {two_pass:.4f} ms at the two-pass "
+          f"{MC_TWO_PASS_BYTES} B (share {two_pass / step_ms:.3f}); card: "
+          f"{card}", flush=True)
+    big_info = dict(launches=counts, mlups=mlups, cells=big.num_cells,
+                    ops=_mc_ops(big))
+    del big
+    torch.cuda.empty_cache()
+
+    for label, sim, steps in (
+            ("spinodal", spin, MC_SPINODAL_STEPS),
+            ("Shan-Chen 2-fluid", _spinodal_runner(
+                1024, D2Q25, potential="shan_chen", params=[1.0]),
+             MC_Q25_STEPS)):
+        sim.run(2)
+        m0 = _fluid_mass(sim)
+        counts = _window(f"SimulationRunner {label} {sim.ny}x{sim.nx} "
+                         f"{sim.lattice.name}",
+                         lambda: sim.run(steps, timed=True),
+                         {"K6d": steps, "K6s": steps})
+        m1 = _fluid_mass(sim)
+        drift = float(np.max(np.abs(m1 - m0) / m0))
+        rho = sim.get_fields()["rho"]
+        print(f"main path SimulationRunner {label} {sim.ny}x{sim.nx} "
+              f"{sim.lattice.name} backend={sim.backend}: "
+              f"{sim.last_mlups:.1f} MLUPS over {steps} steps, launches "
+              f"{counts['K6d']} + {counts['K6s']}; mass per fluid "
+              f"{m0.tolist()} -> {m1.tolist()}, largest relative change "
+              f"{drift:.3e} (limit 1e-4); card: {card}", flush=True)
+        if not (np.isfinite(rho).all() and rho.shape == (sim.nx, sim.ny, 2)
+                and drift < 1e-4):
+            raise RuntimeError(f"{label}: bad fields or mass not conserved")
+        _checked_k6(f"{label} runner after its run", sim, worst)
+        del sim
+    del spin
+    torch.cuda.empty_cache()
+    plain = _spinodal_runner(1024, backend="eager")
+    plain.run(2)
+    plain.run(20, timed=True)
+    print(f"the 1024^2 spinodal through the plain step (eager): "
+          f"{plain.last_mlups:.1f} MLUPS; card: {card}", flush=True)
+    del plain
+    return big_info, times
+
+
+def mc_physics_phase():
+    """The repo's own checks through K6: the Darcy balance u = g K / nu_f
+    within 5% (tests/test_multicomponent.py:33-46) and the spinodal
+    separation at 128^2 after 400 steps (correlation < -0.5, contrast grown
+    20x)."""
+    sim = SimulationRunner(nx=32, ny=32, L_lb=32, num_populations=1,
+                           porous=True, device="cuda")
+    fl = Fluid(sim, 0, nu_e=0.5, epsilon=0.8, nu_fluid=0.4, K=2.0, Fe=0.0)
+    sim.add_fluid(fl)
+    sim.complete_setup()
+    fl.initialize(np.ones((32, 32)))
+    sim.add_constant_body_force(0, 1e-5, 0.0)
+    sim.run(3000)
+    u = sim.get_fields()["u_bary"]
+    want = 1e-5 * 2.0 / 0.4
+    err = float(np.abs(u / want - 1).max())
+    print(f"Darcy balance 32x32 through backend={sim.backend}: u mean "
+          f"{u.mean():.6e} against g K / nu_f = {want:.6e}, largest relative "
+          f"error {err:.4f} (limit 0.05)", flush=True)
+    if not err < 0.05:
+        raise RuntimeError("Darcy balance off by more than 5%")
+    sim = _spinodal_runner(128, G_int=1.8)
+    std0 = float(sim.get_fields()["rho"][:, :, 0].std())
+    sim.run(400)
+    rho = sim.get_fields()["rho"]
+    corr = float(np.corrcoef(rho[..., 0].ravel(), rho[..., 1].ravel())[0, 1])
+    grown = float(rho[..., 0].std() / std0)
+    print(f"spinodal 128x128 G=1.8 through backend={sim.backend}, 400 steps: "
+          f"correlation {corr:.4f} (limit -0.5), contrast grown {grown:.1f}x "
+          f"(limit 20x)", flush=True)
+    if not (np.isfinite(rho).all() and corr < -0.5 and grown > 20):
+        raise RuntimeError("spinodal decomposition did not separate")
+
+
+def _mc_ops(sim):
+    """Operations per cell-step of K6's step (counted from its arithmetic):
+    per fluid and direction the moments (3) and feq + Guo + BGK (25), per
+    fluid the drag and velocity (30), per interaction term two
+    pseudopotentials and four multiply-adds (14)."""
+    q, C = sim.lattice.q, sim.num_populations
+    terms = sum(8 if h[6] == 1 else 24 for h in sim.config().interactions)
+    return C * q * 28 + 30 * C + 14 * terms
+
+
 def _bound(n_bytes, n_ops):
     """The least time the card could take (ms): ``n_bytes`` (each input read
     and each output written once) over the data sheet's HBM rate, or
@@ -1163,6 +1477,7 @@ def main():
     max_err = kernel_phase(main_sim, small, cyl, inlet)
     max_err.update(diffusion_kernel_phase(adv, sto, wave, rad, inlet))
     max_err.update(multifield_kernel_phase(fe, ex))
+    max_err.update(mc_kernel_phase())
     times, steps, copy_bw = timing_phase(main_sim, small, inlet)
     more_times, more_steps = diffusion_timing_phase(adv, sto, wave, rad,
                                                     inlet)
@@ -1183,6 +1498,9 @@ def main():
     physics_phase(cyl)
     diffusion_physics_phase(adv, sto, wave, rad, eta, mass0)
     multifield_physics_phase(fe, ex, ex_rho0)
+    big, mc_times = mc_main_path_phase(card, max_err)
+    launches.update({k: big["launches"][k] for k in ("K6d", "K6s")})
+    mc_physics_phase()
     k2, k3 = "lb2d_tpu/ops/fused.py:888", "lb2d_tpu/ops/fused.py:1193"
     kernels = {  # key: (wrapper, source, TPU kernel, model, ops per cell)
         "K1": ("pipe_step", "pipe_step.cu", "lb2d_tpu/ops/fused.py:682",
@@ -1215,6 +1533,21 @@ def main():
                "lb2d_tpu/ops/fused.py:1784", ex, _multifield_ops(ex)),
     })
     rows = []
+    k6 = "lb2d_tpu/ops/fused_mc.py:230"
+    for key, name, per_cell, ops in (
+            ("K6d", "mc_density", 80, 2 * 9), ("K6s", "mc_step", 152,
+                                                big["ops"])):
+        bound_ms, bound_by = _bound(big["cells"] * per_cell,
+                                    big["cells"] * ops)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "lb2d_tpu_torch/csrc/mc_step.cu", "replaces": k6,
+            "launches": launches[key], "max_abs_err": max_err[key],
+            "ms": mc_times["8192"][key], "plain_ms": mc_times["8192"][
+                "plain " + key],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call computes the same
+            "steps_per_launch": 1, "shape": [2, 8192, 8192]})
     for key, (name, src, tpu, sim, ops) in kernels.items():
         cells = sim.num_cells
         per_cell = 4 if key == "P1" else BYTES_PER_CELL

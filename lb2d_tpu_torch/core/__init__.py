@@ -4,7 +4,7 @@
 modules of ``lb2d_tpu.core``; the port imports nothing of the JAX package.
 """
 
-from .lattice import D2Q9, Lattice
+from .lattice import D2Q9, D2Q25, Lattice
 from .nondim import FlowUnits
 
-__all__ = ["D2Q9", "Lattice", "FlowUnits"]
+__all__ = ["D2Q9", "D2Q25", "Lattice", "FlowUnits"]

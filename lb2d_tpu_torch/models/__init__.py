@@ -5,6 +5,7 @@ from .diffusion import (
     ReactionAdvectionDiffusionStochastic,
     ReactionDiffusion,
 )
+from .multicomponent import Fluid, SimulationRunner
 from .multifield import Expansion, FisherExpansion
 from .lattice_units import (
     LatticePipeFlow,
@@ -21,4 +22,5 @@ __all__ = [
     "Diffusion", "AdvectionDiffusion", "ReactionDiffusion",
     "ReactionAdvectionDiffusion", "ReactionAdvectionDiffusionStochastic",
     "NoisyAdvectedFisherWave", "FisherExpansion", "Expansion",
+    "Fluid", "SimulationRunner",
 ]

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["load_library", "LIB_PATH", "MultifieldParams"]
+__all__ = ["load_library", "LIB_PATH", "MultifieldParams", "McParams"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
@@ -40,6 +40,42 @@ class MultifieldParams(ctypes.Structure):
     _fields_ = [("omega", _F * 8), ("g", _F * 8), ("dg", _F * 8),
                 ("cutoff", _F), ("u", _F), ("v", _F), ("k0", _U), ("k1", _U),
                 ("step0", _ULL)]
+
+
+class McHook(ctypes.Structure):
+    """``Lb2dMcHook`` of ``csrc/mc_cell.cuh``: one force hook of K6. ``kind``
+    0 constant force (``p[0]``, ``p[1]``), 1 ``g rho`` (the same), 2 ext
+    planes ``2 ext_pair``, ``2 ext_pair + 1``, 3 the same times ``rho``, 4
+    Shan-Chen interaction of fluids ``a`` and ``b`` (``p[0] = -G``, the
+    pseudopotential ``spec``'s parameters in ``p[1:]``, ``belt`` 1 or 2,
+    ``clamped`` neighbours)."""
+    _fields_ = [("kind", _I), ("a", _I), ("b", _I), ("spec", _I),
+                ("belt", _I), ("clamped", _I), ("ext_pair", _I),
+                ("p", _F * 5)]
+
+
+class McCollision(ctypes.Structure):
+    """``Lb2dMcCollision``: ``kind`` 0 eating (``a`` eats ``b``), 1 growth
+    of ``a`` inside ``(lo, hi)``; ``rate``."""
+    _fields_ = [("kind", _I), ("a", _I), ("b", _I), ("lo", _F), ("hi", _F),
+                ("rate", _F)]
+
+
+class McParams(ctypes.Structure):
+    """``Lb2dMcParams`` of ``csrc/mc_cell.cuh``, passed by value to K6's
+    ``mc_step``: per fluid (at most 4) the BGK, feq, Guo and drag constants,
+    the lattice weights, and the hooks (at most 16) and collisions (at most
+    8) in registration order. The two change together."""
+    _fields_ = [("omega", _F * 4), ("one_minus_omega", _F * 4),
+                ("guo_pref", _F * 4), ("inv_feq_cu2", _F * 4),
+                ("inv_feq_usq", _F * 4), ("inv_guo_cu", _F * 4),
+                ("inv_guo_uf", _F * 4),
+                ("eps", _F * 4), ("drag_lin", _F * 4), ("K", _F * 4),
+                ("drag_fe", _F * 4), ("sqrt_K", _F * 4), ("w", _F * 25),
+                ("inv_cs2", _F),
+                ("zero_density", _F), ("porous", _I), ("num_hooks", _I),
+                ("num_collisions", _I), ("hooks", McHook * 16),
+                ("coll", McCollision * 8)]
 
 
 # C entry point -> argument types; each returns a CUDA error code (int)
@@ -72,6 +108,11 @@ _ENTRY_POINTS = {
     # band, out, rows, nx, fields, k_steps, row0, ny, params, stream
     "lb2d_expansion_band_step": [_P, _P, _I, _I, _I, _I, _I, _I,
                                  MultifieldParams, _P],
+    # f, rho, ny, nx, q, fluids, zero-gradient fluid mask, stream
+    "lb2d_mc_density": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # f_in, f_out, rho, ext, ny, nx, q, fluids, zero-gradient fluid mask,
+    # params, stream
+    "lb2d_mc_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, McParams, _P],
     # out, n, key0, key1, step, stream
     "lb2d_normals": [_P, _LL, _U, _U, _ULL, _P],
     "lb2d_philox_bits": [_P, _LL, _U, _U, _ULL, _P],

@@ -39,5 +39,7 @@ def test_port_and_chip_smoke_import_no_jax_package():
     for name in ("lb2d_tpu_torch.core.lattice", "lb2d_tpu_torch.core.nondim",
                  "lb2d_tpu_torch.ops.random", "lb2d_tpu_torch.models.diffusion",
                  "lb2d_tpu_torch.models.waves",
-                 "lb2d_tpu_torch.models.multifield"):
+                 "lb2d_tpu_torch.models.multifield",
+                 "lb2d_tpu_torch.models.multicomponent",
+                 "lb2d_tpu_torch.ops.fused_mc", "lb2d_tpu_torch.mc_cases"):
         assert name in imported, imported

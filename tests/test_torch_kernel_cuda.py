@@ -11,21 +11,27 @@ included; they are held to the same 1e-6 (densities away from 1, where
 the noise's sqrt(rho (1 - rho)) would magnify an ulp of rho). The
 multifield kernels K4 and K5 round every operation on their own too:
 K4 ``fisher`` is held to 1e-6, K4 ``expansion`` and K5, whose clips turn an
-ulp next to the cutoff into a jump, to 0 with the noise on.
+ulp next to the cutoff into a jump, to 0 with the noise on. K6, the
+multicomponent step, is held to 1e-6 after 5 steps (FMA contraction, as
+the flow kernels), in each configuration of ``lb2d_tpu_torch.mc_cases``
+(those of chip_smoke.py's checks) and for 1-4 fluids on both lattices.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from lb2d_tpu_torch.core import D2Q9
+from lb2d_tpu_torch.core import D2Q9, D2Q25
+from lb2d_tpu_torch.mc_cases import MC_CASES, mc_case
 from lb2d_tpu_torch.models import (
     Expansion,
     FisherExpansion,
+    Fluid,
     NoisyAdvectedFisherWave,
     PipeFlow,
     PipeFlowVelocityInlet,
     ReactionAdvectionDiffusion,
+    SimulationRunner,
 )
 from lb2d_tpu_torch.ops.fused import (
     MAX_MULTIFIELD_FIELDS,
@@ -46,6 +52,7 @@ from lb2d_tpu_torch.ops.fused import (
     temporal_velocity_step,
     velocity_step_reference,
 )
+from lb2d_tpu_torch.ops.fused_mc import mc_density, mc_step, mc_step_reference
 from lb2d_tpu_torch.ops.random import (
     normals,
     normals_reference,
@@ -437,3 +444,88 @@ def test_multifield_models_kernel_backend_matches_eager(cuda):
             -(-7 // k) + -(-13 // k))
         d = float((sim.state - eager.state).abs().max())
         assert d <= (TOL if name == "fisher" else 0.0), (name, d)
+
+
+# K6, the multicomponent step: the configurations (a)-(g) of mc_cases and
+# runners of 1-4 fluids on D2Q9 and D2Q25
+def _k6_against_plain(sim, steps=5):
+    cfg, ext, lat = sim.config(), sim.ext_planes(), sim.lattice
+    a, spare, rho = sim.f.clone(), torch.empty_like(sim.f), torch.empty_like(
+        sim.rho)
+    b = sim.f
+    before = (mc_step.launches, mc_density.launches)
+    for _ in range(steps):
+        if cfg.interactions:
+            mc_density(a, rho, cfg, lat)
+        a, spare = mc_step(a, spare, rho, ext, cfg, lat), a
+        b = mc_step_reference(b, cfg, lat, ext)
+    torch.cuda.synchronize()
+    dens = steps if cfg.interactions else 0
+    assert (mc_step.launches, mc_density.launches) == (
+        before[0] + steps, before[1] + dens)
+    assert torch.isfinite(a).all()
+    return float((a - b).abs().max())
+
+
+@pytest.mark.parametrize("shape", [(254, 382), (128, 128)],
+                         ids=["254x382", "128x128"])
+@pytest.mark.parametrize("case", list(MC_CASES))
+def test_mc_kernel_matches_reference(cuda, case, shape):
+    sim = mc_case(case, *shape, device=cuda)
+    assert sim.backend == "kernel"
+    d = _k6_against_plain(sim)
+    assert d <= TOL, d
+
+
+def _mc_fluids(device, C, lattice, porous, shape=(254, 382)):
+    """C fluids: Shan-Chen between neighbours, a second-belt interaction
+    between the first and the last, a constant force, growth and eating."""
+    ny, nx = shape
+    sim = SimulationRunner(nx=nx, ny=ny, num_populations=C, porous=porous,
+                           lattice=lattice, device=device)
+    rs = np.random.RandomState(C)
+    for i in range(C):
+        sim.add_fluid(Fluid(sim, i, nu_e=0.3 + 0.1 * i,
+                            epsilon=0.8 if porous else 1.0, nu_fluid=0.4,
+                            K=2.0, Fe=0.5))
+    sim.complete_setup()
+    for i in range(C):
+        sim.fluid_list[i].initialize((0.8 + 0.1 * rs.rand(ny, nx)) / C,
+                                     f_amp=0.01)
+    for i in range(C - 1):
+        sim.add_interaction_force(i, i + 1, G_int=1.2, potential="shan_chen",
+                                  potential_parameters=[1.0])
+    if C > 1:
+        sim.add_interaction_force_second_belt(0, C - 1, G_int=0.5)
+        sim.add_eating_rate(C - 1, 0, 0.01)
+    sim.add_constant_body_force(0, 1e-5, -2e-6)
+    sim.add_growth(0, 0.1, 2.0, 1e-4)
+    return sim
+
+
+@pytest.mark.parametrize("porous", [True, False], ids=["porous", "plain"])
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+@pytest.mark.parametrize("lattice", [D2Q9, D2Q25], ids=["D2Q9", "D2Q25"])
+def test_mc_kernel_fluids_matches_reference(cuda, lattice, C, porous):
+    d = _k6_against_plain(_mc_fluids(cuda, C, lattice, porous))
+    assert d <= TOL, (C, d)
+
+
+def test_mc_runner_auto_runs_the_kernel(cuda):
+    """``auto`` picks K6 on CUDA, zero-gradient edges and the radial g
+    force included; 20 steps match the eager runner within 1e-5."""
+    kw = dict(device=cuda)
+    eager = mc_case("e", 64, 96, backend="eager", **kw)
+    sim = mc_case("e", 64, 96, **kw)
+    assert sim.backend == "kernel" and eager.backend == "eager"
+    before = mc_step.launches
+    for model in (eager, sim):
+        model.run(7)
+        model.run(13, k_steps=4)  # accepted, changes nothing
+    torch.cuda.synchronize()
+    assert mc_step.launches - before == 20 and sim.steps_per_call == 1
+    assert sim.backend_used == "kernel"
+    d = float((sim.f - eager.f).abs().max())
+    assert d <= 1e-5, d
+    with pytest.raises(ValueError, match="backend='eager'"):
+        SimulationRunner(nx=16, ny=16, device=cuda, dtype=torch.float64)
