@@ -23,13 +23,25 @@ set to 0 just before it and read just after:
   seam-band op, through its own entry point on that model's band;
 * the multicomponent slice (K6, ``mc_density`` + ``mc_step``): the porous
   two-fluid Shan-Chen ``SimulationRunner`` of BASELINE config 5 at 8192^2
-  (without its screened-Poisson hook), the spinodal decomposition at
-  1024^2 and a D2Q25 two-fluid runner at 1024^2.
+  without its screened-Poisson hook, the spinodal decomposition at 1024^2
+  and a D2Q25 two-fluid runner at 1024^2;
+* the spectral slice (K8, ``screened_gradients``, and K7,
+  ``coupled_step``): BASELINE config 5 whole at 8192^2 (K6 + K8, its
+  screened-Poisson force solved every step) and its ``stale_force=8``
+  variant, then the coupled models at ``examples/zoo_drive.py``'s sizes:
+  ``ScreenedFisherWave`` at 1024^2 (and ``stale_velocity=8``),
+  ``SurfactantNutrientWave`` at 512^2 (and ``stale_velocity=8`` at
+  1024^2), ``ClumpySurfactantNutrientWave`` at 512^2, ``RocketYeast`` and
+  ``RocketYeastForcesOnly`` at 1024^2. K8 is held to its plain solve at
+  8192^2, 1024^2, 512^2, 48^2, 50^2 and 127x250 and timed beside cuFFT
+  (``torch.fft``) computing the same function.
 
 It checks the physics (Poiseuille profile through each flow backend,
 cylinder mass, Gaussian spreading, advection, mass, noise amplitude and
 normal moments, wall mass conservation and the logistic cap, nutrient
-consumption, the Darcy balance, mass per fluid and spinodal separation),
+consumption, the Darcy balance, mass per fluid and spinodal separation,
+the screened Fisher wave's outward velocity, the surfactant wave's growth
+and consumption, rocket yeast's surfactant production),
 sweeps K2's steps per launch for the diffusion physics and K4's for the
 multifield physics, and prints the measured numbers. Every phase raises on
 failure; the last line is the JSON result and is printed only when all
@@ -50,6 +62,7 @@ from lb2d_tpu_torch.core import D2Q9, D2Q25
 from lb2d_tpu_torch.mc_cases import MC_CASES, mc_case
 from lb2d_tpu_torch.models import (
     AdvectionDiffusion,
+    ClumpySurfactantNutrientWave,
     Diffusion,
     Expansion,
     FisherExpansion,
@@ -60,7 +73,11 @@ from lb2d_tpu_torch.models import (
     PipeFlowVelocityInlet,
     ReactionAdvectionDiffusion,
     ReactionAdvectionDiffusionStochastic,
+    RocketYeast,
+    RocketYeastForcesOnly,
+    ScreenedFisherWave,
     SimulationRunner,
+    SurfactantNutrientWave,
 )
 from lb2d_tpu_torch.models.diffusion import (
     DIFFUSION_TEMPORAL_K,
@@ -91,6 +108,12 @@ from lb2d_tpu_torch.ops.fused import (
     temporal_velocity_step,
     velocity_step_reference,
 )
+from lb2d_tpu_torch.ops.fused_coupled import (
+    coupled_density,
+    coupled_params,
+    coupled_step,
+    coupled_step_reference,
+)
 from lb2d_tpu_torch.ops.fused_mc import (
     mc_density,
     mc_density_reference,
@@ -99,6 +122,15 @@ from lb2d_tpu_torch.ops.fused_mc import (
     mc_step_reference,
 )
 from lb2d_tpu_torch.ops.moments import density
+from lb2d_tpu_torch.ops.spectral import (
+    SOLVE_LAUNCHES,
+    dft_axis0,
+    dft_axis0_reference,
+    screened_gradients,
+    screened_gradients_passes,
+    screened_gradients_reference,
+    spectral_grids,
+)
 from lb2d_tpu_torch.ops.random import (
     normals,
     normals_reference,
@@ -152,6 +184,31 @@ MC_SPINODAL_STEPS = 1000  # the 1024^2 spinodal decomposition
 MC_Q25_STEPS = 200      # the 1024^2 D2Q25 runner
 MC_LEAST_BYTES = 144    # K6's step: f of 2 D2Q9 fluids read and written once
 MC_TWO_PASS_BYTES = 232  # mc_density (80) + mc_step (152)
+# the spectral slice: BASELINE config 5 (benchmarks/c5_one.py) and the
+# coupled models at examples/zoo_drive.py's "big" sizes
+C5_LAM, C5_AMP = 10.0, 1e-4  # its interaction length and amplitude
+C5_STEPS = 100          # the 8192^2 config-5 runs, exact and stale_force=8
+C5_STALE = 8
+C5_CHECK_STEPS = 3      # K6 + K8 against the eager step at 8192^2
+K8_TOL = 1e-5           # of max |g|: two float32 FFTs, sums in other orders
+K8_PASS_TOL = 1e-6      # of the scale: the 1-D pass against torch.fft.fft
+K8_SHAPES = ((8192, 8192), (1024, 1024), (512, 512), (48, 48), (50, 50),
+             (127, 250))  # the main paths' grids and odd and prime ones
+COUPLED_STEPS = 256     # each coupled model's run (32 sweeps at K = 8)
+COUPLED_CHECK_STEPS = 5  # K7 against the plain step, from one state
+SCREENED_FISHER = dict(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=1024)
+SURFACTANT = dict(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=512)
+CLUMPY = dict(SURFACTANT, rho_o=1.0, G_chen=-5.0)
+ROCKET = dict(Lx=1.0, Ly=1.0, R0=0.2, epsilon=0.05, Gc=2.0, N=1024,
+              G_chen=-0.1)
+ROCKET_FORCES = dict(ROCKET, c_o=0.25, alpha=2.0)  # rocket yeast's recipe
+# operations per cell of one K7 step, counted from its arithmetic (expf and
+# divisions as one): per field and direction the linear feq and BGK (10),
+# the densities (8 per field), the stencils (2 per neighbour term, 5 for a
+# psi or S), growth and forces
+COUPLED_OPS = {"screened_fisher": 110, "surfactant": 210,
+               "clumpy_surfactant": 310, "rocket_yeast": 330,
+               "rocket_yeast_forces_only": 290}
 STEP0 = 2**32 - 3   # a global step whose K steps cross the counter's high word
 H100_SXM = "H100 80GB HBM3"
 H100_SXM_HBM = 3.35e12  # B/s, NVIDIA's H100 SXM data sheet
@@ -405,7 +462,9 @@ COUNTERS = {"K1": pipe_step, "K2": temporal_pipe_step,
             "K2 diffusion family": temporal_diffusion_step,
             "K3 diffusion family": resident_diffusion_run, "P1": normals,
             "philox_bits": philox_bits, "K4": temporal_multifield_step,
-            "K5": expansion_band_step, "K6d": mc_density, "K6s": mc_step}
+            "K5": expansion_band_step, "K6d": mc_density, "K6s": mc_step,
+            "K7": coupled_step, "K8": screened_gradients,
+            "K8 pass": dft_axis0}
 
 
 def _window(label, drive, expected):
@@ -1173,12 +1232,14 @@ def _checked_k6(label, sim, worst):
     torch.cuda.empty_cache()
 
 
-def _porous_runner(n, device="cuda"):
+def _porous_runner(n, screened=False, stale_force=None):
     """The porous two-fluid Shan-Chen runner of BASELINE config 5
-    (``benchmarks/run_all.py:113-140``) at ``n``^2, without its
-    screened-Poisson hook (ROADMAP queue 1 item 6)."""
+    (``benchmarks/run_all.py:113-140``) at ``n``^2; with ``screened``, its
+    screened-Poisson hook too (``benchmarks/c5_one.py``), solved once per
+    ``stale_force`` steps when that is given."""
     sim = SimulationRunner(nx=n, ny=n, L_lb=n, num_populations=2,
-                           porous=True, device=device)
+                           porous=True, device="cuda",
+                           stale_force=stale_force)
     for i in range(2):
         sim.add_fluid(Fluid(sim, i, nu_e=1.0 / 6.0, epsilon=0.8,
                             nu_fluid=1.0 / 6.0, K=10.0, Fe=0.1))
@@ -1188,6 +1249,9 @@ def _porous_runner(n, device="cuda"):
     sim.fluid_list[1].initialize(1.0 - base)
     sim.add_interaction_force(0, 1, G_int=1.5, potential="shan_chen",
                               potential_parameters=[1.0])
+    if screened:
+        sim.add_screened_poisson_force(0, 1, interaction_length=C5_LAM,
+                                       amplitude=C5_AMP)
     return sim
 
 
@@ -1416,6 +1480,370 @@ def mc_physics_phase():
         raise RuntimeError("spinodal decomposition did not separate")
 
 
+# -- the spectral slice: K8 and K7 --------------------------------------------
+
+def _relative(got, want):
+    """max |got - want| over max |want| (finite values required)."""
+    return _max_diff(got, want) / float(want.abs().max())
+
+
+def spectral_kernel_phase():
+    """K8 against its plain solve at every ``K8_SHAPES`` grid (config 5's
+    amplitude), and its 1-D pass against ``torch.fft.fft``. Returns the
+    worst relative and absolute differences of the solve."""
+    worst = {"K8": 0.0, "K8 abs": 0.0}
+    rng = np.random.RandomState(3)
+    for ny, nx in K8_SHAPES:
+        rho = torch.tensor(rng.rand(ny, nx).astype(np.float32),
+                           device="cuda")
+        got = screened_gradients(rho, C5_LAM**2, out_scale=C5_AMP)
+        want = screened_gradients_reference(rho, C5_LAM**2, out_scale=C5_AMP)
+        d = _relative(got, want)
+        print(f"K8 vs plain {ny}x{nx}: max|dg| / max|g| = {d:.3e} (limit "
+              f"{K8_TOL:g})", flush=True)
+        if not d <= K8_TOL:
+            raise RuntimeError(f"K8 {ny}x{nx}: solve disagrees, {d}")
+        worst["K8"] = max(worst["K8"], d)
+        worst["K8 abs"] = max(worst["K8 abs"], _max_diff(got, want))
+        del rho, got, want
+    for n, W in ((8192, 128), (127, 250)):
+        xr = torch.tensor(rng.rand(n, W).astype(np.float32), device="cuda")
+        xi = torch.tensor(rng.rand(n, W).astype(np.float32), device="cuda")
+        for label, args, kw in (("real", (xr,), dict(out_rows=n // 2 + 1)),
+                                ("complex", (xr, xi), {}),
+                                ("inverse", (xr, xi), dict(inverse=True))):
+            got = dft_axis0(*args, **kw)
+            want = dft_axis0_reference(*args, **kw)
+            scale = max(float(w.abs().max()) for w in want)
+            d = max(_max_diff(g, w) for g, w in zip(got, want)) / scale
+            print(f"K8 1-D pass vs torch.fft.fft, n={n} W={W} {label}: "
+                  f"max|d| / scale = {d:.3e} (limit {K8_PASS_TOL:g})",
+                  flush=True)
+            if not d <= K8_PASS_TOL:
+                raise RuntimeError(f"K8 1-D pass {n} {label} disagrees: {d}")
+    return worst
+
+
+def _coupled_models():
+    """The coupled models of the spectral slice's main paths, ``auto``: one
+    per physics, keyed by it, and ``ScreenedFisherWave`` and
+    ``SurfactantNutrientWave`` at 1024^2 with ``stale_velocity=8``."""
+    return {
+        "screened_fisher": ScreenedFisherWave(device="cuda",
+                                              **SCREENED_FISHER),
+        "surfactant": SurfactantNutrientWave(device="cuda", **SURFACTANT),
+        "clumpy_surfactant": ClumpySurfactantNutrientWave(device="cuda",
+                                                          **CLUMPY),
+        "rocket_yeast": RocketYeast(device="cuda", **ROCKET),
+        "rocket_yeast_forces_only": RocketYeastForcesOnly(device="cuda",
+                                                          **ROCKET_FORCES),
+        "screened_fisher stale8": ScreenedFisherWave(
+            device="cuda", stale_velocity=8, **SCREENED_FISHER),
+        "surfactant stale8": SurfactantNutrientWave(
+            device="cuda", stale_velocity=8, **dict(SURFACTANT, N=1024)),
+    }
+
+
+def _k7_inputs(sim):
+    """The model's state as ``[9, F, ny, nx]``, its post-stream densities
+    and, for the screened models, its velocity planes of them."""
+    f = sim._fields4(sim.state)
+    rho = coupled_density(f, torch.empty((f.shape[1], sim.ny, sim.nx),
+                                         device="cuda"))
+    ext = (sim._velocity.planes(rho[0]) if sim._velocity is not None
+           else None)
+    return f, rho, ext
+
+
+def compare_k7(cfg, f0, ext, steps=COUPLED_CHECK_STEPS):
+    """``steps`` K7 steps (density pass + step, ``ext`` held) against as
+    many plain steps; returns max |df|."""
+    params = coupled_params(cfg)
+    rho = torch.empty((cfg.fields, *f0.shape[2:]), device="cuda")
+    a, spare = f0.clone(), torch.empty_like(f0)
+    for _ in range(steps):
+        coupled_density(a, rho)
+        a, spare = coupled_step(a, spare, rho, ext, cfg, params), a
+    b = f0
+    for _ in range(steps):
+        b = coupled_step_reference(b, cfg, ext)
+    return _max_diff(a, b)
+
+
+def coupled_kernel_phase(runs):
+    """K7, each physics, against its plain step: from the state of each
+    main path's model at its shape, and, once per physics, from a random
+    state with a random velocity field at 254x382."""
+    worst = {}
+    rng = np.random.RandomState(4)
+    w = np.asarray(D2Q9.w)[:, None, None, None]
+    for run_label, sim in runs.items():
+        cfg = sim.coupled_config()
+        physics = cfg.physics
+        f, _, ext = _k7_inputs(sim)
+        cases = [(f"{sim.ny}x{sim.nx} model state ({run_label})", f, ext)]
+        if physics not in worst:
+            rand = torch.tensor(w * (0.2 + rng.rand(9, cfg.fields, 254, 382)),
+                                dtype=torch.float32, device="cuda")
+            rand_ext = torch.tensor(0.02 * (rng.rand(2, 254, 382) - 0.5),
+                                    dtype=torch.float32, device="cuda")
+            cases.append(("254x382 random state", rand, rand_ext))
+            worst[physics] = 0.0
+        for label, f0, e in cases:
+            d = compare_k7(cfg, f0, e)
+            print(f"K7 {physics} vs plain, {label}, {COUPLED_CHECK_STEPS} "
+                  f"steps: max|df| = {d:.3e}", flush=True)
+            if not d <= KERNEL_TOL:
+                raise RuntimeError(f"K7 {physics} disagrees: {d}")
+            worst[physics] = max(worst[physics], d)
+    return worst
+
+
+def spectral_timing_phase(card):
+    """Device ms of K8's solve at 8192^2 and 1024^2, of each of its passes
+    at 8192^2, of the plain solve, and of cuFFT (``torch.fft``) computing
+    the same function with its multiplier precomputed (CUDA events)."""
+    times = {}
+    rng = np.random.RandomState(5)
+    for n in (8192, 1024):
+        rho = torch.tensor(rng.rand(n, n).astype(np.float32), device="cuda")
+        out = torch.empty((2, n, n), device="cuda")
+
+        def solve():
+            screened_gradients(rho, C5_LAM**2, out=out, out_scale=C5_AMP)
+
+        def plain():
+            screened_gradients_reference(rho, C5_LAM**2, out_scale=C5_AMP)
+
+        solve()
+        reps = 20 if n == 8192 else 100
+        times[f"K8 {n}"] = _events_ms(solve, reps)
+        plain()
+        times[f"plain K8 {n}"] = _events_ms(plain, reps // 4)
+        fx, fy, gx, gy = spectral_grids(n, n, "cuda")
+        screen = 1.0 / (np.float32(C5_LAM**2) * (fx[None] ** 2
+                                                 + fy[:, None] ** 2) + 1.0)
+        mult = (C5_AMP * screen * (2.0 * np.pi) * (
+            1j * gx[None] - gy[:, None])).to(torch.complex64)
+
+        def library():  # the same function, two cuFFT calls and a product
+            g = torch.fft.ifft2(torch.fft.fft2(rho.to(torch.complex64)) * mult)
+            return g.real, g.imag
+
+        library()
+        times[f"library K8 {n}"] = _events_ms(library, reps)
+        got = torch.stack(library())
+        d = _relative(got, out)
+        print(f"K8 at {n}^2: {times[f'K8 {n}']:.4f} ms per solve; plain "
+              f"solve {times[f'plain K8 {n}']:.4f} ms; torch.fft (cuFFT) "
+              f"{times[f'library K8 {n}']:.4f} ms, which K8 matches to "
+              f"{d:.3e} of max|g| (CUDA events); card: {card}", flush=True)
+        if n == 8192:
+            for name, launch in screened_gradients_passes(rho, C5_LAM**2, out,
+                                                          C5_AMP):
+                launch()
+                times[f"K8 pass {name}"] = _events_ms(launch, reps)
+            # each pass's input read and output written once (B per cell
+            # of rho; the half spectrum holds n / 2 + 1 of n rows)
+            half = (n // 2 + 1) / n
+            pass_bytes = {"forward y": 4 + 8 * half, "forward x": 16 * half,
+                          "screen + inverse x": 8 * half + 8,
+                          "inverse y": 16}
+            print("K8 passes at 8192^2, ms (bound at the data sheet): "
+                  + ", ".join(
+                      f"{name} {times[f'K8 pass {name}']:.4f} "
+                      f"({_bound(per_cell * n * n, 0)[0]:.4f})"
+                      for name, per_cell in pass_bytes.items()), flush=True)
+        del rho, out, mult
+        torch.cuda.empty_cache()
+    return times
+
+
+def coupled_timing_phase(models):
+    """Device ms per K7 launch of each physics at its model's shape, on the
+    density and velocity of the model's state, and of the plain step
+    (CUDA events)."""
+    times = {}
+    for physics, sim in models.items():
+        cfg = sim.coupled_config()
+        f, rho, ext = _k7_inputs(sim)
+        params = coupled_params(cfg)
+        bufs = [f.clone(), torch.empty_like(f)]
+
+        def step():
+            coupled_step(bufs[0], bufs[1], rho, ext, cfg, params)
+            bufs.reverse()
+
+        step()
+        times[physics] = _events_ms(step, 100)
+        g = [f]
+
+        def plain():
+            g[0] = coupled_step_reference(g[0], cfg, ext)
+
+        plain()
+        times["plain " + physics] = _events_ms(plain, 10)
+        print(f"K7 {physics} at {sim.ny}x{sim.nx}: {times[physics]:.4f} ms "
+              f"per launch; plain step {times['plain ' + physics]:.4f} ms "
+              "(CUDA events)", flush=True)
+        del bufs, g
+    return times
+
+
+def compare_config5(sim, steps=C5_CHECK_STEPS):
+    """``steps`` kernel steps of the config-5 runner's state (mc_density,
+    K8 into the hook's ext pair, mc_step) against as many eager steps (the
+    plain solve inside the plain step); returns max |df|."""
+    cfg, ext, lat = sim.config(), sim.ext_planes(), sim.lattice
+    _, _, pair, src, lam2, amp = cfg.screened[0]
+    params = mc_params(cfg, lat)
+    rho = torch.empty_like(sim.rho)
+    a, spare = sim.f.clone(), torch.empty_like(sim.f)
+    for _ in range(steps):
+        mc_density(a, rho, cfg, lat)
+        screened_gradients(rho[src], lam2, out=ext[2 * pair:2 * pair + 2],
+                           out_scale=amp)
+        a, spare = mc_step(a, spare, rho, ext, cfg, lat, params), a
+    del spare
+    b = sim.f
+    for _ in range(steps):
+        b = mc_step_reference(b, cfg, lat, ext)
+    return _max_diff(a, b)
+
+
+def config5_phase(card, times):
+    """BASELINE config 5 whole at 8192^2: held to the eager step over
+    ``C5_CHECK_STEPS`` steps, then ``run(C5_STEPS, timed=True)`` in its
+    counted window, then the ``stale_force=8`` variant in its own; each
+    fluid's mass conserved to 1e-4."""
+    out = {}
+    for stale in (None, C5_STALE):
+        sim = _porous_runner(8192, screened=True, stale_force=stale)
+        label = (f"config 5 8192^2 stale_force={stale}" if stale
+                 else "config 5 8192^2")
+        if stale is None:
+            torch.cuda.reset_peak_memory_stats()
+            out["max_err"] = _checked(
+                f"K6 + K8 vs the eager step, {label}, {C5_CHECK_STEPS} steps "
+                f"(peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB)",
+                compare_config5(sim))
+            torch.cuda.empty_cache()
+        sim.run(stale or 2)  # warm
+        m0 = _fluid_mass(sim)
+        solves = (C5_STEPS // stale + C5_STEPS % stale if stale
+                  else C5_STEPS)
+        counts = _window(f"SimulationRunner {label}",
+                         lambda: sim.run(C5_STEPS, timed=True),
+                         {"K6d": C5_STEPS, "K6s": C5_STEPS,
+                          "K8": SOLVE_LAUNCHES * solves})
+        m1 = _fluid_mass(sim)
+        drift = float(np.max(np.abs(m1 - m0) / m0))
+        step_ms = sim.num_cells / (sim.last_mlups * 1e6) * 1e3
+        print(f"main path SimulationRunner {label} backend={sim.backend}: "
+              f"{sim.last_mlups:.1f} MLUPS over {C5_STEPS} steps "
+              f"({step_ms:.4f} ms per step), launches {counts['K6d']} "
+              f"mc_density + {counts['K6s']} mc_step + {counts['K8']} K8 "
+              f"({solves} solves; K8 alone {times['K8 8192']:.4f} ms per "
+              f"solve); mass per "
+              f"fluid {m0.tolist()} -> {m1.tolist()}, largest relative "
+              f"change {drift:.3e} (limit 1e-4); card: {card}", flush=True)
+        if not (torch.isfinite(sim.f).all() and drift < 1e-4):
+            raise RuntimeError(f"{label}: non-finite state or mass lost")
+        out[stale] = dict(launches=counts, solves=solves,
+                          mlups=sim.last_mlups)
+        del sim
+        torch.cuda.empty_cache()
+    return out
+
+
+def coupled_main_path_phase(runs, card):
+    """The coupled models as a user runs them, each ``run(COUPLED_STEPS,
+    timed=True)`` in its own counted window (K6's density pass, K8 for the
+    screened ones, K7); then three plain (eager) models at the same sizes,
+    the screened ones solving with ``torch.fft``."""
+    launches, mlups = {}, {}
+    mass0 = {label: _field_masses(sim) for label, sim in runs.items()}
+    for label, sim in runs.items():
+        K = sim.steps_per_call
+        screened = sim._velocity is not None
+        sweeps = COUPLED_STEPS // K
+        expected = {"K7": COUPLED_STEPS}
+        expected["K6d"] = (COUPLED_STEPS if sim.coupled_config(
+        ).reads_neighbours or K == 1 else sweeps)
+        if screened:
+            expected["K8"] = SOLVE_LAUNCHES * sweeps
+        sim.run(K)  # warm
+        counts = _window(f"{type(sim).__name__} {sim.ny}x{sim.nx} ({label})",
+                         lambda sim=sim: sim.run(COUPLED_STEPS, timed=True),
+                         expected)
+        launches[label] = {k: v for k, v in counts.items() if v}
+        mlups[label] = sim.last_mlups
+        if not torch.isfinite(sim.state).all():
+            raise RuntimeError(f"{label}: non-finite state")
+    plain = {}
+    for label, make in (
+            ("screened_fisher", lambda: ScreenedFisherWave(
+                device="cuda", backend="eager", **SCREENED_FISHER)),
+            ("surfactant", lambda: SurfactantNutrientWave(
+                device="cuda", backend="eager", **SURFACTANT)),
+            ("rocket_yeast", lambda: RocketYeast(device="cuda",
+                                                 backend="eager", **ROCKET))):
+        ref = make()
+        ref.run(2)
+        ref.run(10, timed=True)
+        plain[label] = ref.last_mlups
+        del ref
+    for label, sim in runs.items():
+        extra = (f"; plain (eager) {plain[label]:.1f} MLUPS"
+                 if label in plain else "")
+        print(f"main path {type(sim).__name__} {sim.ny}x{sim.nx} ({label}) "
+              f"backend={sim.backend}: {mlups[label]:.1f} MLUPS over "
+              f"{COUPLED_STEPS} steps, launches {launches[label]}{extra}; "
+              f"card: {card}", flush=True)
+    return launches, mass0
+
+
+def coupled_physics_phase(runs, mass0):
+    """The repo's own checks (tests/test_waves.py:27-44,
+    tests/test_surfactant_rocket.py:52-101) on the main paths' models:
+    the screened Fisher wave grows and its velocity points outward on both
+    sides of the blob; the surfactant wave grows its population and
+    consumes its nutrient; rocket yeast produces surfactant and keeps its
+    population >= 0."""
+    sfw = runs["screened_fisher"]
+    fields = sfw.get_fields()
+    cx, cy, off = sfw.nx // 2, sfw.ny // 2, sfw.nx // 8
+    right, left = fields["u"][cx + off, cy], fields["u"][cx - off, cy]
+    (m0,), (m1,) = mass0["screened_fisher"], _field_masses(sfw)
+    print(f"ScreenedFisherWave {sfw.ny}x{sfw.nx} after {sfw.steps_taken} "
+          f"steps: mass {m0:.3f} -> {m1:.3f}, u at center +- {off}: "
+          f"{right:.3e} / {left:.3e}", flush=True)
+    if not (m1 > m0 and right > 0 > left):
+        raise RuntimeError("ScreenedFisherWave: no growth or no outward "
+                           "velocity")
+    for label in ("surfactant", "clumpy_surfactant", "surfactant stale8"):
+        (pop0, nut0), (pop1, nut1) = mass0[label], _field_masses(runs[label])
+        print(f"{label}: population {pop0:.3f} -> {pop1:.3f}, nutrient "
+              f"{nut0:.3f} -> {nut1:.3f}", flush=True)
+        if not (pop1 > pop0 and nut1 < nut0):
+            raise RuntimeError(f"{label}: population not grown or nutrient "
+                               "not consumed")
+    for label in ("rocket_yeast", "rocket_yeast_forces_only"):
+        sim = runs[label]
+        surf = float(sim.state[:, 1].double().sum())
+        low = float(sim.state[:, 0].min())
+        print(f"{label}: surfactant produced {surf:.3f} (limit 0.1), least "
+              f"population value {low:.3e}", flush=True)
+        if not (surf > 0.1 and low >= 0.0):
+            raise RuntimeError(f"{label}: no surfactant or a negative "
+                               "population")
+
+
+def _field_masses(sim):
+    """Float64 mass of each field of a coupled model."""
+    return sim._fields4(sim.state).double().sum(dim=(0, 2, 3)).tolist()
+
+
 def _mc_ops(sim):
     """Operations per cell-step of K6's step (counted from its arithmetic):
     per fluid and direction the moments (3) and feq + Guo + BGK (25), per
@@ -1501,6 +1929,25 @@ def main():
     big, mc_times = mc_main_path_phase(card, max_err)
     launches.update({k: big["launches"][k] for k in ("K6d", "K6s")})
     mc_physics_phase()
+    max_err.update(spectral_kernel_phase())
+    runs = _coupled_models()
+    models = {k: sim for k, sim in runs.items() if "stale" not in k}
+    shapes = {k: (sim.backend, sim.ny, sim.nx) for k, sim in runs.items()}
+    print(f"the coupled models: {shapes}", flush=True)
+    if shapes != {"screened_fisher": ("kernel", 1024, 1024),
+                  "surfactant": ("kernel", 512, 512),
+                  "clumpy_surfactant": ("kernel", 512, 512),
+                  "rocket_yeast": ("kernel", 1024, 1024),
+                  "rocket_yeast_forces_only": ("kernel", 1024, 1024),
+                  "screened_fisher stale8": ("kernel", 1024, 1024),
+                  "surfactant stale8": ("kernel", 1024, 1024)}:
+        raise RuntimeError(f"unexpected backends or grids {shapes}")
+    k7_err = coupled_kernel_phase(runs)
+    k8_times = spectral_timing_phase(card)
+    k7_times = coupled_timing_phase(models)
+    c5 = config5_phase(card, k8_times)
+    coupled_launches, mass0 = coupled_main_path_phase(runs, card)
+    coupled_physics_phase(runs, mass0)
     k2, k3 = "lb2d_tpu/ops/fused.py:888", "lb2d_tpu/ops/fused.py:1193"
     kernels = {  # key: (wrapper, source, TPU kernel, model, ops per cell)
         "K1": ("pipe_step", "pipe_step.cu", "lb2d_tpu/ops/fused.py:682",
@@ -1571,6 +2018,48 @@ def main():
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes the same
             "steps_per_launch": steps[key], "shape": shape})
+    k7 = "lb2d_tpu/ops/fused_coupled.py"
+    for physics, tpu in (("rocket_yeast", f"{k7}:105"),
+                         ("rocket_yeast_forces_only", f"{k7}:105"),
+                         ("screened_fisher", f"{k7}:202"),
+                         ("surfactant", f"{k7}:251"),
+                         ("clumpy_surfactant", f"{k7}:251")):
+        sim = models[physics]
+        cfg, cells = sim.coupled_config(), sim.num_cells
+        F = cfg.fields
+        # f read and written once, plus the neighbours' rho or the velocity
+        per_cell = (72 * F + (4 * F if cfg.reads_neighbours else 0)
+                    + (8 if cfg.reads_ext else 0))
+        bound_ms, bound_by = _bound(cells * per_cell,
+                                    cells * COUPLED_OPS[physics])
+        rows.append({
+            "name": f"coupled_step ({physics})", "route": "cuda",
+            "source": "lb2d_tpu_torch/csrc/coupled_step.cu", "replaces": tpu,
+            "launches": coupled_launches[physics]["K7"],
+            "max_abs_err": k7_err[physics], "ms": k7_times[physics],
+            "plain_ms": k7_times["plain " + physics],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call computes the same
+            "steps_per_launch": 1, "shape": [F, sim.ny, sim.nx]})
+    cells = 8192 * 8192
+    # rho read once, s (xg, yg) written once; a radix-2 real forward and a
+    # complex inverse 2-D FFT (2.5 and 5 log2(cells) flops per cell) and
+    # the screen's 20
+    bound_ms, bound_by = _bound(cells * 12,
+                                cells * (7.5 * np.log2(cells) + 20))
+    rows.append({
+        "name": "screened_gradients", "route": "cuda",
+        "source": "lb2d_tpu_torch/csrc/spectral_dft.cu",
+        "replaces": "lb2d_tpu/ops/dft_pallas.py:146",
+        "launches": c5[None]["launches"]["K8"],
+        "launches_per_solve": SOLVE_LAUNCHES, "solves": c5[None]["solves"],
+        "max_abs_err": max_err["K8 abs"], "max_rel_err": max_err["K8"],
+        "ms": k8_times["K8 8192"], "plain_ms": k8_times["plain K8 8192"],
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        # per solve (its four launches); torch.fft (cuFFT): fft2, the
+        # precomputed multiplier, ifft2
+        "library_ms": k8_times["library K8 8192"],
+        "steps_per_launch": 1, "shape": [8192, 8192]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

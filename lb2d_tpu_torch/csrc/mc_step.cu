@@ -307,3 +307,8 @@ extern "C" int lb2d_mc_step(const float* f_in, float* f_out, const float* rho,
   return (int)dispatch(q, fluids, f_in, f_out, const_cast<float*>(rho), ext,
                        ny, nx, zero_gradient_mask, &prm, stream);
 }
+
+// sizeof(Lb2dMcParams), which ops/_build.py holds its ctypes mirror to
+extern "C" int lb2d_mc_params_size() {
+  return (int)sizeof(Lb2dMcParams);
+}

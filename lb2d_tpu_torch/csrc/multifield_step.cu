@@ -225,3 +225,8 @@ extern "C" int lb2d_expansion_band_step(const float* band, float* out,
                              (rows - 2 * k_steps) / 2, 2 * k_steps, row0, ny,
                              prm, stream);
 }
+
+// sizeof(Lb2dMultifieldParams), which ops/_build.py holds its ctypes mirror to
+extern "C" int lb2d_multifield_params_size() {
+  return (int)sizeof(Lb2dMultifieldParams);
+}

@@ -13,7 +13,13 @@ from .lattice_units import (
     PipeFlowVelocityInlet,
 )
 from .pipe_flow import PipeFlow, PipeFlowCylinder, PipeFlowObstacles, disk_mask
-from .waves import NoisyAdvectedFisherWave
+from .rocket_yeast import RocketYeast, RocketYeastForcesOnly
+from .spectral import ScreenedPoisson, screened_poisson_solve
+from .surfactant import (
+    ClumpySurfactantNutrientWave,
+    SurfactantNutrientWave,
+)
+from .waves import NoisyAdvectedFisherWave, ScreenedFisherWave
 
 __all__ = [
     "PipeFlow", "PipeFlowCylinder", "PipeFlowObstacles",
@@ -22,5 +28,7 @@ __all__ = [
     "Diffusion", "AdvectionDiffusion", "ReactionDiffusion",
     "ReactionAdvectionDiffusion", "ReactionAdvectionDiffusionStochastic",
     "NoisyAdvectedFisherWave", "FisherExpansion", "Expansion",
-    "Fluid", "SimulationRunner",
+    "Fluid", "SimulationRunner", "ScreenedPoisson", "screened_poisson_solve",
+    "ScreenedFisherWave", "SurfactantNutrientWave",
+    "ClumpySurfactantNutrientWave", "RocketYeast", "RocketYeastForcesOnly",
 ]

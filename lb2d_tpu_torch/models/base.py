@@ -16,7 +16,7 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["LBModel", "resolve_device"]
+__all__ = ["LBModel", "resolve_device", "advance", "held_solve_sweep"]
 
 
 def resolve_device(device) -> torch.device:
@@ -28,6 +28,39 @@ def resolve_device(device) -> torch.device:
             f"device={str(device)!r} but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the eager path on the CPU")
     return device
+
+
+def advance(f, n: int, K: int, sweep, single):
+    """``n`` steps of ``f``: ``n // K`` calls of ``sweep`` (K steps each),
+    then the rest through ``single`` (JAX's ``run``,
+    ``lb2d_tpu/models/base.py:77-93``)."""
+    calls, rest = divmod(int(n), K)
+    for _ in range(calls):
+        f = sweep(f)
+    for _ in range(rest):
+        f = single(f)
+    return f
+
+
+def held_solve_sweep(f, n: int, step, density, solve=None,
+                     density_every_step: bool = False):
+    """``n`` steps of ``f`` that share one solve, the stale-solve policy of
+    the coupled models' ``stale_velocity`` and the multicomponent runner's
+    ``stale_force``: at the first step ``rho = density(f)`` (the post-stream
+    densities) and ``solve(rho)``, which writes the held planes in place;
+    then each step ``f = step(f, rho)``. ``density`` runs again before each
+    later step when ``density_every_step`` (a stencil reads the neighbours'
+    densities). Without a ``solve`` the density runs only then. One step
+    (``n == 1``) is exact."""
+    rho = None
+    for k in range(n):
+        first = k == 0 and solve is not None
+        if first or density_every_step:
+            rho = density(f)
+        if first:
+            solve(rho)
+        f = step(f, rho)
+    return f
 
 
 class LBModel:
@@ -81,11 +114,8 @@ class LBModel:
         if self._run_n is not None:
             f = self._run_n(f, num_iterations)
         else:
-            calls, rest = divmod(num_iterations, self.steps_per_call)
-            for _ in range(calls):
-                f = self._step(f)
-            for _ in range(rest):
-                f = self._single_step(f)
+            f = advance(f, num_iterations, self.steps_per_call, self._step,
+                        self._single_step)
         self.state = f
         if timed:
             self._synchronize()

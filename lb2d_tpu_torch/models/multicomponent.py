@@ -29,10 +29,16 @@ Backends:
   back silently: on CUDA a configuration the kernel does not hold raises a
   ``ValueError`` that names ``backend="eager"``.
 
-Not ported in this slice: ``add_screened_poisson_force`` (it needs the
-spectral solve, ROADMAP queue 1 item 6) and ``shard_over`` (item 9) raise
-``NotImplementedError``; ``stale_force`` is accepted and stored (it only
-affects that hook).
+The screened-Poisson repulsion (``add_screened_poisson_force``) is solved
+on the fluid's post-stream, post-BC density: on the kernel path each step is
+``mc_density``, K8 (:func:`~lb2d_tpu_torch.ops.spectral.screened_gradients`)
+writing ``amplitude (xg, yg)`` into the hook's ext plane pair, then
+``mc_step``, which reads that pair as any ext hook. ``stale_force=K`` solves
+once per K-step sweep and holds the force for the sweep (both backends;
+``run`` runs the rest of ``n`` as exact single steps).
+
+Not ported in this slice: ``shard_over`` (ROADMAP queue 1 item 9) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -51,11 +57,13 @@ from ..ops.fused_mc import (
     MCKernelConfig,
     get_psi,
     mc_density,
+    mc_density_reference,
     mc_params,
     mc_step,
     mc_step_reference,
 )
-from .base import resolve_device
+from ..ops.spectral import screened_gradients, screened_gradients_reference
+from .base import advance, held_solve_sweep, resolve_device
 
 __all__ = ["Fluid", "SimulationRunner", "SECOND_BELT_STENCIL", "get_psi",
            "pick_backend"]
@@ -166,8 +174,8 @@ class SimulationRunner:
                              else ZERO_DENSITY_MULTI)
         self.check_max_ulb = check_max_ulb
         self.mach_tolerance = mach_tolerance
-        # stale_force only relaxes the screened-Poisson hook, which is not
-        # ported yet (ROADMAP queue 1 item 6): stored, used by nothing
+        # stale_force=K: the screened-Poisson force is solved once per K-step
+        # sweep and held for it (None: every step, the reference's coupling)
         self.stale_force = None if stale_force in (None, 0, 1) \
             else int(stale_force)
         self.backend = pick_backend(backend, self.device, self.dtype,
@@ -185,7 +193,8 @@ class SimulationRunner:
         self.fluid_list: list[Fluid] = []
         self._hooks = []          # force hooks in registration order
         self._collisions = []     # collision hooks in registration order
-        self._ext_planes = []     # (fx, fy) numpy float64 per "ext" hook
+        self._ext_planes = []     # (fx, fy) numpy float64 per "ext" hook,
+        # None for a "screened" hook (its pair is solved every step or sweep)
         self._plan = None         # (cfg, ext, K6 params) built at first run
         self._spare = self._rho_buf = None
         self.backend_used = None
@@ -297,12 +306,20 @@ class SimulationRunner:
     def add_screened_poisson_force(self, source_index, force_index,
                                    interaction_length, amplitude,
                                    precision="highest"):
-        """Not ported yet: the per-step spectral repulsion needs the
-        spectral solve (ROADMAP queue 1 item 6)."""
-        raise NotImplementedError(
-            "add_screened_poisson_force needs the spectral solve, which "
-            "comes with ROADMAP queue 1 item 6 (the spectral solve and the "
-            "coupled families)")
+        """Per-step spectral repulsion (``multi.py:488-511, 768-769``):
+        ``G[force_index] += amplitude * grad(screen(rho[source_index]))``
+        with dx = 1 and the Nyquist-zeroed gradient multipliers of
+        ``ScreenedFisherWave``'s solve, at its registration-order place
+        among the force hooks. ``precision`` (``"highest"`` or
+        ``"bf16x3"``, the TPU solve's matmul modes) is accepted; both run
+        the same float32 K8."""
+        if precision not in ("highest", "bf16x3"):
+            raise ValueError(f"unknown precision {precision!r}; use "
+                             "'highest' or 'bf16x3'")
+        self._ext_planes.append(None)
+        self._add_hook(("screened", int(force_index),
+                        len(self._ext_planes) - 1, int(source_index),
+                        float(interaction_length) ** 2, float(amplitude)))
 
     def shard_over(self, mesh):
         """Not ported yet: multi-GPU comes with ROADMAP queue 1 item 9."""
@@ -339,10 +356,13 @@ class SimulationRunner:
 
     def ext_planes(self) -> torch.Tensor | None:
         """The ``"ext"`` hooks' planes ``[2 * pairs, ny, nx]`` (Gx, Gy per
-        hook) on the runner's device, or None."""
+        hook; zeros for a screened-Poisson hook's pair, which the kernel
+        path fills) on the runner's device, or None."""
         if not self._ext_planes:
             return None
-        planes = [p for pair in self._ext_planes for p in pair]
+        zero = np.zeros((self.ny, self.nx))
+        planes = [p for pair in self._ext_planes
+                  for p in (pair if pair is not None else (zero, zero))]
         return torch.tensor(np.stack(planes), dtype=self.dtype,
                             device=self.device)
 
@@ -355,47 +375,95 @@ class SimulationRunner:
                   else None)
         self._plan = (cfg, self.ext_planes(), params)
 
-    def _step(self, f):
-        """One plain step of ``f`` (the eager backend)."""
-        if self._plan is None:
-            self._make_plan()
-        cfg, ext, _ = self._plan
-        return mc_step_reference(f, cfg, self.lattice, ext)
+    def _sweep_depth(self, k_steps):
+        """Steps per solve of the screened-Poisson force: ``stale_force``,
+        capped by ``k_steps`` (JAX, ``multicomponent.py:651-653``); 1 without
+        such a hook."""
+        if not self._plan[0].screened or self.stale_force is None:
+            return 1
+        return min(self.stale_force, int(k_steps or self.stale_force))
 
-    def _kernel_step(self, f):
-        """One K6 step of ``f`` into the spare buffer; returns it."""
+    def _solve_screened(self, rho, ext, plain):
+        """Each screened-Poisson hook's force ``amplitude (xg, yg)`` of the
+        post-stream densities ``rho`` into its ext pair: K8 (its plain
+        version on the CPU), or, ``plain``, the plain solve."""
+        for _, _, pair, src, lam2, amp in self._plan[0].screened:
+            out = ext[2 * pair:2 * pair + 2]
+            if plain:
+                out.copy_(screened_gradients_reference(
+                    rho[src].to(torch.float32), lam2, out_scale=amp))
+            else:
+                screened_gradients(rho[src], lam2, out=out, out_scale=amp)
+
+    def _steps(self):
+        """The backend's exact step ``f -> f`` and its sweep ``(f, n) -> f``
+        holding the screened-Poisson force (:func:`held_solve_sweep`).
+        Eager: the plain step, whose sweep solves from
+        ``mc_density_reference`` with the plain solve. Kernel: ``mc_density``
+        when the interactions or the solve need the density, K8 into the ext
+        pairs at the sweep's first step, ``mc_step``."""
         cfg, ext, params = self._plan
+        lat = self.lattice
+        if self.backend != "kernel":
+            def sweep(f, n):
+                return held_solve_sweep(
+                    f, n,
+                    lambda f, rho: mc_step_reference(f, cfg, lat, ext,
+                                                     hold_screened=True),
+                    lambda f: mc_density_reference(f, cfg, lat),
+                    lambda rho: self._solve_screened(rho, ext, plain=True))
+
+            return (lambda f: mc_step_reference(f, cfg, lat, ext)), sweep
         if self._spare is None:
-            self._spare = torch.empty_like(f)
-        if cfg.interactions:
-            if self._rho_buf is None:
-                self._rho_buf = torch.empty_like(self.rho)
-            mc_density(f, self._rho_buf, cfg, self.lattice)
-        out = mc_step(f, self._spare, self._rho_buf, ext, cfg, self.lattice,
-                      params)
-        self._spare = f
-        return out
+            self._spare = torch.empty_like(self.f)
+        if self._rho_buf is None and (cfg.interactions or cfg.screened):
+            self._rho_buf = torch.empty_like(self.rho)
+
+        def step(f, rho):
+            out = mc_step(f, self._spare, rho, ext, cfg, lat, params)
+            self._spare = f
+            return out
+
+        def sweep(f, n):
+            return held_solve_sweep(
+                f, n, step,
+                lambda f: mc_density(f, self._rho_buf, cfg, lat),
+                ((lambda rho: self._solve_screened(rho, ext, plain=False))
+                 if cfg.screened else None),
+                density_every_step=bool(cfg.interactions))
+
+        return (lambda f: sweep(f, 1)), sweep
 
     # ---- execution -----------------------------------------------------------
     def run(self, num_iterations, debug=False, timed=False, k_steps=None):
-        """Advance ``num_iterations`` steps. ``k_steps`` is accepted for the
-        JAX API and changes no number: K6 runs one step per launch, so
-        ``steps_per_call`` stays 1 (temporal blocking is later work).
-        ``debug`` prints ``check_fields()`` after every step; ``timed``
-        synchronises around the run and sets ``last_mlups``."""
+        """Advance ``num_iterations`` steps. With a screened-Poisson hook
+        and ``stale_force=K``, ``steps_per_call`` is K (capped by
+        ``k_steps``): ``num_iterations // K`` sweeps that each solve once,
+        then the rest as exact single steps. Otherwise every step is exact
+        and ``k_steps`` changes no number (K6 runs one step per launch).
+        ``debug`` runs exact single steps and prints ``check_fields()``
+        after each; ``timed`` synchronises around the run and sets
+        ``last_mlups``."""
         if k_steps is not None and int(k_steps) < 1:
             raise ValueError(f"k_steps must be >= 1, got {k_steps}")
         if self._plan is None:
             self._make_plan()
-        step = self._kernel_step if self.backend == "kernel" else self._step
+        single, steps = self._steps()
         self.backend_used = self.backend
+        K = 1 if debug else self._sweep_depth(k_steps)
+        self.steps_per_call = K
+
+        def sweep(f):
+            if not debug:
+                return steps(f, K) if K > 1 else single(f)
+            self.f = single(f)  # K is 1
+            self.check_fields()
+            return self.f
+
         if timed:
             self._synchronize()
             t0 = time.perf_counter()
-        for _ in range(int(num_iterations)):
-            self.f = step(self.f)
-            if debug:
-                self.check_fields()
+        self.f = advance(self.f, num_iterations, K, sweep, single)
         if timed:
             self._synchronize()
             dt = time.perf_counter() - t0

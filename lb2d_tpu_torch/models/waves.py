@@ -1,8 +1,16 @@
 """Coupled Fisher-wave models (counterpart of ``lb2d_tpu.models.waves``).
 
-Ported so far: :class:`NoisyAdvectedFisherWave`. ``ScreenedFisherWave`` and
-``RepellingFisherWave`` come with the spectral and Poisson slices
-(ROADMAP.md queue 1 items 6-7).
+* :class:`NoisyAdvectedFisherWave`: the stochastic Fisher wave (K2 / K3).
+* :class:`ScreenedFisherWave`: a Fisher wave advected by the negative
+  gradient of the screened-Poisson potential of its own density, re-solved
+  every step (K7 ``screened_fisher`` + K8 on CUDA), and the machinery the
+  coupled families share: the per-step screened velocity
+  (:class:`_ScreenedVelocity`) and the backends and run loop
+  (:class:`CoupledModel`), which ``models/surfactant.py`` and
+  ``models/rocket_yeast.py`` use too.
+
+``RepellingFisherWave`` comes with the Poisson slice (ROADMAP.md queue 1
+item 7).
 """
 
 from __future__ import annotations
@@ -11,10 +19,29 @@ import numpy as np
 import torch
 
 from ..core import D2Q9
-from .base import resolve_device
+from ..ops import _build
+from ..ops.equilibrium import feq_linear
+from ..ops.fused_coupled import (
+    CoupledConfig,
+    coupled_density,
+    coupled_params,
+    coupled_step,
+    coupled_step_reference,
+    rocket_yeast_step_reference,
+    screened_fisher_step_reference,
+    surfactant_step_reference,
+)
+from ..ops.moments import density
+from ..ops.spectral import screened_gradients, screened_gradients_reference
+from ..ops.stream import stream
+from .base import LBModel, held_solve_sweep, resolve_device
 from .diffusion import PeriodicScalarModel
 
-__all__ = ["NoisyAdvectedFisherWave"]
+__all__ = ["NoisyAdvectedFisherWave", "ScreenedFisherWave", "CoupledModel"]
+
+_BACKENDS = ("auto", "kernel", "eager")
+_SOLVE_METHODS = ("auto", "pallas", "matmul", "fft")
+_PRECISIONS = ("highest", "bf16x3")
 
 
 class NoisyAdvectedFisherWave(PeriodicScalarModel):
@@ -85,3 +112,298 @@ class NoisyAdvectedFisherWave(PeriodicScalarModel):
 
     def _lb_Dg(self):
         return float(self.lb_Dg)
+
+
+class _ScreenedVelocity:
+    """Per-step screened-Poisson velocity: ``(u, v) = -vc (dt/dx) grad
+    screen(rho)`` with the reference's frequency conventions
+    (``screened_poisson_waves.py:337-361``; ``lb2d_tpu/models/waves.py:
+    207-321``): the integer ``fftfreq(n) n`` grids, Nyquist-zeroed
+    gradient multipliers, ``lam2`` and ``scale = -vc ulb`` in float32.
+
+    The solve runs through K8
+    (:func:`~lb2d_tpu_torch.ops.spectral.screened_gradients`: the kernel on
+    CUDA, its plain version on the CPU), or, with ``plain`` (a model's
+    ``backend="eager"``) or ``method="fft"``, the plain ``torch.fft`` solve
+    by name. ``method`` ``"auto"``, ``"pallas"`` and ``"matmul"`` (the
+    JAX solve's choices) all take K8. ``mm`` (``"highest"`` or
+    ``"bf16x3"``, the TPU's matmul modes) is accepted and runs the same
+    float32 kernel. ``ny``, ``nx`` and ``delta_x`` are the JAX signature's:
+    the grids follow from ``rho``'s shape, and ``(n dx) fftfreq(n, dx)`` is
+    the integer grid at any dx."""
+
+    def __init__(self, ny, nx, lam, delta_x, vc, ulb, method="auto",
+                 mm="highest", plain=False):
+        if method not in _SOLVE_METHODS:
+            raise ValueError(f"unknown method {method!r}; use one of "
+                             f"{', '.join(_SOLVE_METHODS)}")
+        if mm not in _PRECISIONS:
+            raise ValueError(f"unknown precision {mm!r}; use 'highest' or "
+                             "'bf16x3'")
+        self._lam2 = np.float32(lam * lam)
+        self.scale = np.float32(-vc * ulb)
+        self.method = method
+        self.mm = mm
+        self.plain = bool(plain) or method == "fft"
+
+    def _solve(self, rho, out_scale, out=None):
+        if self.plain:
+            planes = screened_gradients_reference(rho, self._lam2,
+                                                  out_scale=out_scale)
+            return planes if out is None else out.copy_(planes)
+        return screened_gradients(rho, self._lam2, out=out,
+                                  out_scale=out_scale)
+
+    def planes(self, rho, out=None):
+        """``stack(u, v)`` ``[2, ny, nx]``, into ``out`` if given."""
+        return self._solve(rho, self.scale, out)
+
+    def ext_planes(self, rho, amp, out=None):
+        """``stack(amp u, amp v)`` ``[2, ny, nx]``: the multicomponent
+        engine's external-force hand-off, the scale ``amp scale`` fused
+        into K8's last write (``waves.py:261-283``)."""
+        if self.plain:
+            ux, uy = self(rho)
+            planes = torch.stack((amp * ux, amp * uy))
+            return planes if out is None else out.copy_(planes)
+        return self._solve(rho, float(amp) * float(self.scale), out)
+
+    def __call__(self, rho):
+        u_v = self.planes(rho)
+        return u_v[0], u_v[1]
+
+
+def _mach_number(u, v, lattice=D2Q9) -> float:
+    """max |u| / cs over the grid (a private copy of JAX
+    ``utils.metrics.mach_number``, ``metrics.py:32-35``; it moves to the
+    port's ``utils`` with ROADMAP queue 1 item 8)."""
+    return float(torch.sqrt(torch.max(u * u + v * v))) / lattice.cs
+
+
+class CoupledModel(LBModel):
+    """Backends and the run loop of the coupled families (K7, with K8 for
+    the spectral velocity).
+
+    Subclasses set ``nx``, ``ny``, ``dtype``, ``device``, ``lattice``,
+    ``stale_velocity``, ``backend`` (:meth:`_pick_backend`), the velocity
+    solve ``_velocity`` (a :class:`_ScreenedVelocity` built with
+    ``plain=self.backend == "eager"``, or None for rocket yeast) and the
+    state, implement :meth:`coupled_config`, and call
+    :meth:`_finish_setup`.
+
+    Backends: ``"kernel"`` (CUDA, float32): per step K6's density pass
+    (:func:`~lb2d_tpu_torch.ops.fused_coupled.coupled_density`), the K8
+    solve of the population's density into two ext planes (the screened
+    families) and one K7 launch
+    (:func:`~lb2d_tpu_torch.ops.fused_coupled.coupled_step`); ``"eager"``:
+    the plain step with the plain ``torch.fft`` solve (the CPU default; on
+    CUDA only by name); ``"auto"``: ``"kernel"`` on CUDA, ``"eager"`` on
+    the CPU. Off CUDA ``"kernel"`` raises; so do ``"kernel"`` and ``"auto"``
+    on CUDA with another dtype than float32, naming ``backend="eager"``.
+
+    ``stale_velocity = K > 1`` (the screened families): one solve per K-step
+    sweep, from the sweep's first post-stream density, held for the sweep
+    (:func:`~lb2d_tpu_torch.models.base.held_solve_sweep`); ``run(n)`` runs
+    ``n // K`` sweeps, then the rest as exact single steps, on both
+    backends. JAX demotes K to a depth its VMEM tiling holds; the port does
+    not.
+    """
+
+    POP = 0
+    _velocity = None
+    stale_velocity = 1
+
+    def coupled_config(self) -> CoupledConfig:
+        raise NotImplementedError
+
+    @property
+    def num_cells(self) -> int:
+        return self.nx * self.ny
+
+    def _pick_backend(self, backend):
+        if backend not in _BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; use 'auto', "
+                             "'kernel' or 'eager'")
+        if backend == "eager":
+            return backend
+        if self.device.type != "cuda":
+            if backend == "auto":
+                return "eager"
+            raise ValueError(f"backend={backend!r} runs a CUDA kernel and "
+                             f"needs a CUDA device, not {self.device}")
+        if self.dtype != torch.float32:
+            raise ValueError(f"the coupled kernel is float32 only, not "
+                             f"{self.dtype}; pass backend='eager' to run the "
+                             "plain PyTorch step on the card")
+        return "kernel"
+
+    def _finish_setup(self):
+        self.stale_velocity = int(self.stale_velocity)
+        if self.stale_velocity < 1:
+            raise ValueError(f"stale_velocity must be >= 1, got "
+                             f"{self.stale_velocity}")
+        if self.backend == "kernel":
+            _build.load_library()  # build now, outside any timed region
+        LBModel.__init__(self)
+
+    def _fields4(self, f):
+        """The state as ``[9, F, ny, nx]`` (a view)."""
+        return f.view(9, -1, self.ny, self.nx)
+
+    def _plain_step(self, cfg):
+        """The exact plain step ``f -> f`` (JAX's XLA step)."""
+        if self._velocity is None:
+            return lambda f: rocket_yeast_step_reference(f, cfg)
+        step = (screened_fisher_step_reference
+                if cfg.physics == "screened_fisher"
+                else surfactant_step_reference)
+        return lambda f: step(f, cfg, velocity=self._velocity)
+
+    def make_step(self):
+        cfg = self.coupled_config()
+        K = self.stale_velocity if self._velocity is not None else 1
+        single, steps = (self._kernel_steps(cfg) if self.backend == "kernel"
+                         else self._eager_steps(cfg))
+        self.steps_per_call = K
+        self._single_step = single
+        return (lambda f: steps(f, K)) if K > 1 else single
+
+    def _held_planes(self, cfg):
+        """The velocity planes a sweep holds, or None."""
+        if not cfg.reads_ext:
+            return None
+        return torch.empty((2, self.ny, self.nx), dtype=self.dtype,
+                           device=self.device)
+
+    def _eager_steps(self, cfg):
+        """The plain path's exact step and sweep ``(f, n) -> f``: the sweep
+        solves from its first post-stream density."""
+        ext = self._held_planes(cfg)
+
+        def steps(f, n):
+            return held_solve_sweep(
+                f, n, lambda f, rho: coupled_step_reference(f, cfg, ext),
+                lambda f: stream(self._fields4(f), self.lattice).sum(dim=0),
+                lambda rho: self._velocity.planes(rho[self.POP], out=ext))
+
+        return self._plain_step(cfg), steps
+
+    def _kernel_steps(self, cfg):
+        """The kernel path's exact step and sweep ``(f, n) -> f``."""
+        like = dict(dtype=self.dtype, device=self.device)
+        spare = [torch.empty((9, cfg.fields, self.ny, self.nx), **like)]
+        rho_buf = torch.empty((cfg.fields, self.ny, self.nx), **like)
+        ext = self._held_planes(cfg)
+        prm = coupled_params(cfg)
+
+        def step(f, rho):
+            out = coupled_step(f, spare[0], rho, ext, cfg, prm)
+            spare[0] = f
+            return out
+
+        def steps(f, n):
+            f4 = held_solve_sweep(
+                self._fields4(f), n, step,
+                lambda f: coupled_density(f, rho_buf),
+                ((lambda rho: self._velocity.planes(rho[self.POP], out=ext))
+                 if ext is not None else None),
+                density_every_step=cfg.reads_neighbours)
+            return f4.view(f.shape)
+
+        return (lambda f: steps(f, 1)), steps
+
+    def mach_number(self) -> float:
+        u, v = self._velocity_fields()
+        return _mach_number(u, v, self.lattice)
+
+    def _velocity_fields(self):
+        rho = self._fields4(self.state).sum(dim=0)
+        return self._velocity(rho[self.POP])
+
+
+class ScreenedFisherWave(CoupledModel):
+    """Self-repelling Fisher wave (``screened_poisson_waves.py:55-448``):
+    dimensionless units (L = T = 1), D = 1/4, G = 1; each step re-solves the
+    screened Poisson equation of the post-stream density for the advection
+    velocity. State ``f[9, ny, nx]``.
+
+    Arguments as in the JAX class (``check_max_ulb`` and ``mach_tolerance``
+    are stored, as there; :meth:`mach_number` reads the Mach number;
+    ``solve_precision`` goes to the solve's ``mm``), plus ``backend`` and
+    ``device`` (:class:`CoupledModel`)."""
+
+    def __init__(self, Lx=1.0, Ly=1.0, vc=1.0, lam=1.0, R0=5.0,
+                 time_prefactor=1.0, N=50, seed=0, check_max_ulb=False,
+                 mach_tolerance=0.1, dtype=torch.float32, method="auto",
+                 stale_velocity=1, solve_precision="highest", backend="auto",
+                 device="cuda"):
+        self.stale_velocity = stale_velocity
+        self.Lx, self.Ly = Lx, Ly
+        self.D, self.G = 1.0 / 4.0, 1.0
+        self.vc, self.lam, self.R0 = vc, lam, R0
+        self.L = self.T = 1.0
+        self.N = N
+        self.lattice = D2Q9
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.check_max_ulb = check_max_ulb
+        self.mach_tolerance = mach_tolerance
+
+        self.delta_x = 1.0 / N
+        self.delta_t = time_prefactor * self.delta_x**2
+        self.ulb = self.delta_t / self.delta_x
+        self.lb_D = np.float32(self.D * self.delta_t / self.delta_x**2)
+        self.omega = np.float32(1.0 / (0.5 + self.lb_D / self.lattice.cs2))
+        if not self.omega < 2.0:
+            raise ValueError(f"omega = {self.omega} >= 2 is unstable")
+        self.lb_G = np.float32(self.G * self.delta_t)
+
+        # grid round(N L), no boundary ring (screened_poisson_waves.py:139-141)
+        self.nx = int(np.round(N * Lx))
+        self.ny = int(np.round(N * Ly))
+
+        self.backend = self._pick_backend(backend)
+        self._velocity = _ScreenedVelocity(
+            self.ny, self.nx, lam, self.delta_x, vc, self.ulb, method,
+            mm=solve_precision, plain=self.backend == "eager")
+
+        X, Y = np.meshgrid(np.arange(self.nx), np.arange(self.ny))
+        Xd = (X - self.nx // 2) / N
+        Yd = (Y - self.ny // 2) / N
+        rho0 = torch.tensor(np.exp(-(Xd**2 + Yd**2) / R0**2), dtype=dtype,
+                            device=self.device)
+        self.state = self._state_from_rho(rho0)
+        self._finish_setup()
+
+    def coupled_config(self) -> CoupledConfig:
+        return CoupledConfig("screened_fisher", omega=float(self.omega),
+                             lb_G=float(self.lb_G))
+
+    def _state_from_rho(self, rho):
+        u, v = self._velocity(rho)
+        return feq_linear(rho, u, v, self.lattice).contiguous()
+
+    def redo_initial_condition(self, rho_field):
+        """Re-seed from a user density ``[ny, nx]``
+        (``screened_poisson_waves.py:275-282``)."""
+        self.state = self._state_from_rho(torch.as_tensor(
+            np.asarray(rho_field), dtype=self.dtype, device=self.device))
+        return self
+
+    def device_field(self, name):
+        if name == "rho":
+            return density(self.state)
+        return None
+
+    def get_fields(self):
+        f = self.state
+        rho = density(f)
+        u, v = self._velocity(rho)
+        feq = feq_linear(rho, u, v, self.lattice)
+        return {
+            "f": self._to_host_xy(f),
+            "feq": self._to_host_xy(feq),
+            "rho": self._to_host_xy(rho),
+            "u": self._to_host_xy(u),
+            "v": self._to_host_xy(v),
+        }

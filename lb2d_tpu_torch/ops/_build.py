@@ -17,7 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["load_library", "LIB_PATH", "MultifieldParams", "McParams"]
+__all__ = ["load_library", "LIB_PATH", "MultifieldParams", "McParams",
+           "FftParams", "CoupledParams"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
@@ -78,6 +79,34 @@ class McParams(ctypes.Structure):
                 ("coll", McCollision * 8)]
 
 
+class FftParams(ctypes.Structure):
+    """``Lb2dFftParams`` of ``csrc/spectral_dft.cu``, passed by value to K8:
+    the element and line strides of input and output, the line length
+    ``n``, the number of lines, the outputs kept per line, the block shape,
+    the input and output kinds, the direction and output scale, the screen
+    prologue's ``ny``, ``hy`` and ``lam2``, and the radices of ``n``. The
+    two change together."""
+    _fields_ = [("in_elem", _LL), ("in_line", _LL), ("out_elem", _LL),
+                ("out_line", _LL), ("n", _I), ("lines", _I),
+                ("out_rows", _I), ("lines_per_block", _I), ("threads", _I),
+                ("in_kind", _I), ("out_kind", _I), ("inverse", _I),
+                ("out_scale", _F), ("ny", _I), ("hy", _I), ("lam2", _F),
+                ("num_radices", _I), ("radices", _I * 32)]
+
+
+class CoupledParams(ctypes.Structure):
+    """``Lb2dCoupledParams`` of ``csrc/coupled_cell.cuh``, passed by value
+    to K7: the physics, the two fields' ``omega`` and ``1 - omega``, the
+    growth and production rates, ``-epsilon``, ``rho_o``, ``-cs^2 G_chen``,
+    ``-G_chen``, the surface-tension ``c_o`` and exponent ``alpha`` and the
+    D2Q9 weights. The two change together."""
+    _fields_ = [("physics", _I), ("omega", _F), ("one_minus_omega", _F),
+                ("omega2", _F), ("one_minus_omega2", _F), ("lb_G", _F),
+                ("lb_G2", _F), ("neg_epsilon", _F), ("rho_o", _F),
+                ("sc_pref", _F), ("neg_G_chen", _F), ("c_o", _F),
+                ("alpha", _F), ("int_alpha", _I), ("w", _F * 9)]
+
+
 # C entry point -> argument types; each returns a CUDA error code (int)
 _ENTRY_POINTS = {
     # f_in, f_out, mask, ny, nx, omega, rho in, rho out, incompressible, stream
@@ -113,10 +142,22 @@ _ENTRY_POINTS = {
     # f_in, f_out, rho, ext, ny, nx, q, fluids, zero-gradient fluid mask,
     # params, stream
     "lb2d_mc_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, McParams, _P],
+    # in0, in1, out0, out1, scratch, params, stream
+    "lb2d_fft_lines": [_P, _P, _P, _P, _P, FftParams, _P],
+    # f_in, f_out, rho, ext, ny, nx, params, stream
+    "lb2d_coupled_step": [_P, _P, _P, _P, _I, _I, CoupledParams, _P],
     # out, n, key0, key1, step, stream
     "lb2d_normals": [_P, _LL, _U, _U, _ULL, _P],
     "lb2d_philox_bits": [_P, _LL, _U, _U, _ULL, _P],
 }
+
+# the structs passed by value, and the C function that returns each one's
+# size in the library (checked at load: a mismatch would shift the
+# arguments after the struct)
+_STRUCT_SIZES = {"lb2d_multifield_params_size": MultifieldParams,
+                 "lb2d_mc_params_size": McParams,
+                 "lb2d_fft_params_size": FftParams,
+                 "lb2d_coupled_params_size": CoupledParams}
 
 _lib = None
 
@@ -180,5 +221,11 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, struct in _STRUCT_SIZES.items():
+        size = getattr(lib, name)()
+        if size != ctypes.sizeof(struct):
+            raise RuntimeError(f"{struct.__name__} is {ctypes.sizeof(struct)} "
+                               f"bytes, the kernels' struct {size}: the "
+                               "ctypes mirror and csrc/ disagree")
     _lib = lib
     return lib

@@ -7,8 +7,9 @@ the TPU kernel's layout): periodic stream -> zero-gradient edges for the
 fluids that have them -> density and momentum per fluid (summed in
 direction order) -> the force hooks **in registration order** (constant
 force, ``g * rho``, precomputed radial planes, optionally times ``rho``,
-Shan-Chen interactions over the D2Q9 first belt or the 24-vector two-belt
-stencil with periodic or clamped neighbours) -> Darcy + Forchheimer drag
+the screened-Poisson repulsion of a fluid's density, Shan-Chen interactions
+over the D2Q9 first belt or the 24-vector two-belt stencil with periodic or
+clamped neighbours) -> Darcy + Forchheimer drag
 last (porous runs) -> barycentric velocity -> porosity feq + Guo forcing +
 BGK per fluid -> eating / growth collisions on the post-stream density.
 The JAX kernel groups the hooks by kind (``fused_mc.py:837-879``); keeping
@@ -23,7 +24,10 @@ the plain step's order makes kernel and plain step sum forces alike.
   step is a launch of each, one thread per cell, on any ``ny x nx`` (at
   least 3 x 3). ``mc_density`` writes each fluid's post-stream density
   ``rho[C, ny, nx]``, which the interactions' neighbour reads need; it runs
-  only when an interaction is registered. Ports
+  when an interaction or a screened-Poisson hook is registered. A
+  screened-Poisson hook's force is an ext plane pair that K8
+  (:func:`~lb2d_tpu_torch.ops.spectral.screened_gradients`) writes from
+  that density before ``mc_step`` reads it. Ports
   ``_make_halo_kernel`` / ``make_mc_halo_step`` (``fused_mc.py:230,
   704``); its VMEM ring, CH/K tiling, ``nx % 128`` gate and density-emit
   stage are TPU scheduling and are not carried over.
@@ -45,6 +49,7 @@ import torch
 from ..core import D2Q9, Lattice
 from . import _build
 from .fused import _launch
+from .spectral import screened_gradients_reference
 from .stream import stream
 
 __all__ = ["FluidParams", "MCKernelConfig", "SECOND_BELT_STENCIL", "get_psi",
@@ -56,7 +61,8 @@ __all__ = ["FluidParams", "MCKernelConfig", "SECOND_BELT_STENCIL", "get_psi",
 MAX_MC_FLUIDS = 4
 MAX_MC_HOOKS = 16
 MAX_MC_COLLISIONS = 8
-_HOOK_KINDS = {"const_force": 0, "const_g": 1, "ext": 2, "interaction": 4}
+_HOOK_KINDS = {"const_force": 0, "const_g": 1, "ext": 2, "screened": 2,
+               "interaction": 4}
 _EXT_TIMES_RHO = 3
 
 
@@ -82,7 +88,10 @@ class MCKernelConfig:
     ``("const_g", i, gx, gy)`` (force density ``g rho``,
     ``multi.cl:541-566``), ``("ext", i, pair, times_rho)`` (ext planes
     ``2 pair`` and ``2 pair + 1`` as Gx, Gy, times ``rho_i`` for the radial g
-    force) and ``("interaction", i1, i2, G_int, spec, params, belt,
+    force), ``("screened", i, pair, src, lam2, amplitude)`` (``amplitude``
+    times the screened gradients of ``rho_src``, ``multi.py:488-511``, held
+    in ext planes ``2 pair``, ``2 pair + 1`` on the kernel path) and
+    ``("interaction", i1, i2, G_int, spec, params, belt,
     clamped)`` (``spec`` 0 linear / 1 shan_chen / 2 pow / 3 vdw, belt 1 or 2,
     ``clamped`` for zero-gradient neighbours). ``collisions``:
     ``("eating", i, j, rate)`` or ``("growth", i, lo, hi, rate)``.
@@ -98,8 +107,12 @@ class MCKernelConfig:
         return tuple(h for h in self.hooks if h[0] == "interaction")
 
     @property
+    def screened(self) -> tuple:
+        return tuple(h for h in self.hooks if h[0] == "screened")
+
+    @property
     def num_ext_pairs(self) -> int:
-        return sum(1 for h in self.hooks if h[0] == "ext")
+        return sum(1 for h in self.hooks if h[0] in ("ext", "screened"))
 
 
 # -- the plain pieces (in the JAX package: models/multicomponent.py) ---------
@@ -223,12 +236,17 @@ def mc_density_reference(f: torch.Tensor, cfg: MCKernelConfig,
 
 def mc_step_reference(f: torch.Tensor, cfg: MCKernelConfig,
                       lattice: Lattice = D2Q9,
-                      ext: torch.Tensor | None = None) -> torch.Tensor:
+                      ext: torch.Tensor | None = None,
+                      hold_screened: bool = False) -> torch.Tensor:
     """One multicomponent step of ``f[q, C, ny, nx]`` in plain PyTorch ops
     (returns a new tensor), in the order of JAX ``SimulationRunner._step``
     (``multicomponent.py:453-533``) with its constants as Python floats, so
     float32 and float64 both follow it. ``ext`` holds the planes of the
-    ``"ext"`` hooks, ``[2 * pairs, ny, nx]``."""
+    ``"ext"`` hooks, ``[2 * pairs, ny, nx]``. A ``"screened"`` hook solves
+    its force (in float32, as JAX) from this step's post-stream, post-BC
+    density at its place among the hooks; with ``hold_screened`` it reads
+    its pair of ``ext`` instead (the kernel path, and ``stale_force``
+    sweeps)."""
     q, C = lattice.q, f.shape[1]
     like = dict(dtype=f.dtype, device=f.device)
     w = torch.tensor(lattice.w, **like)[:, None, None]
@@ -267,6 +285,16 @@ def mc_step_reference(f: torch.Tensor, cfg: MCKernelConfig,
             scale = rho[i] if times_rho else 1.0
             Gx[i] = Gx[i] + ext[2 * pair] * scale
             Gy[i] = Gy[i] + ext[2 * pair + 1] * scale
+        elif kind == "screened":
+            _, i, pair, src, lam2, amp = hook
+            if hold_screened:
+                planes = ext[2 * pair:2 * pair + 2]
+            else:
+                planes = screened_gradients_reference(
+                    rho[src].to(torch.float32), lam2,
+                    out_scale=amp).to(rho.dtype)
+            Gx[i] = Gx[i] + planes[0]
+            Gy[i] = Gy[i] + planes[1]
         else:
             _, i1, i2, G_int, spec, params, belt, clamped = hook
             stencil = _belt_stencil(belt)
@@ -404,16 +432,18 @@ def mc_step(f_in: torch.Tensor, f_out: torch.Tensor,
 
     On CUDA tensors this launches the ``mc_step`` kernel of K6 (counted in
     ``mc_step.launches``), for at most ``MAX_MC_FLUIDS`` fluids,
-    ``MAX_MC_HOOKS`` force hooks and ``MAX_MC_COLLISIONS`` collisions. On
-    CPU tensors it runs :func:`mc_step_reference` (which reads no
-    ``rho``).
+    ``MAX_MC_HOOKS`` force hooks and ``MAX_MC_COLLISIONS`` collisions; a
+    ``"screened"`` hook reads its ext pair, which the caller filled. On CPU
+    tensors it runs :func:`mc_step_reference` (which reads no ``rho``) on
+    the same held planes.
     """
     C = _check_mc(f_in, f_out, cfg, lattice)
     pairs = cfg.num_ext_pairs
     if pairs:
         _check_plane_stack(ext, "ext", 2 * pairs, f_in)
     if f_in.device.type == "cpu":
-        f_out.copy_(mc_step_reference(f_in, cfg, lattice, ext))
+        f_out.copy_(mc_step_reference(f_in, cfg, lattice, ext,
+                                      hold_screened=True))
         return f_out
     if cfg.interactions:
         _check_plane_stack(rho, "rho", C, f_in)
@@ -528,6 +558,8 @@ def mc_params(cfg: MCKernelConfig, lattice: Lattice) -> _build.McParams:
             dst.ext_pair = hook[2]
             if hook[3]:
                 dst.kind = _EXT_TIMES_RHO
+        elif kind == "screened":   # its ext pair, written by K8
+            dst.ext_pair = hook[2]
         else:
             _, _, i2, G_int, spec, params, belt, clamped = hook
             dst.b, dst.spec, dst.belt = i2, spec, belt

@@ -15,6 +15,12 @@ ulp next to the cutoff into a jump, to 0 with the noise on. K6, the
 multicomponent step, is held to 1e-6 after 5 steps (FMA contraction, as
 the flow kernels), in each configuration of ``lb2d_tpu_torch.mc_cases``
 (those of chip_smoke.py's checks) and for 1-4 fluids on both lattices.
+K8, the screened-gradient solve, is held to its plain ``torch.fft``
+version at 1e-5 of max |g| (two FFTs in float32, the kernel's sums in
+another order), at any grid; its 1-D pass to ``torch.fft.fft`` at 1e-6 of
+the scale. K7, the coupled families' step, is held to its plain steps at
+1e-6 after 5 steps (FMA contraction), and BASELINE config 5 through K6 +
+K8 to the eager runner.
 """
 
 import numpy as np
@@ -24,6 +30,7 @@ import torch
 from lb2d_tpu_torch.core import D2Q9, D2Q25
 from lb2d_tpu_torch.mc_cases import MC_CASES, mc_case
 from lb2d_tpu_torch.models import (
+    ClumpySurfactantNutrientWave,
     Expansion,
     FisherExpansion,
     Fluid,
@@ -31,7 +38,11 @@ from lb2d_tpu_torch.models import (
     PipeFlow,
     PipeFlowVelocityInlet,
     ReactionAdvectionDiffusion,
+    RocketYeast,
+    RocketYeastForcesOnly,
+    ScreenedFisherWave,
     SimulationRunner,
+    SurfactantNutrientWave,
 )
 from lb2d_tpu_torch.ops.fused import (
     MAX_MULTIFIELD_FIELDS,
@@ -52,7 +63,21 @@ from lb2d_tpu_torch.ops.fused import (
     temporal_velocity_step,
     velocity_step_reference,
 )
+from lb2d_tpu_torch.ops.fused_coupled import (
+    COUPLED_PHYSICS,
+    CoupledConfig,
+    coupled_density,
+    coupled_step,
+    coupled_step_reference,
+)
 from lb2d_tpu_torch.ops.fused_mc import mc_density, mc_step, mc_step_reference
+from lb2d_tpu_torch.ops.spectral import (
+    SOLVE_LAUNCHES,
+    dft_axis0,
+    dft_axis0_reference,
+    screened_gradients,
+    screened_gradients_reference,
+)
 from lb2d_tpu_torch.ops.random import (
     normals,
     normals_reference,
@@ -529,3 +554,161 @@ def test_mc_runner_auto_runs_the_kernel(cuda):
     assert d <= 1e-5, d
     with pytest.raises(ValueError, match="backend='eager'"):
         SimulationRunner(nx=16, ny=16, device=cuda, dtype=torch.float64)
+
+
+# K8, the screened-gradient solve, and its 1-D pass
+@pytest.mark.parametrize("shape", [(48, 48), (50, 50), (127, 250),
+                                   (1024, 1024), (16, 20000)],
+                         ids=["48", "50", "127x250", "1024", "16x20000"])
+def test_screened_gradients_kernel_matches_reference(cuda, shape):
+    """Any grid: powers of two, mixed radices, a prime line, and lines too
+    long for shared memory (the scratch-buffer path)."""
+    rho = torch.tensor(np.random.RandomState(0).rand(*shape).astype(
+        np.float32), device=cuda)
+    before = screened_gradients.launches
+    got = screened_gradients(rho, 16.0, out_scale=-0.5)
+    want = screened_gradients_reference(rho, 16.0, out_scale=-0.5)
+    torch.cuda.synchronize()
+    assert screened_gradients.launches == before + SOLVE_LAUNCHES
+    d = float((got - want).abs().max() / want.abs().max())
+    assert d <= 1e-5, d
+    out = torch.empty_like(got)
+    xg, yg = screened_gradients(rho, 16.0, out=out)
+    assert xg.data_ptr() == out.data_ptr()
+    assert float((yg * -0.5 - got[1]).abs().max()) <= 1e-6 * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("n,W", [(256, 256), (8192, 128), (127, 64)])
+@pytest.mark.parametrize("real,inverse", [(True, False), (False, False),
+                                          (False, True)],
+                         ids=["real", "complex", "inverse"])
+def test_dft_axis0_kernel_matches_torch_fft(cuda, n, W, real, inverse):
+    rs = np.random.RandomState(1)
+    xr = torch.tensor(rs.rand(n, W).astype(np.float32), device=cuda)
+    xi = None if real else torch.tensor(rs.rand(n, W).astype(np.float32),
+                                        device=cuda)
+    rows = n // 2 + 1 if real else None
+    got = dft_axis0(xr, xi, inverse=inverse, out_rows=rows)
+    want = dft_axis0_reference(xr, xi, inverse=inverse, out_rows=rows)
+    scale = max(float(want[0].abs().max()), float(want[1].abs().max()))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-6 * scale
+
+
+# K7, the coupled families' step
+def _coupled_config(physics):
+    return CoupledConfig(physics, omega=1.6, lb_G=1e-3, omega2=1.2,
+                         lb_G2=2e-3, epsilon=0.05, rho_o=1.0, G_chen=-0.5,
+                         c_o=0.25, alpha=2.5 if physics.endswith("only")
+                         else 2.0)
+
+
+@pytest.mark.parametrize("shape", [(254, 382), (128, 128)],
+                         ids=["254x382", "128x128"])
+@pytest.mark.parametrize("physics", list(COUPLED_PHYSICS))
+def test_coupled_kernel_matches_reference(cuda, physics, shape):
+    """5 K7 steps (density pass, then the step) on a random state with a
+    random velocity field against the plain step."""
+    cfg = _coupled_config(physics)
+    F = cfg.fields
+    rs = np.random.RandomState(7)
+    w = np.asarray(D2Q9.w)[:, None, None, None]
+    f = torch.tensor(w * (0.2 + rs.rand(9, F, *shape)), dtype=torch.float32,
+                     device=cuda)
+    ext = torch.tensor(0.02 * (rs.rand(2, *shape) - 0.5),
+                       dtype=torch.float32, device=cuda)
+    a, spare = f.clone(), torch.empty_like(f)
+    rho = torch.empty((F, *shape), device=cuda)
+    before = coupled_step.launches
+    for _ in range(5):
+        coupled_density(a, rho)
+        a, spare = coupled_step(a, spare, rho, ext, cfg), a
+        f = coupled_step_reference(f, cfg, ext)
+    torch.cuda.synchronize()
+    assert coupled_step.launches == before + 5
+    assert torch.isfinite(a).all()
+    d = float((a - f).abs().max())
+    assert d <= TOL, d
+
+
+COUPLED_MODELS = {
+    "ScreenedFisherWave": lambda **kw: ScreenedFisherWave(
+        Lx=1.0, Ly=1.0, vc=5.0, lam=0.1, R0=0.2, N=128, **kw),
+    "SurfactantNutrientWave": lambda **kw: SurfactantNutrientWave(
+        Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=128, **kw),
+    "ClumpySurfactantNutrientWave": lambda **kw: ClumpySurfactantNutrientWave(
+        Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=128, rho_o=1.0,
+        G_chen=-5.0, **kw),
+    "RocketYeast": lambda **kw: RocketYeast(
+        Lx=1.0, Ly=1.0, R0=0.2, epsilon=0.05, Gc=2.0, N=128, G_chen=-0.1,
+        **kw),
+    "RocketYeastForcesOnly": lambda **kw: RocketYeastForcesOnly(
+        Lx=1.0, Ly=1.0, R0=0.2, epsilon=0.05, Gc=2.0, N=128, G_chen=-0.1,
+        **kw),
+}
+
+
+COUPLED_RUNS = ([(name, 1) for name in COUPLED_MODELS]
+                + [(name, 4) for name in COUPLED_MODELS
+                   if not name.startswith("Rocket")])
+
+
+@pytest.mark.parametrize("name,stale", COUPLED_RUNS,
+                         ids=[f"{n}-stale{k}" for n, k in COUPLED_RUNS])
+def test_coupled_model_kernel_backend_matches_eager(cuda, name, stale):
+    """``auto`` runs K7 (and K8, the screened models) on CUDA; ``run(7)``
+    (one sweep and three exact steps at ``stale_velocity=4``) matches the
+    eager backend with the plain solve."""
+    kw, eager_kw = dict(device=cuda), dict(device=cuda, backend="eager")
+    if not name.startswith("Rocket"):
+        kw["stale_velocity"] = eager_kw["stale_velocity"] = stale
+    sim, eager = COUPLED_MODELS[name](**kw), COUPLED_MODELS[name](**eager_kw)
+    assert sim.backend == "kernel" and eager.backend == "eager"
+    before = (coupled_step.launches, screened_gradients.launches)
+    sim.run(7)
+    eager.run(7)
+    torch.cuda.synchronize()
+    solves = 0 if name.startswith("Rocket") else (7 if stale == 1 else 4)
+    assert (coupled_step.launches - before[0],
+            screened_gradients.launches - before[1]) == (
+                7, SOLVE_LAUNCHES * solves)
+    d = float((sim.state - eager.state).abs().max())
+    assert d <= 1e-5, d
+
+
+def _config5(n, stale=None, backend="auto", device="cuda"):
+    sim = SimulationRunner(nx=n, ny=n, L_lb=n, num_populations=2,
+                           porous=True, device=device, backend=backend,
+                           stale_force=stale)
+    for i in range(2):
+        sim.add_fluid(Fluid(sim, i, nu_e=1 / 6, epsilon=0.8, nu_fluid=1 / 6,
+                            K=10.0, Fe=0.1))
+    sim.complete_setup()
+    base = 0.5 + 0.05 * np.random.RandomState(0).rand(n, n).astype(
+        np.float32)
+    sim.fluid_list[0].initialize(base)
+    sim.fluid_list[1].initialize(1.0 - base)
+    sim.add_interaction_force(0, 1, G_int=1.5, potential="shan_chen",
+                              potential_parameters=[1.0])
+    sim.add_screened_poisson_force(0, 1, interaction_length=10.0,
+                                   amplitude=1e-4)
+    return sim
+
+
+@pytest.mark.parametrize("stale", [None, 4], ids=["exact", "stale4"])
+def test_config5_kernel_matches_eager(cuda, stale):
+    """BASELINE config 5 at 256^2 through mc_density + K8 + mc_step against
+    the eager runner (the plain solve inside the plain step), 9 steps."""
+    sim, eager = _config5(256, stale), _config5(256, stale, "eager")
+    before = (mc_density.launches, screened_gradients.launches)
+    sim.run(9)
+    eager.run(9)
+    torch.cuda.synchronize()
+    solves = 9 if stale is None else 3
+    assert (mc_density.launches - before[0],
+            screened_gradients.launches - before[1]) == (
+                9, SOLVE_LAUNCHES * solves)
+    d = float((sim.f - eager.f).abs().max())
+    assert d <= TOL, d

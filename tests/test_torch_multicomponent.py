@@ -23,6 +23,7 @@ from lb2d_tpu.core.lattice import D2Q25 as JAX_D2Q25
 from lb2d_tpu_torch.core import D2Q25
 from lb2d_tpu_torch.mc_cases import MC_CASES, mc_case
 from lb2d_tpu_torch.models import multicomponent as torch_mc
+from lb2d_tpu_torch.ops.spectral import screened_gradients_reference
 from lb2d_tpu_torch.ops.fused_mc import (
     MAX_MC_COLLISIONS,
     MAX_MC_FLUIDS,
@@ -319,10 +320,14 @@ def test_d2q25_runner():
 # ---- what raises ---------------------------------------------------------
 
 def test_screened_poisson_and_shard_over_name_their_roadmap_item():
+    """``add_screened_poisson_force`` is ported (it registers a hook and
+    checks its precision); ``shard_over`` still raises, naming item 9."""
     sim = build(torch_mc, "c", 32, 32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        sim.add_screened_poisson_force(0, 1, interaction_length=4.0,
-                                       amplitude=0.02)
+    sim.add_screened_poisson_force(0, 1, interaction_length=4.0,
+                                   amplitude=0.02, precision="bf16x3")
+    assert sim.config().screened == (("screened", 1, 0, 0, 16.0, 0.02),)
+    with pytest.raises(ValueError, match="precision"):
+        sim.add_screened_poisson_force(0, 1, 4.0, 0.02, precision="bf16")
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         sim.shard_over(None)
 
@@ -375,3 +380,92 @@ def test_mc_params_packs_the_hooks_in_registration_order():
         sim.add_constant_body_force(0, 0.0, 0.0)
     with pytest.raises(ValueError, match="force hooks.*backend='eager'"):
         mc_params(sim.config(), sim.lattice)
+
+
+# ---- BASELINE config 5: the porous runner with the screened-Poisson force --
+
+def config5(mod, ny=48, nx=40, order=None, **kw):
+    """``benchmarks/c5_one.py``'s runner at ``ny x nx`` (porous, 2 fluids,
+    Shan-Chen, screened-Poisson repulsion of fluid 0 on fluid 1), with an
+    interaction length and amplitude that make the force matter at this
+    size; ``order`` adds a constant force ``"before"`` or ``"after"`` the
+    screened one."""
+    sim = mod.SimulationRunner(nx=nx, ny=ny, L_lb=nx, T_lb=1.0,
+                               num_populations=2, porous=True, **kw)
+    for i in range(2):
+        sim.add_fluid(mod.Fluid(sim, i, nu_e=1 / 6, epsilon=0.8,
+                                nu_fluid=1 / 6, K=10.0, Fe=0.1))
+    sim.complete_setup()
+    base = 0.5 + 0.05 * np.random.RandomState(0).rand(ny, nx).astype(
+        np.float32)
+    sim.fluid_list[0].initialize(base)
+    sim.fluid_list[1].initialize(1.0 - base)
+    if order == "before":
+        sim.add_constant_body_force(1, 1e-4, -2e-4)
+    sim.add_interaction_force(0, 1, G_int=1.5, potential="shan_chen",
+                              potential_parameters=[1.0])
+    sim.add_screened_poisson_force(0, 1, interaction_length=4.0,
+                                   amplitude=0.05)
+    if order == "after":
+        sim.add_constant_body_force(1, 1e-4, -2e-4)
+    return sim
+
+
+@pytest.mark.parametrize("order", [None, "before", "after"],
+                         ids=["config5", "force-before", "force-after"])
+def test_config5_matches_jax_xla(order):
+    """The screened force at its registration-order place: 4 steps against
+    JAX's XLA step, which solves it with ``jnp.fft`` on the post-stream
+    density."""
+    jax_sim = config5(jax_mc, order=order, backend="xla")
+    sim = config5(torch_mc, order=order, device="cpu")
+    assert np.array_equal(sim.state_numpy(), np.asarray(jax_sim.f))
+    jax_sim.run(4)
+    sim.run(4)
+    np.testing.assert_allclose(sim.state_numpy(), np.asarray(jax_sim.f),
+                               atol=ATOL, rtol=RTOL)
+
+
+def test_stale_force_holds_the_sweeps_first_solve():
+    """``stale_force=2``: ``run(5)`` is two sweeps that each solve once, from
+    their first step's post-stream density, then one exact step (the
+    frozen-force oracle)."""
+    sim = config5(torch_mc, device="cpu", stale_force=2)
+    cfg, ext, lat = sim.config(), sim.ext_planes(), sim.lattice
+    f = sim.f
+    for _ in range(2):
+        rho = mc_density_reference(f, cfg, lat)
+        ext[0:2] = screened_gradients_reference(rho[0], 16.0,
+                                                out_scale=0.05)
+        for _ in range(2):
+            f = mc_step_reference(f, cfg, lat, ext, hold_screened=True)
+    f = mc_step_reference(f, cfg, lat, ext)
+    sim.run(5)
+    assert sim.steps_per_call == 2 and sim.steps_taken == 5
+    assert torch.equal(sim.f, f)
+    exact = config5(torch_mc, device="cpu")
+    exact.run(5)
+    d = float((exact.f - f).abs().max())
+    assert 0 < d < 1e-5, d
+    capped = config5(torch_mc, device="cpu", stale_force=4)
+    capped.run(4, k_steps=2)
+    assert capped.steps_per_call == 2
+    np.testing.assert_array_equal(capped.state_numpy(),
+                                  config5(torch_mc, device="cpu",
+                                          stale_force=2).run(4).state_numpy())
+
+
+def test_screened_hook_packs_as_its_ext_pair():
+    """K6 reads a screened hook as an ext hook on its pair; ``mc_step`` on
+    CPU tensors reads the held planes the caller wrote, as the kernel."""
+    sim = config5(torch_mc, order="after", device="cpu")
+    cfg, lat = sim.config(), sim.lattice
+    prm = mc_params(cfg, lat)
+    assert [prm.hooks[h].kind for h in range(3)] == [4, 2, 0]
+    assert (prm.hooks[1].a, prm.hooks[1].ext_pair) == (1, 0)
+    ext = sim.ext_planes()
+    assert ext.shape == (2, 48, 40) and float(ext.abs().max()) == 0.0
+    rho = mc_density(sim.f, torch.empty_like(sim.rho), cfg, lat)
+    ext[0:2] = screened_gradients_reference(rho[0], 16.0, out_scale=0.05)
+    out = mc_step(sim.f, torch.empty_like(sim.f), rho, ext, cfg, lat)
+    assert torch.equal(out, mc_step_reference(sim.f, cfg, lat))
