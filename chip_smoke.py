@@ -34,7 +34,16 @@ set to 0 just before it and read just after:
   1024^2), ``ClumpySurfactantNutrientWave`` at 512^2, ``RocketYeast`` and
   ``RocketYeastForcesOnly`` at 1024^2. K8 is held to its plain solve at
   8192^2, 1024^2, 512^2, 48^2, 50^2 and 127x250 and timed beside cuFFT
-  (``torch.fft``) computing the same function.
+  (``torch.fft``) computing the same function;
+* the sharded slice (K9, ``temporal_halo_step``): K9 on the shards of
+  random 254x382 states cut 2x2, 4x1 and 1x4, per physics, against its
+  plain twin; ``ShardedPipeFlow`` at 8192^2 (``benchmarks/run_all.py``'s
+  ``bench_sharded_8192``) on 4x1 and 2x2 meshes of shards on one card
+  against ``PipeFlow`` through K2, and the sharded diffusion and
+  multifield models against their unsharded K2 / K4 runs, all bit for bit
+  but flow; then the 8192^2 ``run(100)`` on 4x1 in its own counted window
+  beside the unsharded K2 run and the halo exchange's share, and the other
+  sharded models' shorter runs in theirs.
 
 It checks the physics (Poiseuille profile through each flow backend,
 cylinder mass, Gaussian spreading, advection, mass, noise amplitude and
@@ -59,6 +68,15 @@ import numpy as np
 import torch
 
 from lb2d_tpu_torch.core import D2Q9, D2Q25
+from lb2d_tpu_torch.halo_cases import (
+    HALO_CASES,
+    HALO_MESHES,
+    compare_halo_case,
+    halo_case_ks,
+    halo_case_state,
+    halo_tolerance,
+    shard_cuts,
+)
 from lb2d_tpu_torch.mc_cases import MC_CASES, mc_case
 from lb2d_tpu_torch.models import (
     AdvectionDiffusion,
@@ -114,6 +132,11 @@ from lb2d_tpu_torch.ops.fused_coupled import (
     coupled_step,
     coupled_step_reference,
 )
+from lb2d_tpu_torch.ops.fused_halo import (
+    Halo,
+    temporal_halo_step,
+    temporal_halo_step_reference,
+)
 from lb2d_tpu_torch.ops.fused_mc import (
     mc_density,
     mc_density_reference,
@@ -138,6 +161,13 @@ from lb2d_tpu_torch.ops.random import (
     philox_bits,
     philox_key,
 )
+from lb2d_tpu_torch.parallel import (
+    ShardedDiffusion,
+    ShardedMultifield,
+    ShardedPipeFlow,
+    make_mesh,
+)
+from lb2d_tpu_torch.parallel.halo import exchange_halos
 
 BENCH_PHYS = dict(diameter=1.0, rho=1.0, viscosity=0.1, pressure_grad=-0.01,
                   pipe_length=1.0)   # bench.py's workload, N=4095 -> 4096^2
@@ -464,7 +494,7 @@ COUNTERS = {"K1": pipe_step, "K2": temporal_pipe_step,
             "philox_bits": philox_bits, "K4": temporal_multifield_step,
             "K5": expansion_band_step, "K6d": mc_density, "K6s": mc_step,
             "K7": coupled_step, "K8": screened_gradients,
-            "K8 pass": dft_axis0}
+            "K8 pass": dft_axis0, "K9": temporal_halo_step}
 
 
 def _window(label, drive, expected):
@@ -1839,6 +1869,274 @@ def coupled_physics_phase(runs, mass0):
                                "population")
 
 
+# -- the sharded slice: K9 -------------------------------------------------
+
+# benchmarks/run_all.py:190-214 (bench_sharded_8192): 8192^2 pipe flow
+SHARDED_8192 = dict(diameter=1.0, rho=1.0, viscosity=0.1,
+                    pressure_grad=-0.01, pipe_length=(8192 - 1.5) / 8191,
+                    N=8191)
+SHARDED_STEPS = 100       # its run(100): 33 sweeps of 3 and one of 1
+SHARDED_CHECKS = (9, 10)  # whole sweeps, then a remainder sweep
+SHARDED_SHORT_STEPS = 20  # the other sharded models' counted runs
+K9_OPS = {"flow": FLOW_OPS, "velocity_inlet": FLOW_OPS,
+          "diffusion": DIFFUSION_OPS, "noisy_fisher": NOISY_OPS}
+
+
+def _cuda_mesh(shape):
+    """Four shards on cuda:0."""
+    return make_mesh(devices=["cuda"] * 4, shape=shape)
+
+
+def _shards_diff(sh, want):
+    """max |df| between a sharded model's shards and the same cells of a
+    global ``[P, ny, nx]`` tensor on the card."""
+    H, W = sh.state[0].shape[1:]
+    return max(_max_diff(h.f, want[:, h.y0:h.y0 + H, h.x0:h.x0 + W])
+               for h in sh.halos.values())
+
+
+def halo_kernel_phase():
+    """K9 against its plain twin on the shards of a random 254x382 state per
+    case (HALO_CASES: every physics, flow with and without the obstacle and
+    incompressible), cut 2x2, 4x1 and 1x4, at K = 1, 2, 3 and the physics'
+    K, from step STEP0. Returns max |df| per physics."""
+    worst = {}
+    for case, (physics, _, _, _) in HALO_CASES.items():
+        f, mask = halo_case_state(case, 254, 382, "cuda")
+        tol = halo_tolerance(physics)
+        for my, mx in HALO_MESHES:
+            cuts = shard_cuts(254, 382, my, mx)
+            ds = {k: compare_halo_case(case, f, mask, cuts, k, step0=STEP0)
+                  for k in halo_case_ks(case)}
+            print(f"K9 {case} vs plain twin, 254x382 cut {my}x{mx}: max|df| "
+                  + ", ".join(f"k={k} {d:.3e}" for k, d in ds.items())
+                  + f" (limit {tol:g})", flush=True)
+            if not max(ds.values()) <= tol:
+                raise RuntimeError(f"K9 {case}: kernel disagrees, {ds}")
+            worst[physics] = max(worst.get(physics, 0.0), *ds.values())
+    return worst
+
+
+def _k9_info(halo, k, physics, kw, ops_per_cell, launches, err):
+    """K9 on ``halo`` (``k`` steps, a main-path shard) against its plain
+    twin, then the device ms of one launch and of the twin (CUDA events),
+    with the launch's bytes (the shard read and written once, its halo read
+    once) and operations, for the kernels line. ``err`` takes the
+    difference in."""
+    out = torch.empty_like(halo.f)
+
+    def launch():
+        temporal_halo_step(halo, out, k, physics, step0=STEP0, **kw)
+
+    def plain():
+        return temporal_halo_step_reference(halo, k, physics, step0=STEP0,
+                                            **kw)
+
+    launch()
+    d = _max_diff(out, plain())
+    P, H, W = halo.f.shape
+    tol = halo_tolerance(physics)
+    print(f"K9 {physics} vs plain twin at a main-path {H}x{W} shard, {k} "
+          f"steps: max|df| = {d:.3e} (limit {tol:g})", flush=True)
+    if not d <= tol:
+        raise RuntimeError(f"K9 {physics} disagrees with its plain twin at "
+                           f"the main-path shard: {d}")
+    ms = _events_ms(launch, 20)
+    plain_ms = _events_ms(plain, 3)
+    hk = halo.width
+    halo_cells = 2 * hk * W + (0 if halo.left is None
+                               else 2 * (H + 2 * hk) * hk)
+    print(f"K9 {physics} at a {H}x{W} shard (P={P}, halo {hk}): {ms:.4f} ms "
+          f"per launch of {k} steps; plain twin {plain_ms:.4f} ms (CUDA "
+          f"events)", flush=True)
+    err = max(err, d)
+    return dict(ms=ms, plain_ms=plain_ms, launches=launches, err=err, k=k,
+                shape=[P, H, W], bytes=4 * P * (2 * H * W + halo_cells),
+                ops=H * W * k * ops_per_cell)
+
+
+def halo_velocity_phase(inlet, err):
+    """K9 velocity_inlet (both outlets) as a sharded run drives it, on the
+    401x401 inlet's perturbed state cut 4x1 and 2x2 (shards of unequal
+    edges; each sweep's halos cut from the assembled state), 3 sweeps of
+    TEMPORAL_K against 3 K2 launches; the 4x1 zero-gradient run in its own
+    counted window. No sharded model runs this physics (JAX's neither)."""
+    f0, _ = _inputs(inlet, None)
+    k = TEMPORAL_K
+    counts = None
+    for outlet in ("zero_gradient", "velocity"):
+        kw = dict(omega=inlet.omega, u_w=inlet.u_w, u_e=inlet.u_e,
+                  outlet=outlet, incompressible=False)
+        want = f0
+        for _ in range(3):
+            want = temporal_velocity_step(want, torch.empty_like(want), k,
+                                          **kw)
+        for mesh in ((4, 1), (2, 2)):
+            cuts = shard_cuts(inlet.ny, inlet.nx, *mesh)
+            got = [f0.clone()]
+
+            def drive():
+                for _ in range(3):
+                    g = torch.empty_like(got[0])
+                    for y0, x0, H, W in cuts:
+                        halo = Halo.cut(got[0], y0, x0, H, W, k)
+                        g[:, y0:y0 + H, x0:x0 + W] = temporal_halo_step(
+                            halo, torch.empty_like(halo.f), k,
+                            "velocity_inlet", **kw)
+                    got[0] = g
+
+            if outlet == "zero_gradient" and mesh == (4, 1):
+                counts = _window(f"K9 velocity_inlet, {inlet.ny}x{inlet.nx} "
+                                 "cut 4x1, 3 sweeps", drive,
+                                 {"K9": 3 * len(cuts)})
+            else:
+                drive()
+            d = _max_diff(got[0], want)
+            print(f"K9 velocity_inlet outlet={outlet} cut {mesh[0]}x"
+                  f"{mesh[1]}, 3 sweeps of {k} vs K2: max|df| = {d:.3e}",
+                  flush=True)
+            if not d <= KERNEL_TOL:
+                raise RuntimeError(f"K9 velocity_inlet disagrees with K2: {d}")
+            err = max(err, d)
+    y0, x0, H, W = shard_cuts(inlet.ny, inlet.nx, 4, 1)[0]
+    kw["outlet"] = inlet.outlet
+    return _k9_info(Halo.cut(f0, y0, x0, H, W, k), k, "velocity_inlet", kw,
+                    FLOW_OPS, counts["K9"], err)
+
+
+def sharded_flow_phase():
+    """The 8192^2 ShardedPipeFlow on 4x1 and 2x2 meshes of shards on one
+    card against PipeFlow through K2, from the same bits (each built from
+    the seed), after 9 steps (3 sweeps) and 10 (a remainder sweep). Returns
+    the unsharded model, the 4x1 model and max |df|."""
+    single = PipeFlow(device="cuda", backend="temporal", **SHARDED_8192)
+    f0 = single.state.clone()
+    worst, kept = 0.0, None
+    for mesh in ((4, 1), (2, 2)):
+        sh = ShardedPipeFlow(mesh=_cuda_mesh(mesh), **SHARDED_8192)
+        if (sh.backend, sh.steps_per_call) != ("temporal", TEMPORAL_K):
+            raise RuntimeError(f"ShardedPipeFlow {mesh}: {sh.backend} K="
+                               f"{sh.steps_per_call}")
+        single.state = f0.clone()
+        if _shards_diff(sh, single.state) != 0.0:
+            raise RuntimeError("ShardedPipeFlow: initial state differs")
+        done = 0
+        for n in SHARDED_CHECKS:
+            single.run(n - done)
+            sh.run(n - done)
+            done = n
+            d = _shards_diff(sh, single.state)
+            print(f"ShardedPipeFlow {sh.ny}x{sh.nx} on {mesh[0]}x{mesh[1]} "
+                  f"shards (K9) vs PipeFlow (K2), {n} steps: max|df| = "
+                  f"{d:.3e} (limit {KERNEL_TOL:g})", flush=True)
+            if not d <= KERNEL_TOL:
+                raise RuntimeError(f"ShardedPipeFlow {mesh}: {d}")
+            worst = max(worst, d)
+        if mesh == (4, 1):
+            kept = sh
+        del sh
+        torch.cuda.empty_cache()
+    del f0
+    return single, kept, worst
+
+
+def sharded_main_path_phase(single, sh, err, card):
+    """The slice's main path: the 8192^2 ShardedPipeFlow on 4x1 shards,
+    ``run(100, timed=True)`` in its own counted window, beside the
+    unsharded PipeFlow's K2 run; the halo exchange's time per sweep."""
+    sh.run(TEMPORAL_K + 1)  # warm both sweep depths
+    sweeps = -(-SHARDED_STEPS // TEMPORAL_K)
+    counts = _window(f"ShardedPipeFlow {sh.ny}x{sh.nx} on 4x1 shards",
+                     lambda: sh.run(SHARDED_STEPS, timed=True),
+                     {"K9": 4 * sweeps})
+    if not all(torch.isfinite(t).all() for t in sh.state):
+        raise RuntimeError("ShardedPipeFlow: non-finite state")
+    single.run(TEMPORAL_K + 1)
+    _window(f"PipeFlow {single.ny}x{single.nx} (K2)",
+            lambda: single.run(SHARDED_STEPS, timed=True),
+            {"K2": SHARDED_STEPS // TEMPORAL_K,
+             "K1": SHARDED_STEPS % TEMPORAL_K})
+    exchange_ms = _events_ms(lambda: exchange_halos(sh.mesh, sh.halos), 20)
+    sweep_ms = sh.num_cells * SHARDED_STEPS / (sh.last_mlups * 1e6) * 1e3 / (
+        sweeps)
+    print(f"main path ShardedPipeFlow {sh.ny}x{sh.nx} on 4x1 shards of one "
+          f"card, K={sh.steps_per_call}: {sh.last_mlups:.1f} MLUPS over "
+          f"{SHARDED_STEPS} steps ({counts['K9']} K9 launches, "
+          f"{sweep_ms:.4f} ms per sweep); halo exchange {exchange_ms:.4f} ms "
+          f"per sweep (CUDA events), share {exchange_ms / sweep_ms:.3f}; "
+          f"unsharded PipeFlow (K2) {single.last_mlups:.1f} MLUPS; card: "
+          f"{card}", flush=True)
+    return _k9_info(next(iter(sh.halos.values())), sh.steps_per_call,
+                    "flow", sh.step_kwargs, FLOW_OPS, counts["K9"], err)
+
+
+def sharded_models_phase(card, worst):
+    """ShardedDiffusion over AdvectionDiffusion and the stochastic Fisher
+    wave at 2048^2, ShardedMultifield over FisherExpansion 2048^2 F=2 and
+    Expansion 1024^2 F=3, each on 2x2 shards of one card, against the
+    unsharded model (K2 / K4) after two sweeps and a shorter one, bit for
+    bit, noise included; then each ``run(SHARDED_SHORT_STEPS, timed=True)``
+    in its own counted window. Returns the K9 row information per
+    physics."""
+    runs = {"diffusion": (AdvectionDiffusion, ADVECTION, ShardedDiffusion),
+            "noisy_fisher": (ReactionAdvectionDiffusionStochastic,
+                             STOCHASTIC, ShardedDiffusion),
+            "multifield_fisher": (FisherExpansion, FISHER_EXP,
+                                  ShardedMultifield),
+            "multifield_expansion": (Expansion, EXPANSION,
+                                     ShardedMultifield)}
+    info = {}
+    for physics, (cls, kw, sharded) in runs.items():
+        single = cls(device="cuda", **kw)
+        sh = sharded(cls(device="cuda", **kw), mesh=_cuda_mesh((2, 2)))
+        K = sh.steps_per_call
+        n = 2 * K + 1
+        single.run(n)
+        sh.run(n)
+        d = _shards_diff(sh, single.state.reshape(sh.state[0].shape[0],
+                                                  sh.ny, sh.nx))
+        print(f"{type(sh).__name__}({type(single).__name__}) {sh.ny}x{sh.nx} "
+              f"on 2x2 shards (K9 {physics}, K={K}) vs the unsharded "
+              f"backend={single.backend}, {n} steps: max|df| = {d:.3e} "
+              "(limit 0)", flush=True)
+        if d != 0.0:
+            raise RuntimeError(f"sharded {physics} differs: {d}")
+        counts = _window(f"{type(sh).__name__} {sh.ny}x{sh.nx} ({physics})",
+                         lambda: sh.run(SHARDED_SHORT_STEPS, timed=True),
+                         {"K9": 4 * -(-SHARDED_SHORT_STEPS // K)})
+        print(f"main path {type(sh).__name__}({type(single).__name__}) "
+              f"{sh.ny}x{sh.nx} on 2x2 shards: {sh.last_mlups:.1f} MLUPS "
+              f"over {SHARDED_SHORT_STEPS} steps; card: {card}", flush=True)
+        ops = K9_OPS.get(physics) or _multifield_ops(sh.base)
+        info[physics] = _k9_info(next(iter(sh.halos.values())), K, physics,
+                                 sh.step_kwargs, ops, counts["K9"],
+                                 max(worst[physics], d))
+        del single, sh
+        torch.cuda.empty_cache()
+    return info
+
+
+def multi_card_phase():
+    """With more than one card: the 2x2 ShardedPipeFlow over distinct cards
+    (peer copies between them) against the unsharded K2 run."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print("more than one card: not run (this machine has one card)",
+              flush=True)
+        return
+    kw = dict(SHARDED_8192, N=1023, pipe_length=(1024 - 1.5) / 1023)
+    devices = [f"cuda:{i % n}" for i in range(4)]
+    single = PipeFlow(device="cuda", backend="temporal", **kw)
+    sh = ShardedPipeFlow(mesh=make_mesh(devices=devices, shape=(2, 2)), **kw)
+    single.run(10)
+    sh.run(10)
+    d = float(np.abs(sh.state_numpy() - single.state_numpy()).max())
+    print(f"ShardedPipeFlow {sh.ny}x{sh.nx} on 2x2 shards over {devices} vs "
+          f"PipeFlow (K2), 10 steps: max|df| = {d:.3e}", flush=True)
+    if not d <= KERNEL_TOL:
+        raise RuntimeError(f"multi-card ShardedPipeFlow disagrees: {d}")
+
+
 def _field_masses(sim):
     """Float64 mass of each field of a coupled model."""
     return sim._fields4(sim.state).double().sum(dim=(0, 2, 3)).tolist()
@@ -1948,6 +2246,16 @@ def main():
     c5 = config5_phase(card, k8_times)
     coupled_launches, mass0 = coupled_main_path_phase(runs, card)
     coupled_physics_phase(runs, mass0)
+    k9_err = halo_kernel_phase()
+    k9 = {"velocity_inlet": halo_velocity_phase(inlet,
+                                                k9_err["velocity_inlet"])}
+    single, sharded, flow_err = sharded_flow_phase()
+    k9["flow"] = sharded_main_path_phase(single, sharded,
+                                         max(flow_err, k9_err["flow"]), card)
+    del single, sharded
+    torch.cuda.empty_cache()
+    k9.update(sharded_models_phase(card, k9_err))
+    multi_card_phase()
     k2, k3 = "lb2d_tpu/ops/fused.py:888", "lb2d_tpu/ops/fused.py:1193"
     kernels = {  # key: (wrapper, source, TPU kernel, model, ops per cell)
         "K1": ("pipe_step", "pipe_step.cu", "lb2d_tpu/ops/fused.py:682",
@@ -2060,6 +2368,19 @@ def main():
         # precomputed multiplier, ifft2
         "library_ms": k8_times["library K8 8192"],
         "steps_per_launch": 1, "shape": [8192, 8192]})
+    for physics, info in k9.items():
+        bound_ms, bound_by = _bound(info["bytes"], info["ops"])
+        src = ("multifield_step.cu" if physics.startswith("multifield")
+               else "temporal_step.cu")
+        rows.append({
+            "name": f"K9 {physics}", "route": "cuda",
+            "source": f"lb2d_tpu_torch/csrc/{src}",
+            "replaces": "lb2d_tpu/ops/fused_halo.py:93",
+            "launches": info["launches"], "max_abs_err": info["err"],
+            "ms": info["ms"], "plain_ms": info["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call computes the same
+            "steps_per_launch": info["k"], "shape": info["shape"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

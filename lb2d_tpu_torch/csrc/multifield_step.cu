@@ -21,6 +21,11 @@
 //   can use: it is the same kernel on a band of `rows` rows, writing only
 //   rows [(R - 2K) / 2, (R + 2K) / 2), with band row r drawing the noise
 //   of global row (row0 + r) mod ny.
+// K9's multifield physics (lb2d_halo_multifield_step, replacing
+// lb2d_tpu/ops/fused_halo.py:make_temporal_halo_step with "multifield_fisher"
+// and "multifield_expansion") is the same kernel on one shard: its region
+// loads through region_source.cuh's HaloSource, and the walls and the noise
+// follow the global coordinates, so no wall or seam band is needed.
 // The noise of a cell at stage s is the Philox normal of (its global cell
 // index, step0 + s - 1, population) (multifield_cell.cuh), so a halo cell
 // recomputed here, K4 at any K, K5 and the plain step follow one
@@ -42,6 +47,7 @@
 // work.
 
 #include "multifield_cell.cuh"
+#include "region_source.cuh"
 
 namespace {
 
@@ -71,20 +77,16 @@ __host__ __device__ constexpr int min_blocks() {
          : 2 * smem_bytes<F>() <= kSmemPerBlock ? 2 : 1;
 }
 
-__device__ __forceinline__ int wrap(int v, int n) {
-  const int m = v % n;
-  return m < 0 ? m + n : m;
-}
-
-// K steps on the periodic ny x nx domain f_in[9F][ny][nx]. The output
-// f_out[9F][out_rows][nx] holds domain rows [out0, out0 + out_rows); block
-// row b writes output rows [b (T - 2K), (b + 1) (T - 2K)). Noise cell of
-// domain cell (y, x): ((noise_row0 + y) mod noise_ny) nx + x.
-template <int F, bool kExpansion>
+// K steps of the domain d, whose region cells come from src
+// (region_source.cuh): the whole grid (K4), K5's band, or a shard and its
+// halos (K9). The output f_out[9F][out_rows][d.cols] holds domain rows
+// [out0, out0 + out_rows); block row b writes output rows [b (T - 2K),
+// (b + 1) (T - 2K)). The walls and the noise cell of domain cell (y, x) are
+// those of global cell (wrap(d.y0 + y, d.ny), wrap(d.x0 + x, d.nx)).
+template <int F, bool kExpansion, class Src>
 __global__ void __launch_bounds__(kThreads, min_blocks<F>())
-multifield_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
-                  int ny, int nx, int K, int out0, int out_rows,
-                  int noise_row0, int noise_ny, Lb2dMultifieldParams prm) {
+multifield_kernel(Src src, float* __restrict__ f_out, Domain d, int K,
+                  int out0, int out_rows, Lb2dMultifieldParams prm) {
   constexpr int T = tile_edge<F>();
   constexpr int TT = T * T;
   constexpr int kPlanes = 9 * F;
@@ -95,13 +97,13 @@ multifield_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
   const int inner = T - 2 * K;
   const int y0 = out0 + blockIdx.y * inner - K;  // unwrapped domain row of region row 0
   const int x0 = blockIdx.x * inner - K;
-  const size_t plane = (size_t)ny * nx;
-  const size_t out_plane = (size_t)out_rows * nx;
+  const size_t out_plane = (size_t)out_rows * d.cols;
 
   for (int i = threadIdx.x; i < TT; i += kThreads) {
-    const size_t g = (size_t)wrap(y0 + i / T, ny) * nx + wrap(x0 + i % T, nx);
+    size_t stride;
+    const float* p = src.at(y0 + i / T, x0 + i % T, stride);
 #pragma unroll 9
-    for (int pl = 0; pl < kPlanes; ++pl) cur[pl * TT + i] = f_in[pl * plane + g];
+    for (int pl = 0; pl < kPlanes; ++pl) cur[pl * TT + i] = __ldg(p + pl * stride);
   }
   float coef[9];
   feq_coefficients(prm.u, prm.v, coef);
@@ -113,18 +115,17 @@ multifield_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
       const int r = i / T, c = i % T;
       if (r < s || r >= T - s || c < s || c >= T - s) continue;
       const int oy = blockIdx.y * inner + r - K;  // output row at the last step
-      if (last && (oy >= out_rows || x0 + c >= nx)) continue;  // ragged edge
-      const int gy = wrap(y0 + r, ny), gx = wrap(x0 + c, nx);
-      float* dst = last ? f_out + (size_t)oy * nx + gx : nxt + i;
+      if (last && (oy >= out_rows || x0 + c >= d.cols)) continue;  // ragged edge
+      const int gy = wrap(d.y0 + y0 + r, d.ny), gx = wrap(d.x0 + x0 + c, d.nx);
+      float* dst = last ? f_out + (size_t)oy * d.cols + (x0 + c) : nxt + i;
       const size_t dst_plane = last ? out_plane : (size_t)TT;
       if constexpr (kExpansion) {
-        const unsigned long long cell =
-            (unsigned long long)((noise_row0 + gy) % noise_ny) * nx + gx;
+        const unsigned long long cell = (unsigned long long)gy * d.nx + gx;
         expansion_cell_update<F>(cur + i, T, dst, dst_plane, cell,
                                  prm.step0 + (s - 1), prm, coef);
       } else {
-        fisher_cell_update<F>(cur + i, T, dst, dst_plane, gy, gx, ny, nx, prm,
-                              coef);
+        fisher_cell_update<F>(cur + i, T, dst, dst_plane, gy, gx, d.ny, d.nx,
+                              prm, coef);
       }
     }
     if (!last) {
@@ -136,39 +137,41 @@ multifield_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
   }
 }
 
-template <int F, bool kExpansion>
-cudaError_t launch(const float* f_in, float* f_out, int ny, int nx, int K,
-                   int out0, int out_rows, int noise_row0, int noise_ny,
-                   const Lb2dMultifieldParams& prm, cudaStream_t stream) {
+template <int F, bool kExpansion, class Src>
+cudaError_t launch(const Src& src, float* f_out, const Domain& d, int K,
+                   int out0, int out_rows, const Lb2dMultifieldParams& prm,
+                   cudaStream_t stream) {
   if (K < 1 || K > max_k<F>()) return cudaErrorInvalidValue;
   constexpr int smem = smem_bytes<F>();
   static_assert(smem <= kSmemPerBlock, "the tile does not fit");
-  static bool configured = false;  // once per instantiation
-  if (!configured) {
+  // once per instantiation and card: the attribute is the card's
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
+    return cudaErrorInvalidDevice;
+  if (!configured[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        multifield_kernel<F, kExpansion>,
+        multifield_kernel<F, kExpansion, Src>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    configured = true;
+    configured[dev] = true;
   }
   const int inner = tile_edge<F>() - 2 * K;
-  const dim3 grid((nx + inner - 1) / inner, (out_rows + inner - 1) / inner);
+  const dim3 grid((d.cols + inner - 1) / inner, (out_rows + inner - 1) / inner);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  multifield_kernel<F, kExpansion><<<grid, kThreads, smem, stream>>>(
-      f_in, f_out, ny, nx, K, out0, out_rows, noise_row0, noise_ny, prm);
+  multifield_kernel<F, kExpansion, Src><<<grid, kThreads, smem, stream>>>(
+      src, f_out, d, K, out0, out_rows, prm);
   return cudaGetLastError();
 }
 
-template <bool kExpansion>
-cudaError_t dispatch(int F, const float* f_in, float* f_out, int ny, int nx,
-                     int K, int out0, int out_rows, int noise_row0,
-                     int noise_ny, const Lb2dMultifieldParams& prm,
-                     void* stream) {
+template <bool kExpansion, class Src>
+cudaError_t dispatch(int F, const Src& src, float* f_out, const Domain& d,
+                     int K, int out0, int out_rows,
+                     const Lb2dMultifieldParams& prm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LB2D_FIELDS(n)                                                      \
   case n:                                                                   \
-    return launch<n, kExpansion>(f_in, f_out, ny, nx, K, out0, out_rows,    \
-                                 noise_row0, noise_ny, prm, s);
+    return launch<n, kExpansion>(src, f_out, d, K, out0, out_rows, prm, s);
   switch (F) {
     LB2D_FIELDS(2)
     LB2D_FIELDS(3)
@@ -179,8 +182,7 @@ cudaError_t dispatch(int F, const float* f_in, float* f_out, int ny, int nx,
     LB2D_FIELDS(8)
     case 1:
       if constexpr (!kExpansion)
-        return launch<1, false>(f_in, f_out, ny, nx, K, out0, out_rows,
-                                noise_row0, noise_ny, prm, s);
+        return launch<1, false>(src, f_out, d, K, out0, out_rows, prm, s);
       return cudaErrorInvalidValue;  // Expansion has a nutrient and >= 1 population
     default:
       return cudaErrorInvalidValue;
@@ -201,11 +203,13 @@ extern "C" int lb2d_temporal_multifield_step(const float* f_in, float* f_out,
                                              Lb2dMultifieldParams prm,
                                              void* stream) {
   if (ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
+  const GridSource src = {f_in, ny, nx};
+  const Domain d = {ny, nx, 0, 0, ny, nx};
   if (expansion)
-    return (int)dispatch<true>(num_fields, f_in, f_out, ny, nx, k_steps, 0,
-                               ny, 0, ny, prm, stream);
-  return (int)dispatch<false>(num_fields, f_in, f_out, ny, nx, k_steps, 0, ny,
-                              0, ny, prm, stream);
+    return (int)dispatch<true>(num_fields, src, f_out, d, k_steps, 0, ny, prm,
+                               stream);
+  return (int)dispatch<false>(num_fields, src, f_out, d, k_steps, 0, ny, prm,
+                              stream);
 }
 
 // k_steps Expansion steps on band[9][F][rows][nx], whose rows wrap within
@@ -221,9 +225,40 @@ extern "C" int lb2d_expansion_band_step(const float* band, float* out,
                                         void* stream) {
   if (rows < 4 * k_steps || nx < 1 || ny < 1 || row0 < 0 || row0 >= ny)
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch<true>(num_fields, band, out, rows, nx, k_steps,
-                             (rows - 2 * k_steps) / 2, 2 * k_steps, row0, ny,
-                             prm, stream);
+  // band row r is global row (row0 + r) mod ny; the rows that reach the
+  // emitted ones, [(rows - 2 k_steps) / 2 - k_steps, (rows + 2 k_steps) / 2
+  // + k_steps), lie inside the band, so they are never its own wrap's
+  const GridSource src = {band, rows, nx};
+  const Domain d = {rows, nx, row0, 0, ny, nx};
+  return (int)dispatch<true>(num_fields, src, out, d, k_steps,
+                             (rows - 2 * k_steps) / 2, 2 * k_steps, prm,
+                             stream);
+}
+
+// K9: k_steps multifield steps of one shard f[9F][H][W], global rows
+// [y0, y0 + H) and columns [x0, x0 + W) of an ny x nx grid, into
+// f_out[9F][H][W], from its halos (region_source.cuh: HaloSource): top, bot
+// [9F][hk][W]; left, right [9F][H + 2hk][hk], or both NULL when W == nx.
+// Fields, k_steps (also <= hk), `expansion` and prm as
+// lb2d_temporal_multifield_step. Launches on `stream` and returns the
+// launch's CUDA error code.
+extern "C" int lb2d_halo_multifield_step(
+    const float* f, const float* top, const float* bot, const float* left,
+    const float* right, float* f_out, int H, int W, int hk, int y0, int x0,
+    int ny, int nx, int num_fields, int k_steps, int expansion,
+    Lb2dMultifieldParams prm, void* stream) {
+  if (H < 1 || W < 1 || hk < 1 || k_steps > hk ||
+      (left == nullptr) != (right == nullptr) ||
+      (left == nullptr && W != nx) || y0 < 0 || y0 + H > ny || x0 < 0 ||
+      x0 + W > nx)
+    return (int)cudaErrorInvalidValue;
+  const HaloSource src = {f, top, bot, left, right, H, W, hk};
+  const Domain d = {H, W, y0, x0, ny, nx};
+  if (expansion)
+    return (int)dispatch<true>(num_fields, src, f_out, d, k_steps, 0, H, prm,
+                               stream);
+  return (int)dispatch<false>(num_fields, src, f_out, d, k_steps, 0, H, prm,
+                              stream);
 }
 
 // sizeof(Lb2dMultifieldParams), which ops/_build.py holds its ctypes mirror to

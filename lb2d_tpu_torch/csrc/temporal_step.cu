@@ -42,8 +42,22 @@
 // first version loads with plain loads and synchronises the whole block
 // between steps; cp.async/TMA double buffering, larger tiles and warp
 // specialisation are left to later work.
+//
+// K9 (halo_step_kernel, lb2d_halo_step) is K2's design on one shard of a
+// domain-decomposed grid: it replaces lb2d_tpu/ops/fused_halo.py:
+// make_temporal_halo_step for the physics above. Its region loads through
+// region_source.cuh's HaloSource (the shard, the K-row halos from its
+// y-neighbours and, on 2-D meshes, the K-column strips from its
+// x-neighbours) instead of the grid's wrap, it writes the shard's cells,
+// and every cell keeps its global coordinates, so the BCs, the mask and
+// the noise are those of K2 on the whole grid, through the same per-cell
+// updates. Bound as K2's, plus the halo's bytes (2K rows and, on 2-D
+// meshes, 2K columns per shard). The two kernels keep separate step loops:
+// one loop templated on the region's source made nvcc allocate K2's
+// registers differently, and K2 ran 7.6-22% slower (PERF.md, section 6).
 
 #include "pipe_cell.cuh"
+#include "region_source.cuh"
 
 namespace {
 
@@ -60,11 +74,6 @@ constexpr int kVelocityOpen = 1;  // velocity inlet, open outlet (a, b = u)
 constexpr int kVelocityPair = 2;  // velocity inlet and outlet (a, b = u)
 constexpr int kDiffusion = 3;     // periodic, linear feq, growth (a, b = u, v)
 constexpr int kNoisyFisher = 4;   // kDiffusion + Philox noise and clip
-
-__device__ __forceinline__ int wrap(int v, int n) {
-  const int m = v % n;
-  return m < 0 ? m + n : m;
-}
 
 template <int kPhys, bool kIncomp, bool kObstacle>
 __global__ void __launch_bounds__(kThreads, 3)
@@ -182,6 +191,132 @@ cudaError_t dispatch(const float* f_in, float* f_out, const int* mask, int ny,
               : launch<kPhys, false, false>(f_in, f_out, mask, ny, nx, K, prm, s);
 }
 
+// K9: K steps of one shard, the domain d, whose region comes from src.
+// K2's loop; the region's cells (y, x) are the shard's, unwrapped, their
+// global coordinates wrap(d.y0 + y, d.ny) and wrap(d.x0 + x, d.nx).
+template <int kPhys, bool kIncomp, bool kObstacle>
+__global__ void __launch_bounds__(kThreads, 3)
+halo_step_kernel(HaloSource src, const int* __restrict__ mask,
+                 float* __restrict__ f_out, Domain d, int K,
+                 StepParams prm) {
+  extern __shared__ float smem[];
+  float* cur = smem;
+  float* nxt = smem + 9 * kPlane;
+  unsigned char* solid = reinterpret_cast<unsigned char*>(smem + 18 * kPlane);
+
+  const int inner = kTile - 2 * K;
+  const int y0 = blockIdx.y * inner - K;  // shard row of region row 0
+  const int x0 = blockIdx.x * inner - K;
+  const int c = threadIdx.x % kTile;
+  const int r_first = threadIdx.x / kTile;
+  const int gx = wrap(d.x0 + x0 + c, d.nx);
+  const size_t plane = (size_t)d.rows * d.cols;
+
+  // the step-0 region
+#pragma unroll
+  for (int i = 0; i < kPasses; ++i) {
+    const int r = r_first + i * kRowsPerPass;
+    size_t stride;
+    const float* p = src.at(y0 + r, x0 + c, stride);
+#pragma unroll
+    for (int j = 0; j < 9; ++j) cur[j * kPlane + r * kTile + c] = __ldg(p + j * stride);
+    if (kObstacle) solid[r * kTile + c] = src.solid(mask, y0 + r, x0 + c);
+  }
+  __syncthreads();
+
+  for (int s = 1; s <= K; ++s) {
+    const bool last = s == K;
+#pragma unroll
+    for (int i = 0; i < kPasses; ++i) {
+      const int r = r_first + i * kRowsPerPass;
+      if (r < s || r >= kTile - s || c < s || c >= kTile - s) continue;
+      if (last && (y0 + r >= d.rows || x0 + c >= d.cols)) continue;  // ragged edge
+      const int gy = wrap(d.y0 + y0 + r, d.ny);
+      const float* p = cur + r * kTile + c;
+      float v[9], out[9];
+      v[0] = p[0 * kPlane];
+      v[1] = p[1 * kPlane - 1];
+      v[2] = p[2 * kPlane - kTile];
+      v[3] = p[3 * kPlane + 1];
+      v[4] = p[4 * kPlane + kTile];
+      v[5] = p[5 * kPlane - kTile - 1];
+      v[6] = p[6 * kPlane - kTile + 1];
+      v[7] = p[7 * kPlane + kTile + 1];
+      v[8] = p[8 * kPlane + kTile - 1];
+      const bool sol = kObstacle && solid[r * kTile + c];
+      if constexpr (kPhys == kFlow) {
+        cell_update<kIncomp, kObstacle>(v, out, gy, gx, d.ny, d.nx, sol,
+                                        prm.omega, prm.a, prm.b);
+      } else if constexpr (kPhys == kDiffusion || kPhys == kNoisyFisher) {
+        diffusion_cell_update<kPhys == kNoisyFisher>(
+            v, out, prm, (unsigned long long)gy * d.nx + gx,
+            prm.step0 + (s - 1));
+      } else {
+        float up[3] = {0.0f, 0.0f, 0.0f};
+        if (kPhys == kVelocityOpen && gx == d.nx - 1) {
+          up[0] = p[3 * kPlane];
+          up[1] = p[6 * kPlane - kTile];
+          up[2] = p[7 * kPlane + kTile];
+        }
+        velocity_cell_update<kPhys == kVelocityPair, kIncomp, kObstacle>(
+            v, up, out, gx, d.nx, sol, prm.omega, prm.a, prm.b);
+      }
+      if (last) {
+        const size_t g = (size_t)(y0 + r) * d.cols + (x0 + c);
+#pragma unroll
+        for (int j = 0; j < 9; ++j) f_out[j * plane + g] = out[j];
+      } else {
+#pragma unroll
+        for (int j = 0; j < 9; ++j) nxt[j * kPlane + r * kTile + c] = out[j];
+      }
+    }
+    if (!last) {
+      __syncthreads();  // step s complete before step s+1 reads it
+      float* t = cur;
+      cur = nxt;
+      nxt = t;
+    }
+  }
+}
+
+template <int kPhys, bool kIncomp, bool kObstacle>
+cudaError_t halo_launch(const HaloSource& src, const int* mask, float* f_out,
+                        const Domain& d, int K, const StepParams& prm,
+                        cudaStream_t stream) {
+  const int smem = 18 * kPlane * (int)sizeof(float) + (kObstacle ? kPlane : 0);
+  // once per instantiation and card: the attribute is the card's
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
+    return cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        halo_step_kernel<kPhys, kIncomp, kObstacle>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured[dev] = true;
+  }
+  const int inner = kTile - 2 * K;
+  const dim3 grid((d.cols + inner - 1) / inner, (d.rows + inner - 1) / inner);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  halo_step_kernel<kPhys, kIncomp, kObstacle>
+      <<<grid, kThreads, smem, stream>>>(src, mask, f_out, d, K, prm);
+  return cudaGetLastError();
+}
+
+template <int kPhys>
+cudaError_t halo_dispatch(const HaloSource& src, const int* mask,
+                          float* f_out, const Domain& d, int K,
+                          const StepParams& prm, int incompressible,
+                          cudaStream_t s) {
+  if (incompressible) {
+    return mask ? halo_launch<kPhys, true, true>(src, mask, f_out, d, K, prm, s)
+                : halo_launch<kPhys, true, false>(src, mask, f_out, d, K, prm, s);
+  }
+  return mask ? halo_launch<kPhys, false, true>(src, mask, f_out, d, K, prm, s)
+              : halo_launch<kPhys, false, false>(src, mask, f_out, d, K, prm, s);
+}
+
 }  // namespace
 
 // k_steps pressure-driven steps of f_in into f_out. f_in, f_out: [9, ny, nx]
@@ -235,4 +370,53 @@ extern "C" int lb2d_temporal_diffusion_step(
                                                    nx, k_steps, prm, s);
   return (int)launch<kDiffusion, false, false>(f_in, f_out, nullptr, ny, nx,
                                                k_steps, prm, s);
+}
+
+// K9: k_steps steps of one shard f[9][H][W], global rows [y0, y0 + H) and
+// columns [x0, x0 + W) of an ny x nx grid, into f_out[9][H][W], from its
+// halos (region_source.cuh: HaloSource): top, bot [9][hk][W]; left, right
+// [9][H + 2hk][hk], or both NULL when W == nx (x wraps within the shard).
+// mask: the obstacle mask of the region [H + 2hk][W + 2hk], or NULL.
+// physics: 0 pressure-driven flow (a, b = inlet, outlet rho), 1 velocity
+// inlet with the zero-gradient outlet, 2 with the velocity outlet (a, b =
+// u_w, u_e), 3 diffusion, 4 noisy Fisher (a, b = u, v; g, dg, key, step0 as
+// lb2d_temporal_diffusion_step). 1 <= k_steps <= min(8, hk). Launches on
+// `stream` and returns the launch's CUDA error code.
+extern "C" int lb2d_halo_step(const float* f, const float* top,
+                              const float* bot, const float* left,
+                              const float* right, const int* mask,
+                              float* f_out, int H, int W, int hk, int y0,
+                              int x0, int ny, int nx, int k_steps,
+                              int physics, int incompressible, float omega,
+                              float a, float b, float g, float dg,
+                              unsigned key0, unsigned key1,
+                              unsigned long long step0, void* stream) {
+  if (H < 1 || W < 1 || hk < 1 || k_steps < 1 || k_steps > kMaxK ||
+      k_steps > hk || (left == nullptr) != (right == nullptr) ||
+      (left == nullptr && W != nx) || y0 < 0 || y0 + H > ny || x0 < 0 ||
+      x0 + W > nx || (physics == kVelocityOpen && nx < 2))
+    return (int)cudaErrorInvalidValue;
+  const HaloSource src = {f, top, bot, left, right, H, W, hk};
+  const Domain d = {H, W, y0, x0, ny, nx};
+  const StepParams prm = {omega, a, b, g, dg, key0, key1, step0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (physics) {
+    case kFlow:
+      return (int)halo_dispatch<kFlow>(src, mask, f_out, d, k_steps, prm,
+                                       incompressible, s);
+    case kVelocityOpen:
+      return (int)halo_dispatch<kVelocityOpen>(src, mask, f_out, d, k_steps,
+                                               prm, incompressible, s);
+    case kVelocityPair:
+      return (int)halo_dispatch<kVelocityPair>(src, mask, f_out, d, k_steps,
+                                               prm, incompressible, s);
+    case kDiffusion:
+      return (int)halo_launch<kDiffusion, false, false>(
+          src, nullptr, f_out, d, k_steps, prm, s);
+    case kNoisyFisher:
+      return (int)halo_launch<kNoisyFisher, false, false>(
+          src, nullptr, f_out, d, k_steps, prm, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -16,7 +16,14 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["LBModel", "resolve_device", "advance", "held_solve_sweep"]
+__all__ = ["LBModel", "resolve_device", "plain_backend", "advance",
+           "held_solve_sweep"]
+
+
+def plain_backend(backend: str) -> str:
+    """``backend`` with JAX's name of the plain path, ``"xla"``, read as the
+    port's ``"eager"``."""
+    return "eager" if backend == "xla" else backend
 
 
 def resolve_device(device) -> torch.device:
@@ -99,6 +106,18 @@ class LBModel:
     def _synchronize(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def block_until_ready(self):
+        """Wait until the device has run everything enqueued so far (nothing
+        to wait for on the CPU); returns the model."""
+        self._synchronize()
+        return self
+
+    def device_field(self, name):
+        """One 2-D field as a device tensor, without a copy to the host;
+        None for a name the model does not have (the models with fields
+        override this)."""
+        return None
 
     def run(self, num_iterations: int, *, timed: bool = False):
         """Advance ``num_iterations`` steps on the model's device.

@@ -19,8 +19,9 @@ on a CUDA device, at any ``ny x nx``:
   steps per launch and one shorter launch for the rest of ``run(n)``.
   ``"auto"`` picks it on CUDA for larger grids. The kernel wraps the
   periodic domain exactly, so the JAX model's seam patch is not needed.
-* ``"eager"`` (the default on the CPU, JAX's ``"xla"``): the plain PyTorch
-  step. On a CUDA device it runs only when asked for by name.
+* ``"eager"`` (the default on the CPU; JAX's ``"xla"``, taken as an
+  alias): the plain PyTorch step. On a CUDA device it runs only when asked
+  for by name.
 
 That is JAX's ladder (``lb2d_tpu/models/diffusion.py:170-193``) without its
 TPU alignment gates.
@@ -52,7 +53,7 @@ from ..ops.fused import (
 )
 from ..ops.moments import density
 from ..ops.random import normals
-from .base import LBModel, resolve_device
+from .base import LBModel, plain_backend, resolve_device
 
 __all__ = [
     "Diffusion",
@@ -117,6 +118,7 @@ class PeriodicScalarModel(LBModel):
         LBModel.__init__(self)
 
     def _pick_backend(self, backend):
+        backend = plain_backend(backend)
         if backend == "eager":
             return backend
         if backend != "auto" and backend not in _KERNEL_IDS:

@@ -37,7 +37,7 @@ writing ``amplitude (xg, yg)`` into the hook's ext plane pair, then
 once per K-step sweep and holds the force for the sweep (both backends;
 ``run`` runs the rest of ``n`` as exact single steps).
 
-Not ported in this slice: ``shard_over`` (ROADMAP queue 1 item 9) raises
+Not ported yet: ``shard_over`` (ROADMAP queue 1 item 2) raises
 ``NotImplementedError``.
 """
 
@@ -63,7 +63,7 @@ from ..ops.fused_mc import (
     mc_step_reference,
 )
 from ..ops.spectral import screened_gradients, screened_gradients_reference
-from .base import advance, held_solve_sweep, resolve_device
+from .base import advance, held_solve_sweep, plain_backend, resolve_device
 
 __all__ = ["Fluid", "SimulationRunner", "SECOND_BELT_STENCIL", "get_psi",
            "pick_backend"]
@@ -78,7 +78,9 @@ def pick_backend(backend, device, dtype, num_populations) -> str:
     """The backend a runner on ``device`` with ``dtype`` and
     ``num_populations`` fluids runs: ``"kernel"`` or ``"eager"``. Raises
     rather than fall back: ``"kernel"`` off CUDA, and ``"kernel"`` or
-    ``"auto"`` on CUDA for a configuration K6 does not take."""
+    ``"auto"`` on CUDA for a configuration K6 does not take. JAX's name
+    ``"xla"`` is read as ``"eager"``."""
+    backend = plain_backend(backend)
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; use 'auto', 'kernel' "
                          "or 'eager'")
@@ -322,10 +324,10 @@ class SimulationRunner:
                         float(interaction_length) ** 2, float(amplitude)))
 
     def shard_over(self, mesh):
-        """Not ported yet: multi-GPU comes with ROADMAP queue 1 item 9."""
+        """Not ported yet: ROADMAP queue 1 item 2 (``parallel/``, part 2)."""
         raise NotImplementedError(
-            "shard_over comes with multi-GPU, ROADMAP queue 1 item 9 "
-            "(parallel/)")
+            "shard_over comes with ROADMAP queue 1 item 2 (parallel/, part "
+            "2)")
 
     # ---- numerics ------------------------------------------------------------
     def _columns(self):

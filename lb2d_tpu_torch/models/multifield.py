@@ -26,8 +26,9 @@ Backends, each on a CUDA device a hand-written kernel of
   coordinates and wraps the periodic domain exactly, so it equals the
   plain steps and the JAX models' wall and seam patches (and K5's band
   step on the Expansion's y-wrap) are not needed.
-* ``"eager"`` (the default on the CPU, JAX's XLA step): the plain PyTorch
-  step. On a CUDA device it runs only when asked for by name; ``"auto"``
+* ``"eager"`` (the default on the CPU, JAX's XLA step; ``"xla"`` is
+  taken as an alias): the plain PyTorch step. On a CUDA device it runs
+  only when asked for by name; ``"auto"``
   there raises for more fields than the kernel takes or a dtype other than
   float32.
 
@@ -62,7 +63,7 @@ from ..ops.fused import (
     temporal_multifield_step,
 )
 from ..ops.moments import density
-from .base import LBModel, resolve_device
+from .base import LBModel, plain_backend, resolve_device
 
 __all__ = ["FisherExpansion", "Expansion", "noflux_bcs_multifield",
            "FISHER_TEMPORAL_K", "EXPANSION_TEMPORAL_K"]
@@ -176,6 +177,7 @@ class _MultifieldBase(LBModel):
         return min(k, multifield_max_k(self.num_fields))
 
     def _pick_backend(self, backend):
+        backend = plain_backend(backend)
         if backend not in _BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; use 'auto', "
                              "'temporal' or 'eager'")

@@ -15,8 +15,9 @@ on a CUDA device, ping-ponging between two buffers, any ``ny x nx``:
   K1. ``"auto"`` picks it on CUDA for larger grids.
 * ``"kernel"`` (K1, :func:`~lb2d_tpu_torch.ops.fused.pipe_step`): one step
   per launch.
-* ``"eager"`` (the default on the CPU, JAX's ``"xla"``): the plain PyTorch
-  step (:func:`~lb2d_tpu_torch.ops.fused.pipe_step_reference`). On a CUDA
+* ``"eager"`` (the default on the CPU; JAX's name ``"xla"`` is taken as
+  an alias): the plain PyTorch step
+  (:func:`~lb2d_tpu_torch.ops.fused.pipe_step_reference`). On a CUDA
   device it runs only when asked for by name.
 
 The JAX backends that are not ported yet raise ``NotImplementedError``.
@@ -38,7 +39,7 @@ from ..ops.fused import (
     temporal_pipe_step,
 )
 from ..ops.moments import hydro_compressible, hydro_incompressible
-from .base import LBModel, resolve_device
+from .base import LBModel, plain_backend, resolve_device
 
 __all__ = ["PipeFlow", "PipeFlowCylinder", "PipeFlowObstacles", "disk_mask",
            "TEMPORAL_K"]
@@ -48,7 +49,7 @@ _KERNEL_IDS = {"resident": "K3", "temporal": "K2", "kernel": "K1"}
 _NOT_PORTED = {
     "pipelined": "ported as backend='kernel' (ROADMAP.md queue 2, K1)",
     "fused": "ported as backend='kernel' (ROADMAP.md queue 2, K1)",
-    "native": "the C++ CPU backend is ROADMAP.md queue 1 item 2 "
+    "native": "the C++ CPU backend is ROADMAP.md queue 1 item 5 "
               "(backend='native'), not ported yet",
 }
 
@@ -67,6 +68,10 @@ class PipeFlow(LBModel):
     ``device`` (default ``"cuda"``; a machine without CUDA raises). The
     random initial perturbation comes from ``np.random.RandomState(seed)``
     exactly as in JAX, so both packages start from the same bits.
+
+    ``init_state=False`` builds the configuration only (units, grid, mask,
+    backend) and no ``state``: :class:`~lb2d_tpu_torch.parallel.sharded.
+    ShardedPipeFlow` builds each shard's state itself.
     """
 
     _kernel_backends = tuple(_KERNEL_IDS)  # the CUDA backends of this model
@@ -75,7 +80,8 @@ class PipeFlow(LBModel):
                  pressure_grad=None, pipe_length=None, N=200,
                  time_prefactor=1.0, equilibrium="compressible",
                  convention="W", obstacle_mask=None, seed=0,
-                 dtype=torch.float32, backend="auto", device="cuda"):
+                 dtype=torch.float32, backend="auto", device="cuda",
+                 init_state=True):
         self.units = FlowUnits(
             diameter=diameter, rho=rho, viscosity=viscosity,
             pressure_grad=pressure_grad, pipe_length=pipe_length, N=N,
@@ -91,10 +97,11 @@ class PipeFlow(LBModel):
         self.inlet_rho, self.outlet_rho = self.units.inlet_outlet_rho(self.nx)
         if obstacle_mask is None:
             obstacle_mask = self._build_obstacle_mask()
-        self._setup(obstacle_mask, seed, backend, device)
+        self._setup(obstacle_mask, seed, backend, device, init_state)
 
-    def _setup(self, obstacle_mask, seed, backend, device):
-        """Device, mask, backend and initial state; then the step."""
+    def _setup(self, obstacle_mask, seed, backend, device, init_state=True):
+        """Device, mask, backend and, with ``init_state``, the initial state
+        and the step."""
         self.device = resolve_device(device)
         self.obstacle_mask = (
             None if obstacle_mask is None
@@ -102,10 +109,13 @@ class PipeFlow(LBModel):
                                  device=self.device))
         self.backend = self._pick_backend(backend)
         self.seed = seed
+        if not init_state:
+            return
         self.state = self._init_state(np.random.RandomState(seed))
         LBModel.__init__(self)
 
     def _pick_backend(self, backend):
+        backend = plain_backend(backend)
         if backend in _NOT_PORTED:
             raise NotImplementedError(f"backend={backend!r}: "
                                       f"{_NOT_PORTED[backend]}")
@@ -157,16 +167,23 @@ class PipeFlow(LBModel):
     def _init_state(self, rng: np.random.RandomState) -> torch.Tensor:
         """feq of the linear inlet -> outlet density ramp (opencl_dim.py:
         279-283) times the perturbation."""
-        ny, nx = self.ny, self.nx
-        perturb = torch.as_tensor(self._init_perturb(rng), dtype=self.dtype,
-                                  device=self.device)
-        ramp = self.inlet_rho - np.arange(nx) * (
-            (self.inlet_rho - self.outlet_rho) / float(nx))
-        rho0 = np.broadcast_to(ramp[None, :], (ny, nx)).astype(np.float32)
-        rho0 = torch.as_tensor(rho0, dtype=self.dtype, device=self.device)
-        zeros = torch.zeros((ny, nx), dtype=self.dtype, device=self.device)
+        return self._init_from_perturb(self._init_perturb(rng), self.device)
+
+    def _init_from_perturb(self, perturb: np.ndarray, device,
+                           x0: int = 0) -> torch.Tensor:
+        """feq of the density ramp times ``perturb`` (``[9, rows, cols]``, a
+        block of the grid whose first column is global column ``x0``) on
+        ``device``: the whole state, or one shard's."""
+        rows, cols = perturb.shape[1:]
+        like = dict(dtype=self.dtype, device=device)
+        ramp = self.inlet_rho - np.arange(x0, x0 + cols) * (
+            (self.inlet_rho - self.outlet_rho) / float(self.nx))
+        rho0 = np.broadcast_to(ramp[None, :], (rows, cols)).astype(np.float32)
+        rho0 = torch.as_tensor(rho0, **like)
+        zeros = torch.zeros((rows, cols), **like)
         # broadcasting can leave a transposed layout; the kernel needs C order
-        return (self._feq_fn()(rho0, zeros, zeros) * perturb).contiguous()
+        return (self._feq_fn()(rho0, zeros, zeros)
+                * torch.as_tensor(perturb, **like)).contiguous()
 
     # --- step construction ---------------------------------------------------------
     def _feq_fn(self):

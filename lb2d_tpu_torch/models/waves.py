@@ -34,7 +34,7 @@ from ..ops.fused_coupled import (
 from ..ops.moments import density
 from ..ops.spectral import screened_gradients, screened_gradients_reference
 from ..ops.stream import stream
-from .base import LBModel, held_solve_sweep, resolve_device
+from .base import LBModel, held_solve_sweep, plain_backend, resolve_device
 from .diffusion import PeriodicScalarModel
 
 __all__ = ["NoisyAdvectedFisherWave", "ScreenedFisherWave", "CoupledModel"]
@@ -221,6 +221,7 @@ class CoupledModel(LBModel):
         return self.nx * self.ny
 
     def _pick_backend(self, backend):
+        backend = plain_backend(backend)
         if backend not in _BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; use 'auto', "
                              "'kernel' or 'eager'")

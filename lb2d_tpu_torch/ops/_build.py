@@ -137,6 +137,14 @@ _ENTRY_POINTS = {
     # band, out, rows, nx, fields, k_steps, row0, ny, params, stream
     "lb2d_expansion_band_step": [_P, _P, _I, _I, _I, _I, _I, _I,
                                  MultifieldParams, _P],
+    # f, top, bot, left, right, mask, f_out, H, W, hk, y0, x0, ny, nx,
+    # k_steps, physics, incompressible, omega, a, b, G, Dg, key0, key1,
+    # step0, stream
+    "lb2d_halo_step": [_P] * 7 + [_I] * 10 + [_F] * 5 + [_U, _U, _ULL, _P],
+    # f, top, bot, left, right, f_out, H, W, hk, y0, x0, ny, nx, fields,
+    # k_steps, expansion, params, stream
+    "lb2d_halo_multifield_step": [_P] * 6 + [_I] * 10 + [MultifieldParams,
+                                                         _P],
     # f, rho, ny, nx, q, fluids, zero-gradient fluid mask, stream
     "lb2d_mc_density": [_P, _P, _I, _I, _I, _I, _I, _P],
     # f_in, f_out, rho, ext, ny, nx, q, fluids, zero-gradient fluid mask,

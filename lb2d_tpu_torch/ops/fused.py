@@ -61,6 +61,7 @@ import torch
 from ..core import D2Q9
 from . import _build
 from .boundary import (
+    GridCoords,
     bounce_back_obstacle,
     zou_he_pressure_bcs,
     zou_he_pressure_bcs_incompressible,
@@ -105,15 +106,18 @@ def supports_resident(ny: int, nx: int) -> bool:
 
 def pipe_step_reference(f: torch.Tensor, omega, inlet_rho, outlet_rho, *,
                         incompressible: bool,
-                        mask: torch.Tensor | None = None) -> torch.Tensor:
+                        mask: torch.Tensor | None = None,
+                        at: GridCoords | None = None) -> torch.Tensor:
     """One pipe-flow step in plain PyTorch ops (returns a new tensor).
 
     With the incompressible equilibrium and an obstacle, the velocity is
     zeroed inside the mask after the moments (``opencl_dim_D2Q9i.py:494-502``).
+    With ``at``, ``f`` is a block of the grid and the BCs apply by its
+    global coordinates (:class:`~lb2d_tpu_torch.ops.boundary.GridCoords`).
     """
     bcs = (zou_he_pressure_bcs_incompressible if incompressible
            else zou_he_pressure_bcs)
-    f = bcs(stream(f, D2Q9), inlet_rho, outlet_rho)
+    f = bcs(stream(f, D2Q9), inlet_rho, outlet_rho, at)
     if mask is not None:
         mask = mask.bool()
         f = bounce_back_obstacle(f, mask, D2Q9)
@@ -140,19 +144,21 @@ def pipe_run_reference(f: torch.Tensor, n: int, omega, inlet_rho, outlet_rho,
 
 def velocity_step_reference(f: torch.Tensor, omega, u_w, u_e, *,
                             outlet: str, incompressible: bool,
-                            mask: torch.Tensor | None = None) -> torch.Tensor:
+                            mask: torch.Tensor | None = None,
+                            at: GridCoords | None = None) -> torch.Tensor:
     """One velocity-inlet step in plain PyTorch ops (returns a new tensor):
     stream -> Zou-He velocity inlet ``u_w`` with the zero-gradient outlet
     (``outlet="zero_gradient"``) or the velocity outlet ``u_e``
     (``outlet="velocity"``), periodic in y -> [bounce-back] -> compressible
     moments, velocity zeroed in the obstacle (``OLD/opencl.py:346-360``) ->
-    feq (incompressible if ``incompressible``) -> BGK."""
+    feq (incompressible if ``incompressible``) -> BGK; ``at`` as
+    :func:`pipe_step_reference`."""
     _check_outlet(outlet)
     f = stream(f, D2Q9)
     if outlet == "zero_gradient":
-        f = zou_he_velocity_inlet_open_outlet(f, u_w)
+        f = zou_he_velocity_inlet_open_outlet(f, u_w, at)
     else:
-        f = zou_he_velocity_bcs(f, u_w, u_e)
+        f = zou_he_velocity_bcs(f, u_w, u_e, at)
     if mask is not None:
         mask = mask.bool()
         f = bounce_back_obstacle(f, mask, D2Q9)
@@ -503,15 +509,21 @@ def _per_field(values, like: torch.Tensor) -> torch.Tensor:
                         dtype=like.dtype, device=like.device)
 
 
-def noflux_walls_reference(f: torch.Tensor) -> torch.Tensor:
+def noflux_walls_reference(f: torch.Tensor,
+                           at: GridCoords | None = None) -> torch.Tensor:
     """No-flux walls and corners on every field of a streamed ``[9, F, ny,
     nx]`` state (returns a new tensor): full bounce-back of the three
     populations that leave through each wall, three per corner, as masked
     selects from the pre-wall values, exactly as JAX
-    ``noflux_bcs_multifield`` (``D2Q9_multifield_fisher.cl:184-289``)."""
-    ny, nx = f.shape[-2:]
-    row = torch.arange(ny, device=f.device)[:, None]
-    lane = torch.arange(nx, device=f.device)[None, :]
+    ``noflux_bcs_multifield`` (``D2Q9_multifield_fisher.cl:184-289``).
+    With ``at``, ``f`` is a block of the grid and the walls are those of
+    its global coordinates."""
+    if at is None:
+        ny, nx = f.shape[-2:]
+        row = torch.arange(ny, device=f.device)[:, None]
+        lane = torch.arange(nx, device=f.device)[None, :]
+    else:
+        row, lane, ny, nx = at
     row_int, lane_int = (row >= 1) & (row <= ny - 2), (lane >= 1) & (lane <= nx - 2)
     row0, row_n, lane0, lane_n = row == 0, row == ny - 1, lane == 0, lane == nx - 1
     masks = {"n": row_n & lane_int, "s": row0 & lane_int,
@@ -528,15 +540,16 @@ def noflux_walls_reference(f: torch.Tensor) -> torch.Tensor:
     return torch.stack(st)
 
 
-def fisher_step_reference(f: torch.Tensor, omegas, lb_G, u_lb,
-                          v_lb) -> torch.Tensor:
+def fisher_step_reference(f: torch.Tensor, omegas, lb_G, u_lb, v_lb,
+                          at: GridCoords | None = None) -> torch.Tensor:
     """One FisherExpansion step of ``f[9, F, ny, nx]`` in plain PyTorch ops
     (returns a new tensor), exactly as JAX ``FisherExpansion._make_xla_step``
     (``lb2d_tpu/models/multifield.py:233-248``): periodic stream -> no-flux
     walls -> ``rho_p`` (summed in direction order) -> ``rho_tot`` (summed in
     field order) -> linear feq -> per-field BGK ``+ w G_p rho_p (1 -
-    rho_tot)``. ``omegas`` and ``lb_G`` have one entry per field."""
-    f = noflux_walls_reference(stream(f, D2Q9))
+    rho_tot)``. ``omegas`` and ``lb_G`` have one entry per field; ``at`` as
+    :func:`noflux_walls_reference`."""
+    f = noflux_walls_reference(stream(f, D2Q9), at)
     rho = _density_in_order(f)                     # [F, ny, nx]
     rho_tot = _density_in_order(rho)               # [ny, nx]
     feq = feq_linear(rho, _f32(u_lb, f), _f32(v_lb, f), D2Q9)

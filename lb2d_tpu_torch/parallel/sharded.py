@@ -1,0 +1,467 @@
+"""Domain decomposition of the flow, diffusion and multifield families
+(counterpart of ``lb2d_tpu.parallel.sharded``).
+
+A grid is cut into the ``H x W`` shards of a :class:`~lb2d_tpu_torch.
+parallel.halo.Mesh`; each process keeps its own shards on their devices
+and no device ever holds the whole grid. One sweep of ``k`` steps exchanges
+a ``k``-cell halo around every shard (:mod:`lb2d_tpu_torch.parallel.halo`,
+outside the kernel as in JAX), then launches K9
+(:func:`~lb2d_tpu_torch.ops.fused_halo.temporal_halo_step`) once per
+shard, into the shard's spare buffer (ping-pong: ``run`` allocates
+nothing). The rest of ``run(n)`` (``n % K``) is one more K9 sweep of
+``n % K`` steps, not a plain step as in JAX (``sharded.py:346-351``).
+
+K9 applies every BC by global coordinates and keys its Philox noise by
+(seed, global step, global cell), so a sharded run equals the unsharded K2
+/ K4 run on any mesh, walls and noise included: no wall band, no seam
+patch, and the same noise for a cell whatever the mesh (JAX draws a
+different noise per shard, DIVERGENCES #19). The port's K9 takes any shard
+shape, obstacles and unaligned widths too, so JAX's fall-backs to its XLA
+step (``sharded.py:884-891``) have no counterpart: ``backend="auto"`` is K9
+on CUDA and the plain sharded step (:func:`make_sharded_pipe_step`) on the
+CPU. On the CPU, ``"temporal"`` runs the same sweeps through K9's plain
+twin.
+
+The sharded state is the list :attr:`state` of this process's shard
+tensors (``[9, H, W]``; ``[9 F, H, W]`` for multifield, plane ``j F + p``);
+:meth:`state_numpy` assembles the global array and
+:meth:`load_numpy_state` splits one into the shards. A wrapped model gives
+its state up to the shards (its ``state`` becomes None, so no device keeps
+the whole grid) and follows the sharded model's ``steps_taken``.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..models.base import plain_backend
+from ..ops.fused import MAX_TEMPORAL_K, multifield_max_k
+from ..ops.fused_halo import (
+    cut_region,
+    supports_temporal_halo,
+    temporal_halo_step,
+    temporal_halo_step_reference,
+)
+from .halo import Mesh, exchange_halos, new_halos, this_rank
+
+__all__ = [
+    "make_sharded_pipe_step",
+    "make_sharded_temporal_step",
+    "make_mesh",
+    "ShardedPipeFlow",
+    "ShardedDiffusion",
+    "ShardedMultifield",
+    "ShardedCoupled",
+]
+
+
+def make_mesh(n_devices: int | None = None,
+              shape: tuple[int, int] | None = None, devices=None) -> Mesh:
+    """A mesh of this process's ``devices`` (default: every CUDA card),
+    the first ``n_devices`` of them, factored as square as possible unless
+    ``shape`` is given. ``devices`` may repeat a device: ``["cuda:0"] * 4``
+    cuts a grid into four shards on one card, ``["cpu"] * 8`` into eight on
+    the CPU."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    if n_devices is not None:
+        if len(devices) < n_devices:
+            raise ValueError(
+                f"requested a {n_devices}-device mesh but only "
+                f"{len(devices)} devices are available")
+        devices = devices[:n_devices]
+    n = len(devices)
+    if n == 0:
+        raise ValueError("a mesh needs a device, but only 0 CUDA devices are "
+                         "available; pass devices=['cpu', ...] for the CPU")
+    if shape is None:
+        my = int(np.floor(np.sqrt(n)))
+        while n % my:
+            my -= 1
+        shape = (my, n // my)
+    rank = this_rank()
+    return Mesh([(rank, d) for d in devices], shape)
+
+
+def _shard_shape(mesh: Mesh, ny: int, nx: int):
+    if ny % mesh.my or nx % mesh.mx:
+        raise ValueError(f"grid {ny}x{nx} must divide mesh "
+                         f"{mesh.my}x{mesh.mx}")
+    return ny // mesh.my, nx // mesh.mx
+
+
+def _steps_per_sweep(k_steps, mesh, H, W, max_k):
+    """``k_steps`` capped by the smallest shard edge (along the sharded
+    axes) and the kernel's limit."""
+    k = min(int(k_steps), H, W if mesh.mx > 1 else k_steps, max_k)
+    if not supports_temporal_halo(H, W, k, mesh.mx > 1, max_k):
+        raise ValueError(f"no K9 sweep for {H}x{W} shards")
+    return k
+
+
+def _halo_sweep(mesh: Mesh, run_shard):
+    """``sweep(halos, out, k)``: exchange the halos of this process's
+    shards (:func:`~lb2d_tpu_torch.parallel.halo.exchange_halos`), then
+    ``run_shard(pos, halo, out[pos], k)`` writes ``k`` steps of each shard
+    into ``out``."""
+    def sweep(halos, out, k):
+        exchange_halos(mesh, halos)
+        for pos, h in halos.items():
+            run_shard(pos, h, out[pos], k)
+        return out
+    return sweep
+
+
+def _region_masks(mesh, obstacle_mask, H, W, width):
+    """Each local shard's obstacle mask with its ``width``-cell ring
+    (int32, on its device), cut once from the global mask; {} without
+    one."""
+    if obstacle_mask is None:
+        return {}
+    m = torch.as_tensor(np.asarray(obstacle_mask, np.int32))
+    return {pos: cut_region(m, pos[0] * H, pos[1] * W, H, W, width).to(
+        mesh.device(pos)).contiguous() for pos in mesh.local_positions()}
+
+
+def _flow_kwargs(omega, inlet_rho, outlet_rho, equilibrium):
+    return dict(omega=omega, inlet_rho=inlet_rho, outlet_rho=outlet_rho,
+                incompressible=equilibrium == "incompressible")
+
+
+def make_sharded_pipe_step(*, mesh: Mesh, ny: int, nx: int, omega,
+                           inlet_rho, outlet_rho,
+                           equilibrium: str = "compressible",
+                           obstacle_mask=None):
+    """The plain sharded pipe-flow step (JAX's general XLA path,
+    ``sharded.py:58-123``): ``step(halos, out, 1)`` exchanges 1-cell
+    halos and writes one plain step of each local shard into ``out[pos]``,
+    with the Zou-He BCs, walls and obstacle by global coordinates
+    (:func:`~lb2d_tpu_torch.ops.fused_halo.temporal_halo_step_reference`
+    at one step). ``halos``: position -> 1-cell
+    :class:`~lb2d_tpu_torch.ops.fused_halo.Halo` (``new_halos(mesh,
+    shards, 1)``). ``obstacle_mask``: the global ``[ny, nx]`` mask or
+    None."""
+    H, W = _shard_shape(mesh, ny, nx)
+    masks = _region_masks(mesh, obstacle_mask, H, W, 1)
+    kw = _flow_kwargs(omega, inlet_rho, outlet_rho, equilibrium)
+
+    def run_shard(pos, halo, out, k):
+        out.copy_(temporal_halo_step_reference(halo, 1, "flow",
+                                               mask=masks.get(pos), **kw))
+
+    return _halo_sweep(mesh, run_shard)
+
+
+def make_sharded_temporal_step(*, mesh: Mesh, ny: int, nx: int, omega,
+                               inlet_rho, outlet_rho,
+                               equilibrium: str = "compressible",
+                               obstacle_mask=None,
+                               k_steps: int | None = None):
+    """The K9 sweep of the sharded pipe flow (``sharded.py:126-208``):
+    returns ``(sweep, K)``; ``sweep(halos, out, k)`` exchanges the
+    ``K``-cell halos and launches K9 once per local shard, writing ``k <=
+    K`` steps into ``out[pos]``. ``K`` is ``k_steps`` (default
+    ``TEMPORAL_K``, the unsharded K2's) capped by the shard's edge."""
+    from ..models.pipe_flow import TEMPORAL_K
+
+    H, W = _shard_shape(mesh, ny, nx)
+    K = _steps_per_sweep(k_steps or TEMPORAL_K, mesh, H, W, MAX_TEMPORAL_K)
+    masks = _region_masks(mesh, obstacle_mask, H, W, K)
+    kw = _flow_kwargs(omega, inlet_rho, outlet_rho, equilibrium)
+
+    def run_shard(pos, halo, out, k):
+        temporal_halo_step(halo, out, k, "flow", mask=masks.get(pos), **kw)
+
+    return _halo_sweep(mesh, run_shard), K
+
+
+class _ShardedModel:
+    """The run loop, state and getters of the sharded models.
+
+    Subclasses set ``mesh``, ``base``, ``ny``, ``nx``, ``steps_per_call``,
+    ``steps_taken``, ``physics`` and ``step_kwargs`` (K9's physics and its
+    arguments), and call :meth:`_place` with their shards and sweep; or, on
+    a 1x1 mesh, set ``_single`` to the unsharded model that runs instead.
+    ``halos`` holds this process's shards: position -> :class:`~lb2d_tpu_
+    torch.ops.fused_halo.Halo` (the shard and its halo buffers).
+    """
+
+    _single = None
+    last_mlups = None
+
+    @property
+    def num_cells(self) -> int:
+        return self.nx * self.ny
+
+    def _place(self, blocks: dict, width: int, sweep):
+        """This process's shards (position -> tensor on its device), their
+        ``width``-cell halos, spare buffers and the sweep
+        ``sweep(halos, out, k)``."""
+        self.halos = new_halos(self.mesh, blocks, width)
+        self._spare = {p: torch.empty_like(f) for p, f in blocks.items()}
+        self._sweep_fn = sweep
+        first = next(iter(blocks.values()))
+        self._planes, self._H, self._W = first.shape
+
+    def _sweep(self, k):
+        self._sweep_fn(self.halos, self._spare, k)
+        for pos, h in self.halos.items():
+            self._spare[pos], self.halos[pos] = h.f, h._replace(
+                f=self._spare[pos])
+
+    @property
+    def state(self) -> list:
+        """This process's shard tensors, in mesh order."""
+        if self._single is not None:
+            return [self._single.state]
+        return [h.f for h in self.halos.values()]
+
+    def _devices(self):
+        return {t.device for t in self.state}
+
+    def block_until_ready(self):
+        for dev in self._devices():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        return self
+
+    def run(self, num_iterations: int, *, timed: bool = False):
+        """``num_iterations // K`` sweeps of ``K = steps_per_call`` steps,
+        then one of the rest. With ``timed``, ``last_mlups`` records million
+        lattice-site updates per second between two synchronisations of
+        this process's devices."""
+        n = int(num_iterations)
+        if timed:
+            self.block_until_ready()
+            t0 = time.perf_counter()
+        if self._single is not None:
+            self._single.run(n)
+        else:
+            done = 0
+            while done < n:
+                k = min(self.steps_per_call, n - done)
+                self._step0 = self.steps_taken + done
+                self._sweep(k)
+                done += k
+        if timed:
+            self.block_until_ready()
+            self.last_mlups = self.num_cells * n / (
+                time.perf_counter() - t0) / 1e6
+        self.steps_taken += n
+        if self._single is None:
+            self.base.steps_taken = self.steps_taken
+        return self
+
+    def state_numpy(self) -> np.ndarray:
+        """The global populations ``[P, ny, nx]`` as a numpy array (every
+        process's shards; in JAX ``np.asarray(jax.device_get(sh.state))``)."""
+        if self._single is not None:
+            return self._single.state_numpy()
+        H, W = self._H, self._W
+        blocks = {pos: (h.y0, h.x0, h.f.detach().cpu().numpy())
+                  for pos, h in self.halos.items()}
+        if len({rank for rank, _ in self.mesh.entries}) > 1:
+            gathered = [None] * dist.get_world_size()
+            dist.all_gather_object(gathered, blocks)
+            blocks = {k: v for part in gathered for k, v in part.items()}
+        out = np.empty((self._planes, self.ny, self.nx), np.float32)
+        for y0, x0, a in blocks.values():
+            out[:, y0:y0 + H, x0:x0 + W] = a
+        return out
+
+    def load_numpy_state(self, f) -> None:
+        """Replace the populations with a global numpy array (``[P, ny,
+        nx]`` or the base model's layout), split into this process's
+        shards: for example a JAX model's state."""
+        if self._single is not None:
+            return self._single.load_numpy_state(f)
+        f = np.asarray(f, np.float32)
+        if f.size != self._planes * self.ny * self.nx:
+            raise ValueError(f"state must hold {self._planes} planes of "
+                             f"{self.ny}x{self.nx}, got {f.shape}")
+        f = f.reshape(self._planes, self.ny, self.nx)
+        H, W = self._H, self._W
+        for h in self.halos.values():
+            h.f.copy_(torch.from_numpy(np.ascontiguousarray(
+                f[:, h.y0:h.y0 + H, h.x0:h.x0 + W])))
+
+    def get_fields(self) -> dict:
+        """The base model's fields of the global state (gathered to the
+        base model's device for the getter)."""
+        if self._single is not None:
+            return self._single.get_fields()
+        base = self.base
+        saved = getattr(base, "state", None)
+        base.state = torch.from_numpy(self.state_numpy()).reshape(
+            self._base_shape).to(base.device)
+        try:
+            return base.get_fields()
+        finally:
+            base.state = saved
+
+
+class ShardedPipeFlow(_ShardedModel):
+    """Pipe flow over a mesh; the arguments of
+    :class:`~lb2d_tpu_torch.models.PipeFlow` (``device`` aside: the mesh
+    places the shards) and its getters (``sharded.py:854-979``).
+
+    ``backend``: ``"temporal"`` is K9, ``K = k_steps`` (default
+    ``TEMPORAL_K``, capped by the shard's edge) steps per sweep;
+    ``"eager"`` (alias ``"xla"``) the plain sharded step
+    (:func:`make_sharded_pipe_step`); ``"auto"`` K9 on CUDA and
+    ``"eager"`` on the CPU, and on a 1x1 mesh the unsharded model's own
+    ``auto`` path (JAX bypasses to its unsharded kernel too,
+    ``sharded.py:921-944``). The state is built shard by shard from the
+    perturbation of ``np.random.RandomState(seed)``, so its bits are the
+    unsharded model's.
+    """
+
+    def __init__(self, mesh: Mesh | None = None, backend: str = "auto",
+                 k_steps: int | None = None, **kwargs):
+        from ..models.pipe_flow import PipeFlow
+
+        self.mesh = mesh if mesh is not None else make_mesh()
+        backend = plain_backend(backend)
+        if backend not in ("auto", "temporal", "eager"):
+            raise ValueError(f"unknown backend {backend!r}; use 'auto', "
+                             "'temporal' or 'eager'")
+        local = self.mesh.local_positions()
+        device = self.mesh.device(local[0] if local else (0, 0))
+        single = self.mesh.size == 1 and backend == "auto"
+        base = PipeFlow(backend="auto" if single else "eager",
+                        init_state=single, device=device, **kwargs)
+        self.base = base
+        self.units = base.units
+        self.nx, self.ny = base.nx, base.ny
+        self.omega = base.omega
+        self.inlet_rho, self.outlet_rho = base.inlet_rho, base.outlet_rho
+        self.steps_taken = 0
+        if single:
+            self._single = base
+            self.backend = base.backend
+            self.steps_per_call = base.steps_per_call
+            return
+        if backend == "auto":
+            backend = "temporal" if device.type == "cuda" else "eager"
+        self.backend = backend
+        self.physics = "flow"
+        self.step_kwargs = _flow_kwargs(self.omega, self.inlet_rho,
+                                        self.outlet_rho, base.equilibrium)
+        mask = (None if base.obstacle_mask is None
+                else base.obstacle_mask.cpu().numpy())
+        geometry = dict(mesh=self.mesh, ny=self.ny, nx=self.nx,
+                        omega=self.omega, inlet_rho=self.inlet_rho,
+                        outlet_rho=self.outlet_rho,
+                        equilibrium=base.equilibrium, obstacle_mask=mask)
+        if backend == "temporal":
+            sweep, K = make_sharded_temporal_step(k_steps=k_steps,
+                                                  **geometry)
+        else:
+            sweep, K = make_sharded_pipe_step(**geometry), 1
+        self.steps_per_call = K
+        H, W = _shard_shape(self.mesh, self.ny, self.nx)
+        perturb = base._init_perturb(np.random.RandomState(base.seed))
+        blocks = {pos: base._init_from_perturb(
+            perturb[:, pos[0] * H:(pos[0] + 1) * H,
+                    pos[1] * W:(pos[1] + 1) * W], self.mesh.device(pos),
+            pos[1] * W) for pos in local}
+        del perturb
+        self._base_shape = (9, self.ny, self.nx)
+        self._place(blocks, K, sweep)
+
+
+class ShardedDiffusion(_ShardedModel):
+    """The advection-diffusion family over a mesh (``sharded.py:211-363``):
+    wraps a constructed model of :mod:`lb2d_tpu_torch.models.diffusion`
+    (deterministic or stochastic) and runs K9 ``"diffusion"`` /
+    ``"noisy_fisher"`` per shard, ``K = k_steps`` (default the model's
+    ``temporal_k``, capped by the shard's edge) steps per sweep. The noise
+    is the unsharded model's: the model's ``rng_seed``, the global step
+    ``steps_taken`` and the global cell."""
+
+    def __init__(self, base, mesh: Mesh | None = None,
+                 k_steps: int | None = None):
+        self.base = base
+        self.mesh = mesh if mesh is not None else make_mesh()
+        self.ny, self.nx = base.ny, base.nx
+        self.noisy = base.noisy
+        self.steps_taken = base.steps_taken
+        H, W = _shard_shape(self.mesh, self.ny, self.nx)
+        K = self.steps_per_call = _steps_per_sweep(
+            k_steps or base.temporal_k, self.mesh, H, W, MAX_TEMPORAL_K)
+        kw = self.step_kwargs = base.step_kwargs()
+        kw.pop("noisy", None)
+        self.physics = "noisy_fisher" if self.noisy else "diffusion"
+
+        def run_shard(pos, halo, out, k):
+            temporal_halo_step(halo, out, k, self.physics, step0=self._step0,
+                               **kw)
+
+        self._base_shape = tuple(base.state.shape)
+        self._place(_split(self.mesh, base.state, H, W), K,
+                    _halo_sweep(self.mesh, run_shard))
+        base.state = None  # the shards hold it now
+
+
+class ShardedMultifield(_ShardedModel):
+    """The multifield range expansions over a mesh (``sharded.py:366-627``):
+    wraps a :class:`~lb2d_tpu_torch.models.FisherExpansion` or
+    :class:`~lb2d_tpu_torch.models.Expansion` and runs K9
+    ``"multifield_fisher"`` / ``"multifield_expansion"`` per shard on
+    ``[9 F, H, W]`` shards (plane ``j F + p``), ``K = k_steps`` (default
+    the model's ``temporal_k``, capped by the shard's edge) steps per
+    sweep. The no-flux walls apply by global coordinates, so JAX's wall
+    bands (``sharded.py:501-580``) have no counterpart; the Expansion's
+    noise is the unsharded model's."""
+
+    def __init__(self, base, mesh: Mesh | None = None,
+                 k_steps: int | None = None):
+        self.base = base
+        self.mesh = mesh if mesh is not None else make_mesh()
+        self.ny, self.nx = base.ny, base.nx
+        self.noisy = base.physics == "expansion"
+        self.steps_taken = base.steps_taken
+        F = base.num_fields
+        H, W = _shard_shape(self.mesh, self.ny, self.nx)
+        K = self.steps_per_call = _steps_per_sweep(
+            k_steps or base.temporal_k, self.mesh, H, W, multifield_max_k(F))
+        kw = self.step_kwargs = base.step_kwargs()
+        self.physics = "multifield_" + kw.pop("physics")
+
+        def run_shard(pos, halo, out, k):
+            temporal_halo_step(halo, out, k, self.physics, step0=self._step0,
+                               **kw)
+
+        self._base_shape = tuple(base.state.shape)
+        self._place(_split(self.mesh, base.state.reshape(9 * F, self.ny,
+                                                         self.nx), H, W),
+                    K, _halo_sweep(self.mesh, run_shard))
+        base.state = None  # the shards hold it now
+
+
+class ShardedCoupled:
+    """Not ported yet: the coupled families over a mesh
+    (``sharded.py:630-853``) need K6/K7 on halo-extended shards and a
+    sharded screened solve, ROADMAP queue 1 item 2 (``parallel/``, part
+    2)."""
+
+    def __init__(self, base, mesh: Mesh | None = None,
+                 k_steps: int | None = None):
+        raise NotImplementedError(
+            "ShardedCoupled comes with ROADMAP queue 1 item 2 (parallel/, "
+            "part 2)")
+
+
+def _split(mesh: Mesh, f: torch.Tensor, H: int, W: int) -> dict:
+    """This process's shards of a global ``[P, ny, nx]`` tensor, each a
+    contiguous copy on its mesh device."""
+    return {pos: f[:, pos[0] * H:(pos[0] + 1) * H,
+                   pos[1] * W:(pos[1] + 1) * W].to(
+                       mesh.device(pos), copy=True).contiguous()
+            for pos in mesh.local_positions()}

@@ -344,7 +344,10 @@ def test_backends_on_the_cpu():
     with pytest.raises(ValueError, match="needs a CUDA device"):
         torch_models.RocketYeast(device="cpu", backend="kernel", **kw)
     with pytest.raises(ValueError, match="unknown backend"):
-        torch_models.RocketYeast(device="cpu", backend="xla", **kw)
+        torch_models.RocketYeast(device="cpu", backend="pallas", **kw)
+    # JAX's name of the plain path
+    assert torch_models.RocketYeast(device="cpu", backend="xla",
+                                    **kw).backend == "eager"
     with pytest.raises(ValueError, match="unknown method"):
         torch_models.ScreenedFisherWave(N=8, device="cpu", method="dft")
     with pytest.raises(ValueError, match="stale_velocity"):

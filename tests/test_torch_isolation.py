@@ -46,5 +46,11 @@ def test_port_and_chip_smoke_import_no_jax_package():
                  "lb2d_tpu_torch.ops.fused_coupled",
                  "lb2d_tpu_torch.models.spectral",
                  "lb2d_tpu_torch.models.surfactant",
-                 "lb2d_tpu_torch.models.rocket_yeast"):
+                 "lb2d_tpu_torch.models.rocket_yeast",
+                 "lb2d_tpu_torch.ops.fused_halo",
+                 "lb2d_tpu_torch.halo_cases",
+                 "lb2d_tpu_torch.parallel",
+                 "lb2d_tpu_torch.parallel.halo",
+                 "lb2d_tpu_torch.parallel.distributed",
+                 "lb2d_tpu_torch.parallel.sharded"):
         assert name in imported, imported

@@ -20,7 +20,10 @@ version at 1e-5 of max |g| (two FFTs in float32, the kernel's sums in
 another order), at any grid; its 1-D pass to ``torch.fft.fft`` at 1e-6 of
 the scale. K7, the coupled families' step, is held to its plain steps at
 1e-6 after 5 steps (FMA contraction), and BASELINE config 5 through K6 +
-K8 to the eager runner.
+K8 to the eager runner. K9, the step of one shard from its halos, is held
+to its plain twin at 1e-6 for the flow physics and at 0 for the diffusion
+and multifield physics, on shards of an unaligned grid, and the sharded
+models to the unsharded K2 / K4 runs (1e-6 for flow, 0 for the rest).
 """
 
 import numpy as np
@@ -28,6 +31,15 @@ import pytest
 import torch
 
 from lb2d_tpu_torch.core import D2Q9, D2Q25
+from lb2d_tpu_torch.halo_cases import (
+    HALO_CASES,
+    HALO_MESHES,
+    compare_halo_case,
+    halo_case_ks,
+    halo_case_state,
+    halo_tolerance,
+    shard_cuts,
+)
 from lb2d_tpu_torch.mc_cases import MC_CASES, mc_case
 from lb2d_tpu_torch.models import (
     ClumpySurfactantNutrientWave,
@@ -70,6 +82,7 @@ from lb2d_tpu_torch.ops.fused_coupled import (
     coupled_step,
     coupled_step_reference,
 )
+from lb2d_tpu_torch.ops.fused_halo import temporal_halo_step
 from lb2d_tpu_torch.ops.fused_mc import mc_density, mc_step, mc_step_reference
 from lb2d_tpu_torch.ops.spectral import (
     SOLVE_LAUNCHES,
@@ -83,6 +96,12 @@ from lb2d_tpu_torch.ops.random import (
     normals_reference,
     philox4x32_10,
     philox_bits,
+)
+from lb2d_tpu_torch.parallel import (
+    ShardedDiffusion,
+    ShardedMultifield,
+    ShardedPipeFlow,
+    make_mesh,
 )
 
 pytestmark = pytest.mark.cuda
@@ -712,3 +731,91 @@ def test_config5_kernel_matches_eager(cuda, stale):
                 9, SOLVE_LAUNCHES * solves)
     d = float((sim.f - eager.f).abs().max())
     assert d <= TOL, d
+
+
+# K9, the sharded step
+@pytest.mark.parametrize("mesh", HALO_MESHES,
+                         ids=[f"{my}x{mx}" for my, mx in HALO_MESHES])
+@pytest.mark.parametrize("case", list(HALO_CASES))
+def test_halo_kernel_matches_twin(cuda, case, mesh):
+    """K9 on each shard of a 254x382 random state (shards of unequal edges,
+    with and without x strips) at K = 1, 2, 3 and the physics' K, from a
+    global step whose sweep crosses the noise counter's high word."""
+    physics = HALO_CASES[case][0]
+    f, mask = halo_case_state(case, 254, 382, cuda)
+    cuts = shard_cuts(254, 382, *mesh)
+    before = temporal_halo_step.launches
+    for k in halo_case_ks(case):
+        d = compare_halo_case(case, f, mask, cuts, k, step0=2**32 - 3)
+        assert d <= halo_tolerance(physics), (k, d)
+    torch.cuda.synchronize()
+    assert temporal_halo_step.launches == before + len(
+        halo_case_ks(case)) * len(cuts)
+
+
+PIPE_64x132 = dict(N=63, pipe_length=1.5 * 130.5 / 63, diameter=1.5,
+                   rho=10.0, viscosity=5.0, pressure_grad=-100.0)
+
+
+@pytest.mark.parametrize("obstacle", [False, True], ids=["open", "obstacle"])
+@pytest.mark.parametrize("mesh", HALO_MESHES,
+                         ids=[f"{my}x{mx}" for my, mx in HALO_MESHES])
+def test_sharded_pipe_flow_matches_unsharded_kernel(cuda, mesh, obstacle):
+    """ShardedPipeFlow (four shards on one card, ``auto``: K9) against
+    PipeFlow through K2, from the same bits, over 10 steps: three sweeps
+    and a remainder sweep of one step."""
+    kw = dict(PIPE_64x132)
+    if obstacle:
+        m = np.zeros((64, 132), np.int32)
+        m[20:40, 30:50] = 1
+        kw["obstacle_mask"] = m
+    single = PipeFlow(device=cuda, backend="temporal", **kw)
+    sh = ShardedPipeFlow(mesh=make_mesh(devices=[cuda] * 4, shape=mesh),
+                         **kw)
+    assert sh.backend == "temporal" and sh.steps_per_call == 3
+    assert np.array_equal(sh.state_numpy(), single.state_numpy())
+    before = temporal_halo_step.launches
+    single.run(10)
+    sh.run(10)
+    torch.cuda.synchronize()
+    assert temporal_halo_step.launches == before + 4 * 4
+    d = float(np.abs(sh.state_numpy() - single.state_numpy()).max())
+    assert d <= TOL, d
+
+
+DIFFUSION_132 = dict(N=130, z=0.1, D=0.005, vx=1.0, vy=0.5, vc=1.0,
+                     Lx=0.101, Ly=0.101, g=1.0)
+MULTIFIELD_132 = dict(Lx=2.05, Ly=2.05, mu_standard=1.0, mu_list=[1.0, 0.8],
+                      D_standard=1.0, D_list=[1.0, 1.0], N=130)
+
+
+def _sharded_runs():
+    from lb2d_tpu_torch.models import ReactionAdvectionDiffusionStochastic
+    return {
+        "diffusion": (ReactionAdvectionDiffusion, DIFFUSION_132,
+                      ShardedDiffusion),
+        "noisy_fisher": (ReactionAdvectionDiffusionStochastic,
+                         dict(DIFFUSION_132, Dg=0.2), ShardedDiffusion),
+        "fisher": (FisherExpansion, dict(
+            MULTIFIELD_132, initial_frac_widths=[0.5, 0.5],
+            initial_frac_indices=[0, 1]), ShardedMultifield),
+        "expansion": (Expansion, MULTIFIELD_132, ShardedMultifield),
+    }
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (4, 1)], ids=["2x2", "4x1"])
+@pytest.mark.parametrize("name", ["diffusion", "noisy_fisher", "fisher",
+                                  "expansion"])
+def test_sharded_models_equal_unsharded_kernels(cuda, name, mesh):
+    """The sharded diffusion and multifield models (K9 on four shards of
+    one card) equal the unsharded K2 / K4 runs bit for bit, noise included,
+    over two sweeps and a shorter one."""
+    cls, kw, sharded = _sharded_runs()[name]
+    single = cls(device=cuda, backend="temporal", **kw)
+    sh = sharded(cls(device=cuda, **kw),
+                 mesh=make_mesh(devices=[cuda] * 4, shape=mesh))
+    n = 2 * sh.steps_per_call + 1
+    single.run(n)
+    sh.run(n)
+    want = single.state_numpy().reshape(sh.state_numpy().shape)
+    assert np.array_equal(sh.state_numpy(), want)

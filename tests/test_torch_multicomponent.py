@@ -321,14 +321,15 @@ def test_d2q25_runner():
 
 def test_screened_poisson_and_shard_over_name_their_roadmap_item():
     """``add_screened_poisson_force`` is ported (it registers a hook and
-    checks its precision); ``shard_over`` still raises, naming item 9."""
+    checks its precision); ``shard_over`` still raises, naming queue 1
+    item 2."""
     sim = build(torch_mc, "c", 32, 32)
     sim.add_screened_poisson_force(0, 1, interaction_length=4.0,
                                    amplitude=0.02, precision="bf16x3")
     assert sim.config().screened == (("screened", 1, 0, 0, 16.0, 0.02),)
     with pytest.raises(ValueError, match="precision"):
         sim.add_screened_poisson_force(0, 1, 4.0, 0.02, precision="bf16")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
         sim.shard_over(None)
 
 
@@ -336,7 +337,11 @@ def test_kernel_backend_on_the_cpu_raises():
     with pytest.raises(ValueError, match="needs a CUDA device"):
         torch_mc.SimulationRunner(nx=16, ny=16, device="cpu", backend="kernel")
     with pytest.raises(ValueError, match="unknown backend"):
-        torch_mc.SimulationRunner(nx=16, ny=16, device="cpu", backend="xla")
+        torch_mc.SimulationRunner(nx=16, ny=16, device="cpu",
+                                  backend="pallas")
+    # JAX's name of the plain path
+    assert torch_mc.SimulationRunner(nx=16, ny=16, device="cpu",
+                                     backend="xla").backend == "eager"
     assert torch_mc.SimulationRunner(nx=16, ny=16,
                                      device="cpu").backend == "eager"
 
