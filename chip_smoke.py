@@ -43,7 +43,18 @@ set to 0 just before it and read just after:
   multifield models against their unsharded K2 / K4 runs, all bit for bit
   but flow; then the 8192^2 ``run(100)`` on 4x1 in its own counted window
   beside the unsharded K2 run and the halo exchange's share, and the other
-  sharded models' shorter runs in theirs.
+  sharded models' shorter runs in theirs;
+* the sharded runner and coupled families (K6h, ``mc_density_halo`` +
+  ``mc_step_halo``, and K7h, ``coupled_step_halo``): BASELINE config 5 at
+  8192^2 ``shard_over`` 4x1 shards of one card (``benchmarks/run_all.py``'s
+  ``bench_porous_poisson_8192`` and its ``stale_force=8`` variant), held to
+  the unsharded K6 + K8 run and timed beside it in counted windows, with
+  the halo exchange's and the density sharing's ms per step; K6h against K6
+  and its twins on 2x2 shards of the 1024^2 spinodal, a D2Q25 and a
+  zero-gradient runner; ``ShardedCoupled`` over each coupled model at
+  ``zoo_drive.py``'s sizes, K7h held to K7 and its twin, ``run(64)`` each
+  in its own window; and P2 (``transpose``) at the probe's [4224, 8192],
+  equal to ``x.t().contiguous()`` and timed beside it.
 
 It checks the physics (Poiseuille profile through each flow backend,
 cylinder mass, Gaussian spreading, advection, mass, noise amplitude and
@@ -71,7 +82,9 @@ from lb2d_tpu_torch.core import D2Q9, D2Q25
 from lb2d_tpu_torch.halo_cases import (
     HALO_CASES,
     HALO_MESHES,
+    compare_coupled_halo,
     compare_halo_case,
+    compare_mc_halo,
     halo_case_ks,
     halo_case_state,
     halo_tolerance,
@@ -128,8 +141,11 @@ from lb2d_tpu_torch.ops.fused import (
 )
 from lb2d_tpu_torch.ops.fused_coupled import (
     coupled_density,
+    coupled_density_halo,
     coupled_params,
     coupled_step,
+    coupled_step_halo,
+    coupled_step_halo_reference,
     coupled_step_reference,
 )
 from lb2d_tpu_torch.ops.fused_halo import (
@@ -139,10 +155,15 @@ from lb2d_tpu_torch.ops.fused_halo import (
 )
 from lb2d_tpu_torch.ops.fused_mc import (
     mc_density,
+    mc_density_halo,
+    mc_density_halo_reference,
     mc_density_reference,
     mc_params,
     mc_step,
+    mc_step_halo,
+    mc_step_halo_reference,
     mc_step_reference,
+    shard_cells,
 )
 from lb2d_tpu_torch.ops.moments import density
 from lb2d_tpu_torch.ops.spectral import (
@@ -161,13 +182,19 @@ from lb2d_tpu_torch.ops.random import (
     philox_bits,
     philox_key,
 )
+from lb2d_tpu_torch.ops.transpose import transpose, transpose_reference
 from lb2d_tpu_torch.parallel import (
+    ShardedCoupled,
     ShardedDiffusion,
     ShardedMultifield,
     ShardedPipeFlow,
     make_mesh,
 )
-from lb2d_tpu_torch.parallel.halo import exchange_halos
+from lb2d_tpu_torch.parallel.halo import (
+    exchange_bands,
+    exchange_halos,
+    gather_bands,
+)
 
 BENCH_PHYS = dict(diameter=1.0, rho=1.0, viscosity=0.1, pressure_grad=-0.01,
                   pipe_length=1.0)   # bench.py's workload, N=4095 -> 4096^2
@@ -494,7 +521,9 @@ COUNTERS = {"K1": pipe_step, "K2": temporal_pipe_step,
             "philox_bits": philox_bits, "K4": temporal_multifield_step,
             "K5": expansion_band_step, "K6d": mc_density, "K6s": mc_step,
             "K7": coupled_step, "K8": screened_gradients,
-            "K8 pass": dft_axis0, "K9": temporal_halo_step}
+            "K8 pass": dft_axis0, "K9": temporal_halo_step,
+            "K6hd": mc_density_halo, "K6hs": mc_step_halo,
+            "K7h": coupled_step_halo, "P2": transpose}
 
 
 def _window(label, drive, expected):
@@ -2118,7 +2147,10 @@ def sharded_models_phase(card, worst):
 
 def multi_card_phase():
     """With more than one card: the 2x2 ShardedPipeFlow over distinct cards
-    (peer copies between them) against the unsharded K2 run."""
+    (peer copies between them) against the unsharded K2 run, and config 5
+    at 1024^2 ``shard_over`` those cards (the density belt exchanged and
+    the screened source plane gathered across them, K8 on each) against
+    the unsharded runner."""
     n = torch.cuda.device_count()
     if n < 2:
         print("more than one card: not run (this machine has one card)",
@@ -2135,6 +2167,313 @@ def multi_card_phase():
           f"PipeFlow (K2), 10 steps: max|df| = {d:.3e}", flush=True)
     if not d <= KERNEL_TOL:
         raise RuntimeError(f"multi-card ShardedPipeFlow disagrees: {d}")
+    single = _porous_runner(1024, screened=True)
+    sh = _porous_runner(1024, screened=True).shard_over(
+        make_mesh(devices=devices, shape=(2, 2)))
+    single.run(5)
+    sh.run(5)
+    d = float(np.abs(sh.state_numpy() - single.state_numpy()).max())
+    print(f"config 5 {sh.ny}x{sh.nx} shard_over 2x2 over {devices} vs the "
+          f"unsharded runner, 5 steps: max|df| = {d:.3e}", flush=True)
+    if not d <= KERNEL_TOL:
+        raise RuntimeError(f"multi-card sharded config 5 disagrees: {d}")
+
+
+# -- the sharded runner and coupled families: K6h, K7h; and P2 -------------
+
+SHARDED_C5_STEPS = 10        # config 5 shard_over 4x1: run(10) after warming
+SHARDED_C5_STALE_STEPS = 16  # its stale_force=8 variant: two sweeps
+SHARDED_C5_CHECKS = {None: 3, C5_STALE: C5_STALE + 1}  # steps held to K6
+SHARDED_COUPLED_STEPS = 64   # each sharded coupled model's counted run
+HALO_CHECK_STEPS = 5         # K6h / K7h against K6 / K7 and the twins
+P2_SHAPE = (4224, 8192)      # benchmarks/probe_transpose.py's default A
+P2_LAUNCHES = 10             # its counted window
+
+
+def _runner_diff(sh, single):
+    """max |df| between a sharded runner's shards and the unsharded
+    runner's state, shard by shard."""
+    return _shards_diff(sh._sharded, single.f.view(-1, single.ny, single.nx))
+
+
+def _halo_row(kernel_ms, plain_ms, launches, err, shape, n_bytes, n_ops):
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    return dict(ms=kernel_ms, plain_ms=plain_ms, launches=launches, err=err,
+                shape=shape, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def sharded_config5_phase(card, k8_ms):
+    """BASELINE config 5 at 8192^2 ``shard_over`` a 4x1 mesh of one card
+    (``benchmarks/run_all.py:113-150``), exact and ``stale_force=8``: each
+    held to the unsharded K6 + K8 runner over a few steps, then
+    ``run(SHARDED_C5_STEPS)`` (or 16) in its own counted window beside the
+    unsharded run of the same steps, held to it again; the halo exchange's
+    and the density sharing's (belt and source-plane gather) ms per step and
+    K8's share of a step. Then K6h at the
+    first main-path shard against its twins and timed. Returns MLUPS,
+    launches and the K6h row information."""
+    out = {}
+    for stale, steps in ((None, SHARDED_C5_STEPS),
+                         (C5_STALE, SHARDED_C5_STALE_STEPS)):
+        label = f"config 5 8192^2 stale_force={stale}" if stale else (
+            "config 5 8192^2")
+        single = _porous_runner(8192, screened=True, stale_force=stale)
+        sh = _porous_runner(8192, screened=True,
+                            stale_force=stale).shard_over(_cuda_mesh((4, 1)))
+        n = SHARDED_C5_CHECKS[stale]
+        single.run(n)
+        sh.run(n)
+        d = _checked(f"{label} shard_over 4x1 (K6h) vs unsharded (K6), {n} "
+                     "steps", _runner_diff(sh, single))
+        solves = steps // stale + steps % stale if stale else steps
+        counts = _window(f"SimulationRunner {label} shard_over 4x1",
+                         lambda: sh.run(steps, timed=True),
+                         {"K6hd": 4 * steps, "K6hs": 4 * steps,
+                          "K8": SOLVE_LAUNCHES * solves})
+        _window(f"SimulationRunner {label} unsharded",
+                lambda: single.run(steps, timed=True),
+                {"K6d": steps, "K6s": steps, "K8": SOLVE_LAUNCHES * solves})
+        d = max(d, _checked(f"{label} shard_over 4x1 vs unsharded after "
+                            f"{n + steps} steps", _runner_diff(sh, single)))
+        runner = sh._sharded
+        H, W = runner._H, runner._W
+        exchange_ms = _events_ms(lambda: exchange_halos(runner.mesh,
+                                                        runner.halos), 20)
+
+        def share():  # the density belt of every step, the solve's plane
+            exchange_bands(runner.mesh, runner._rho, H, W, runner._belt)
+            gather_bands(runner.mesh, runner._rho, H, W,
+                         runner._solve_planes)
+
+        gather_ms = _events_ms(share, 20)
+        step_ms = sh.num_cells / (sh.last_mlups * 1e6) * 1e3
+        print(f"main path SimulationRunner {label} shard_over 4x1 shards of "
+              f"one card: {sh.last_mlups:.1f} MLUPS over {steps} steps "
+              f"({step_ms:.4f} ms per step), launches {counts['K6hd']} "
+              f"mc_density halo + {counts['K6hs']} mc_step halo + "
+              f"{counts['K8']} K8; unsharded {single.last_mlups:.1f} MLUPS; "
+              f"halo exchange {exchange_ms:.4f} ms per step, density belt "
+              f"+ source-plane gather {gather_ms:.4f} ms per step (one "
+              "card: nothing moves), K8 "
+              f"{k8_ms:.4f} ms per solve, "
+              f"{solves / steps * k8_ms / step_ms:.3f} of a step (CUDA "
+              f"events); card: {card}", flush=True)
+        if not all(torch.isfinite(t).all() for t in runner.state):
+            raise RuntimeError(f"{label} sharded: non-finite state")
+        out[stale] = dict(mlups=sh.last_mlups, single=single.last_mlups,
+                          launches=counts, err=d, exchange_ms=exchange_ms,
+                          gather_ms=gather_ms)
+        if stale is None:
+            out["rows"] = _k6h_rows(sh, counts, d)
+        del single, sh, runner
+        torch.cuda.empty_cache()
+    return out
+
+
+def _k6h_rows(sh, counts, err):
+    """K6h's two kernels at the main path's first shard (2048 x 8192, C =
+    2), against their twins and timed beside them (CUDA events)."""
+    runner = sh._sharded
+    cfg, ext, params = sh._plan
+    lat = sh.lattice
+    exchange_halos(runner.mesh, runner.halos)
+    halo = runner.halos[(0, 0)]
+    rho = runner._rho[runner.mesh.device((0, 0))]
+    ext = runner._ext[runner.mesh.device((0, 0))]
+    for h in runner.halos.values():
+        mc_density_halo(h, rho, cfg, lat)
+    out = torch.empty_like(halo.f)
+    rows, cols = shard_cells(halo)
+    d_rho = _max_diff(rho[:, rows, cols],
+                      mc_density_halo_reference(halo, cfg, lat))
+    mc_step_halo(halo, out, rho, ext, cfg, lat, params)
+    d_step = _max_diff(out, mc_step_halo_reference(halo, rho, ext, cfg, lat))
+    print(f"K6h at the main-path 2048x8192 shard vs its twins: mc_density "
+          f"max|drho| = {d_rho:.3e}, mc_step max|df| = {d_step:.3e}",
+          flush=True)
+    if not max(d_rho, d_step) <= KERNEL_TOL:
+        raise RuntimeError(f"K6h disagrees with its twins: {d_rho}, {d_step}")
+    P, H, W = halo.f.shape
+    C = sh.num_populations
+    cells, halo_cells = H * W, 2 * halo.width * W
+    times = {
+        "K6hd": _events_ms(lambda: mc_density_halo(halo, rho, cfg, lat), 20),
+        "K6hs": _events_ms(lambda: mc_step_halo(halo, out, rho, ext, cfg, lat,
+                                                params), 20),
+        "plain K6hd": _events_ms(
+            lambda: mc_density_halo_reference(halo, cfg, lat), 2),
+        "plain K6hs": _events_ms(
+            lambda: mc_step_halo_reference(halo, rho, ext, cfg, lat), 2)}
+    print(f"K6h at a {H}x{W} shard (C={C}): mc_density halo "
+          f"{times['K6hd']:.4f} ms, mc_step halo {times['K6hs']:.4f} ms per "
+          f"launch; plain twins {times['plain K6hd']:.4f} / "
+          f"{times['plain K6hs']:.4f} ms (CUDA events)", flush=True)
+    f_bytes = 4 * P * (cells + halo_cells)  # the shard and its halo, read
+    return {
+        "K6hd": _halo_row(times["K6hd"], times["plain K6hd"], counts["K6hd"],
+                          max(err, d_rho), [P, H, W],
+                          f_bytes + 4 * C * cells, cells * 2 * 9),
+        "K6hs": _halo_row(times["K6hs"], times["plain K6hs"], counts["K6hs"],
+                          max(err, d_step), [P, H, W],
+                          f_bytes + 4 * P * cells + 4 * C * cells
+                          + 4 * ext.shape[0] * cells, cells * _mc_ops(sh))}
+
+
+def mc_halo_phase():
+    """K6h against K6 on the whole grid and against its plain twins on 2x2
+    shards of one card: the 1024^2 spinodal, a 1024^2 D2Q25 runner and a
+    1024^2 zero-gradient runner (configuration (e): clamped interaction,
+    radial g force), 5 steps each. Returns max |d|."""
+    cuts = shard_cuts(1024, 1024, 2, 2)
+    worst = 0.0
+    for label, sim in (
+            ("spinodal", _spinodal_runner(1024)),
+            ("Shan-Chen D2Q25", _spinodal_runner(1024, D2Q25,
+                                                 potential="shan_chen",
+                                                 params=[1.0])),
+            ("zero-gradient (e)", mc_case("e", 1024, 1024, device="cuda"))):
+        d_k6, d_twin, d_rho = compare_mc_halo(
+            sim.f, sim.config(), sim.lattice, sim.ext_planes(), cuts,
+            HALO_CHECK_STEPS)
+        print(f"K6h {label} 1024^2 {sim.lattice.name} on 2x2 shards, "
+              f"{HALO_CHECK_STEPS} steps: max|df| vs K6 {d_k6:.3e}, vs the "
+              f"twins {d_twin:.3e}, max|drho| vs K6 {d_rho:.3e} (limit "
+              f"{KERNEL_TOL:g})", flush=True)
+        if not max(d_k6, d_twin, d_rho) <= KERNEL_TOL:
+            raise RuntimeError(f"K6h {label} disagrees: {d_k6}, {d_twin}, "
+                               f"{d_rho}")
+        worst = max(worst, d_k6, d_twin, d_rho)
+        del sim
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _sharded_coupled_models():
+    """The sharded coupled runs: (label, model class, arguments, mesh)."""
+    return (
+        ("rocket_yeast 4x1", RocketYeast, ROCKET, (4, 1)),
+        ("rocket_yeast 2x2", RocketYeast, ROCKET, (2, 2)),
+        ("rocket_yeast_forces_only 2x2", RocketYeastForcesOnly,
+         ROCKET_FORCES, (2, 2)),
+        ("screened_fisher 2x2", ScreenedFisherWave, SCREENED_FISHER, (2, 2)),
+        ("screened_fisher stale8 2x2", ScreenedFisherWave,
+         dict(SCREENED_FISHER, stale_velocity=C5_STALE), (2, 2)),
+        ("surfactant 2x2", SurfactantNutrientWave, SURFACTANT, (2, 2)),
+        ("clumpy_surfactant 2x2", ClumpySurfactantNutrientWave, CLUMPY,
+         (2, 2)))
+
+
+def sharded_coupled_phase(card):
+    """ShardedCoupled at the coupled models' sizes (``zoo_drive.py``): K7h
+    against the unsharded K7 and its twin from each model's state (its
+    velocity held), 5 steps, on the run's mesh; then ``run(64,
+    timed=True)`` in its own counted window. Returns per physics the K7h
+    row information (timed at a shard of its first run)."""
+    rows = {}
+    for label, cls, kw, mesh in _sharded_coupled_models():
+        sim = cls(device="cuda", **kw)
+        cfg = sim.coupled_config()
+        f, rho, ext = _k7_inputs(sim)
+        cuts = shard_cuts(sim.ny, sim.nx, *mesh)
+        d_k7, d_twin = compare_coupled_halo(f, cfg, ext, cuts,
+                                            HALO_CHECK_STEPS)
+        print(f"K7h {label} {sim.ny}x{sim.nx}, {HALO_CHECK_STEPS} steps: "
+              f"max|df| vs K7 {d_k7:.3e}, vs the twin {d_twin:.3e} (limit "
+              f"{KERNEL_TOL:g})", flush=True)
+        if not max(d_k7, d_twin) <= KERNEL_TOL:
+            raise RuntimeError(f"K7h {label} disagrees: {d_k7}, {d_twin}")
+        sh = ShardedCoupled(sim, mesh=_cuda_mesh(mesh))
+        K = sh.steps_per_call
+        sh.run(K)  # warm
+        sweeps = SHARDED_COUPLED_STEPS // K
+        expected = {"K7h": 4 * SHARDED_COUPLED_STEPS}
+        expected["K6hd"] = 4 * (SHARDED_COUPLED_STEPS if cfg.reads_neighbours
+                                or K == 1 else sweeps)
+        if sim._velocity is not None:
+            expected["K8"] = SOLVE_LAUNCHES * sweeps
+        counts = _window(f"ShardedCoupled({cls.__name__}) {sim.ny}x{sim.nx} "
+                         f"({label})",
+                         lambda: sh.run(SHARDED_COUPLED_STEPS, timed=True),
+                         expected)
+        if not all(torch.isfinite(t).all() for t in sh.state):
+            raise RuntimeError(f"{label}: non-finite state")
+        print(f"main path ShardedCoupled({cls.__name__}) {sim.ny}x{sim.nx} "
+              f"({label}) on shards of one card: {sh.last_mlups:.1f} MLUPS "
+              f"over {SHARDED_COUPLED_STEPS} steps, launches "
+              f"{ {k: v for k, v in counts.items() if v} }; card: {card}",
+              flush=True)
+        physics = cfg.physics
+        if physics not in rows:
+            rows[physics] = _k7h_row(sh, cfg, counts["K7h"],
+                                     max(d_k7, d_twin))
+        else:
+            rows[physics]["err"] = max(rows[physics]["err"], d_k7, d_twin)
+        del sim, sh
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _k7h_row(sh, cfg, launches, err):
+    """K7h at a sharded model's first shard against its twin, timed beside
+    it (CUDA events)."""
+    exchange_halos(sh.mesh, sh.halos)
+    dev = sh.mesh.device((0, 0))
+    rho, ext = sh._rho.get(dev), sh._ext.get(dev)
+    if rho is not None:
+        for h in sh.halos.values():
+            coupled_density_halo(h, rho)
+    if ext is not None:
+        sh.base._velocity.planes(rho[0], out=ext)
+    halo = sh.halos[(0, 0)]
+    out = torch.empty_like(halo.f)
+    prm = coupled_params(cfg)
+    coupled_step_halo(halo, out, rho, ext, cfg, prm)
+    d = _max_diff(out, coupled_step_halo_reference(halo, rho, ext, cfg))
+    if not d <= KERNEL_TOL:
+        raise RuntimeError(f"K7h {cfg.physics} at a shard: {d}")
+    ms = _events_ms(lambda: coupled_step_halo(halo, out, rho, ext, cfg, prm),
+                    100)
+    plain_ms = _events_ms(
+        lambda: coupled_step_halo_reference(halo, rho, ext, cfg), 5)
+    P, H, W = halo.f.shape
+    F, cells = cfg.fields, H * W
+    print(f"K7h {cfg.physics} at a {H}x{W} shard: {ms:.4f} ms per launch; "
+          f"plain twin {plain_ms:.4f} ms (CUDA events)", flush=True)
+    hk = halo.width
+    halo_cells = 2 * hk * W + (0 if halo.left is None
+                               else 2 * (H + 2 * hk) * hk)
+    n_bytes = (4 * P * (2 * cells + halo_cells)
+               + (4 * F * cells if cfg.reads_neighbours else 0)
+               + (8 * cells if cfg.reads_ext else 0))
+    return _halo_row(ms, plain_ms, launches, max(err, d), [P, H, W], n_bytes,
+                     cells * COUPLED_OPS[cfg.physics])
+
+
+def transpose_phase(card):
+    """P2 at the probe's default ``[4224, 8192]``: equal to
+    ``x.t().contiguous()`` bit for bit, timed beside it (the plain version
+    and the library call are the same call), launched ``P2_LAUNCHES`` times
+    in its own counted window."""
+    x = torch.randn(P2_SHAPE, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    out = torch.empty(P2_SHAPE[::-1], device="cuda")
+    counts = _window(f"P2 transpose {P2_SHAPE}",
+                     lambda: [transpose(x, out) for _ in range(P2_LAUNCHES)],
+                     {"P2": P2_LAUNCHES})
+    d = _max_diff(out, transpose_reference(x))
+    if d != 0.0:
+        raise RuntimeError(f"P2 differs from x.t().contiguous(): {d}")
+    ms = _events_ms(lambda: transpose(x, out), 50)
+    library_ms = _events_ms(lambda: transpose_reference(x), 50)
+    n_bytes = 8 * x.numel()
+    bound_ms, bound_by = _bound(n_bytes, 0)
+    print(f"P2 transpose {list(P2_SHAPE)} -> {list(P2_SHAPE[::-1])}: "
+          f"{ms:.4f} ms per launch ({n_bytes / ms / 1e6:.1f} GB/s), "
+          f"x.t().contiguous() {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); equal bit for bit (CUDA events); card: {card}",
+          flush=True)
+    return dict(ms=ms, plain_ms=library_ms, launches=counts["P2"], err=d,
+                shape=list(P2_SHAPE), bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _field_masses(sim):
@@ -2255,6 +2594,10 @@ def main():
     del single, sharded
     torch.cuda.empty_cache()
     k9.update(sharded_models_phase(card, k9_err))
+    c5_sharded = sharded_config5_phase(card, k8_times["K8 8192"])
+    k6h_err = mc_halo_phase()
+    k7h = sharded_coupled_phase(card)
+    p2 = transpose_phase(card)
     multi_card_phase()
     k2, k3 = "lb2d_tpu/ops/fused.py:888", "lb2d_tpu/ops/fused.py:1193"
     kernels = {  # key: (wrapper, source, TPU kernel, model, ops per cell)
@@ -2381,6 +2724,32 @@ def main():
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes the same
             "steps_per_launch": info["k"], "shape": info["shape"]})
+    halo_rows = [("mc_density halo", "mc_step.cu", f"{k6}", dict(
+        c5_sharded["rows"]["K6hd"], err=max(
+            c5_sharded["rows"]["K6hd"]["err"], k6h_err))),
+                 ("mc_step halo", "mc_step.cu", f"{k6}", dict(
+                     c5_sharded["rows"]["K6hs"], err=max(
+                         c5_sharded["rows"]["K6hs"]["err"], k6h_err)))]
+    for physics, tpu in (("rocket_yeast", f"{k7}:105"),
+                         ("rocket_yeast_forces_only", f"{k7}:105"),
+                         ("screened_fisher", f"{k7}:202"),
+                         ("surfactant", f"{k7}:251"),
+                         ("clumpy_surfactant", f"{k7}:251")):
+        halo_rows.append((f"coupled_step halo ({physics})",
+                          "coupled_step.cu", tpu, k7h[physics]))
+    halo_rows.append(("transpose", "transpose.cu",
+                      "benchmarks/probe_transpose.py:28", p2))
+    for name, src, tpu, info in halo_rows:
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"lb2d_tpu_torch/csrc/{src}", "replaces": tpu,
+            "launches": info["launches"], "max_abs_err": info["err"],
+            "ms": info["ms"], "plain_ms": info["plain_ms"],
+            "bound_ms": info["bound_ms"], "bound_by": info["bound_by"],
+            # P2: x.t().contiguous(), which is its plain version too; no
+            # single PyTorch call computes a shard's LB step
+            "library_ms": info["plain_ms"] if name == "transpose" else None,
+            "steps_per_launch": 1, "shape": info["shape"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -61,7 +61,7 @@ __device__ __forceinline__ void belt1_sums(const float* __restrict__ plane,
   for (int j = 1; j < 9; ++j) {
     const int cx = dir_cx<9>(j), cy = dir_cy<9>(j);
     const float v =
-        value(plane[(size_t)wrap(y + cy, ny) * nx + wrap(x + cx, nx)]);
+        value(plane[(size_t)wrap1(y + cy, ny) * nx + wrap1(x + cx, nx)]);
     if (cx != 0) sx += (w9(j) * (float)cx) * v;
     if (cy != 0) sy += (w9(j) * (float)cy) * v;
   }

@@ -16,12 +16,22 @@
 // CUDA ops call them.
 // With the reciprocals and nvcc's FMA contraction, results differ from the
 // plain step by a few ulp.
+//
+// A launch covers the whole periodic grid (K6, K7: the populations f, read
+// through the grid's wrap) or one shard of a domain-decomposed grid (K6h,
+// K7h: a HaloSource, region_source.cuh, whose halo is at least the
+// lattice's reach). Either way a cell's post-stream density, its
+// neighbours' densities and its ext planes are read at its global
+// coordinates from whole-grid planes, so a shard's cells go through the
+// same per-cell code, on the same values, as the unsharded launch's.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "region_source.cuh"
 
 constexpr int kMcMaxFluids = 4;
 constexpr int kMcMaxHooks = 16;
@@ -137,7 +147,7 @@ __constant__ float kBeltW[kMcBeltTerms] = {
     (float)(1.0 / 15120.0)};
 
 // v mod n for v in [-n, 2n)
-__device__ __forceinline__ int wrap(int v, int n) {
+__device__ __forceinline__ int wrap1(int v, int n) {
   return v < 0 ? v + n : (v >= n ? v - n : v);
 }
 
@@ -161,11 +171,81 @@ __device__ __forceinline__ void pull_fluid(const float* __restrict__ f, int i,
   const size_t plane = (size_t)ny * nx;
 #pragma unroll
   for (int j = 0; j < Q; ++j) {
-    const int r = wrap(y - dir_cy<Q>(j), ny);
-    const int c = wrap(x - dir_cx<Q>(j), nx);
+    const int r = wrap1(y - dir_cy<Q>(j), ny);
+    const int c = wrap1(x - dir_cx<Q>(j), nx);
     s[j] = f[(size_t)(j * C + i) * plane + (size_t)r * nx + c];
   }
 }
+
+// The same pull for cell (y, x) of a shard (global cell (d.y0 + y, d.x0 +
+// x)): a zero-gradient fluid's clamp by global coordinates, as a shift of
+// the local cell toward the grid's interior, then the Q reads, which stay
+// within the lattice's reach of the shard (a shard on the grid's edge
+// receives the opposite shard's rows, which are what the wrap reads). A
+// cell whose stencil lies in the shard itself, nearly every one, reads it
+// directly; the others go through the halo source's pieces.
+template <int Q, int C>
+__device__ __forceinline__ void pull_fluid(const HaloSource& src,
+                                           const Domain& d, int i, int y,
+                                           int x, bool zero_gradient,
+                                           float (&s)[Q]) {
+  if (zero_gradient) {
+    const int gy = d.y0 + y, gx = d.x0 + x;
+    y += clamp_to(gy, 1, d.ny - 2) - gy;
+    x += clamp_to(gx, 1, d.nx - 2) - gx;
+  }
+  constexpr int kReach = Q == 25 ? 3 : 1;
+  if (y >= kReach && y < src.H - kReach && x >= kReach &&
+      x < src.W - kReach) {
+    const size_t plane = (size_t)src.H * src.W;
+    const float* f = src.f + (size_t)i * plane + (size_t)y * src.W + x;
+#pragma unroll
+    for (int j = 0; j < Q; ++j)
+      s[j] = __ldg(f + (size_t)(j * C) * plane -
+                   (ptrdiff_t)dir_cy<Q>(j) * src.W - dir_cx<Q>(j));
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    size_t plane;
+    const float* p = src.at(y - dir_cy<Q>(j), x - dir_cx<Q>(j), plane);
+    s[j] = p[(size_t)(j * C + i) * plane];
+  }
+}
+
+// pull_fluid for the launch's source: the whole grid f (d covers it;
+// halo unused) or, kShard, the shard of halo
+template <int Q, int C, bool kShard>
+__device__ __forceinline__ void pull(const float* __restrict__ f,
+                                     const HaloSource& halo, const Domain& d,
+                                     int i, int y, int x, bool zero_gradient,
+                                     float (&s)[Q]) {
+  if constexpr (kShard)
+    pull_fluid<Q, C>(halo, d, i, y, x, zero_gradient, s);
+  else
+    pull_fluid<Q, C>(f, i, y, x, d.ny, d.nx, zero_gradient, s);
+}
+
+// A launch's cell (y, x) of its d.rows x d.cols cells: its global
+// coordinates and its index in a whole-grid plane (the cell itself for
+// the grid)
+template <bool kShard>
+struct CellAt {
+  int gy, gx;
+  size_t global;
+  __device__ __forceinline__ CellAt(const Domain& d, int y, int x,
+                                    long long cell) {
+    if constexpr (kShard) {
+      gy = d.y0 + y;
+      gx = d.x0 + x;
+      global = (size_t)gy * d.nx + gx;
+    } else {
+      gy = y;
+      gx = x;
+      global = (size_t)cell;
+    }
+  }
+};
 
 // The pseudopotential of density r (single_component.cl:609-651), as
 // lb2d_tpu_torch/models/multicomponent.py:get_psi writes it.

@@ -24,6 +24,22 @@
 //   for its moments and once for its collision, so registers hold
 //   3C + 2 moments and one fluid's Q values, not Q C (D2Q25 x 2 fluids).
 //
+// K6h runs the same two kernels on one shard of a domain-decomposed grid
+// (lb2d_tpu_torch/parallel/sharded.py; the TPU kernel is itself the halo
+// kernel, fused_mc.py:230 as make_mc_halo_step builds it with its halo
+// chunks, 128-lane x strips and ext halos): f is the shard and its halos of
+// the lattice's reach (1 row for D2Q9, 3 for D2Q25, exchanged before the
+// step), read through region_source.cuh's HaloSource; mc_density writes the
+// shard's band of a whole-grid rho[C][ny][nx] on its device, which every
+// shard's density pass fills (and an exchange of the belt around each
+// shard across devices completes) before any mc_step reads its neighbours'
+// densities at their global coordinates; the ext planes are whole-grid
+// planes too (the screened force, solved once per device from the source
+// plane, gathered whole). Zero-gradient edges and clamped
+// neighbours apply by global coordinates. The kernels are templated on the
+// source, so a shard's cell runs the same code on the same values as the
+// unsharded launch's and the two agree bit for bit.
+//
 // Bound: bytes. Per cell-step mc_density reads f (4 Q C B) and writes rho
 // (4 C B); mc_step reads f and, with interactions, rho (its neighbours'
 // rho mostly from L1/L2), reads the ext planes and writes f once. At
@@ -40,22 +56,25 @@ namespace {
 
 constexpr int kBlock = 256;
 
-template <int Q, int C>
+template <int Q, int C, bool kShard>
 __global__ void __launch_bounds__(kBlock)
-mc_density_kernel(const float* __restrict__ f, float* __restrict__ rho,
-                  int ny, int nx, int zero_gradient_mask) {
+mc_density_kernel(const float* __restrict__ f, HaloSource halo,
+                  float* __restrict__ rho, Domain d,
+                  int zero_gradient_mask) {
   const long long cell = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (cell >= (long long)ny * nx) return;
-  const int y = (int)(cell / nx), x = (int)(cell % nx);
-  const size_t plane = (size_t)ny * nx;
+  if (cell >= (long long)d.rows * d.cols) return;
+  const int y = (int)(cell / d.cols), x = (int)(cell % d.cols);
+  const CellAt<kShard> at(d, y, x, cell);
+  const size_t plane = (size_t)d.ny * d.nx;
 #pragma unroll
   for (int i = 0; i < C; ++i) {
     float s[Q];
-    pull_fluid<Q, C>(f, i, y, x, ny, nx, (zero_gradient_mask >> i) & 1, s);
+    pull<Q, C, kShard>(f, halo, d, i, y, x, (zero_gradient_mask >> i) & 1,
+                         s);
     float r = s[0];
 #pragma unroll
     for (int j = 1; j < Q; ++j) r += s[j];
-    rho[(size_t)i * plane + cell] = r;
+    rho[(size_t)i * plane + at.global] = r;
   }
 }
 
@@ -71,8 +90,10 @@ __device__ __forceinline__ void belt_sums(
 #pragma unroll 1
   for (int k = k0; k < k1; ++k) {
     const int dx = kBeltDx[k], dy = kBeltDy[k];
-    const int yy = hk.clamped ? clamp_to(y + dy, 0, ny - 1) : wrap(y + dy, ny);
-    const int xx = hk.clamped ? clamp_to(x + dx, 0, nx - 1) : wrap(x + dx, nx);
+    const int yy =
+        hk.clamped ? clamp_to(y + dy, 0, ny - 1) : wrap1(y + dy, ny);
+    const int xx =
+        hk.clamped ? clamp_to(x + dx, 0, nx - 1) : wrap1(x + dx, nx);
     const size_t nb = (size_t)yy * nx + xx;
     const float pa = psi(hk, rho_a[nb], zd);
     const float pb = psi(hk, rho_b[nb], zd);
@@ -89,16 +110,20 @@ __device__ __forceinline__ void belt_sums(
   }
 }
 
-template <int Q, int C>
+template <int Q, int C, bool kShard>
 __global__ void __launch_bounds__(kBlock)
-mc_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
+mc_step_kernel(const float* __restrict__ f_in, HaloSource halo,
+               float* __restrict__ f_out,
                const float* __restrict__ rho_buf,
-               const float* __restrict__ ext, int ny, int nx,
+               const float* __restrict__ ext, Domain d,
                int zero_gradient_mask, Lb2dMcParams prm) {
   const long long cell = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (cell >= (long long)ny * nx) return;
-  const int y = (int)(cell / nx), x = (int)(cell % nx);
-  const size_t plane = (size_t)ny * nx;
+  if (cell >= (long long)d.rows * d.cols) return;
+  const int y = (int)(cell / d.cols), x = (int)(cell % d.cols);
+  const CellAt<kShard> at(d, y, x, cell);
+  const size_t plane = (size_t)d.ny * d.nx;  // rho's and ext's
+  size_t out_plane = plane;                   // f_out's
+  if constexpr (kShard) out_plane = (size_t)d.rows * d.cols;
   const float zd = prm.zero_density;
 
   // hydro per fluid (single_component.cl:214-274), direction order
@@ -106,7 +131,8 @@ mc_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
 #pragma unroll
   for (int i = 0; i < C; ++i) {
     float s[Q];
-    pull_fluid<Q, C>(f_in, i, y, x, ny, nx, (zero_gradient_mask >> i) & 1, s);
+    pull<Q, C, kShard>(f_in, halo, d, i, y, x,
+                         (zero_gradient_mask >> i) & 1, s);
     float r = s[0], ax = 0.0f, ay = 0.0f;
 #pragma unroll
     for (int j = 1; j < Q; ++j) {
@@ -141,8 +167,8 @@ mc_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
       }
       case kHookExt:
       case kHookExtRho: {
-        float ex = ext[(size_t)(2 * hk.ext_pair) * plane + cell];
-        float ey = ext[(size_t)(2 * hk.ext_pair + 1) * plane + cell];
+        float ex = ext[(size_t)(2 * hk.ext_pair) * plane + at.global];
+        float ey = ext[(size_t)(2 * hk.ext_pair + 1) * plane + at.global];
         if (hk.kind == kHookExtRho) {
           const float ra = pick<C>(rho, hk.a);
           ex = ex * ra;
@@ -156,7 +182,8 @@ mc_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
         const float* rho_a = rho_buf + (size_t)hk.a * plane;
         const float* rho_b = rho_buf + (size_t)hk.b * plane;
         float fxa = 0.0f, fya = 0.0f, fxb = 0.0f, fyb = 0.0f;
-        belt_sums(hk, zd, rho_a, rho_b, y, x, ny, nx, fxa, fya, fxb, fyb);
+        belt_sums(hk, zd, rho_a, rho_b, at.gy, at.gx, d.ny, d.nx, fxa, fya,
+                  fxb, fyb);
         const float ra = pick<C>(rho, hk.a), rb = pick<C>(rho, hk.b);
         const float sa = hk.p[0] * psi(hk, ra, zd);  // -G psi_a
         const float sb = hk.p[0] * psi(hk, rb, zd);
@@ -206,7 +233,8 @@ mc_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
 #pragma unroll
   for (int i = 0; i < C; ++i) {
     float s[Q];
-    pull_fluid<Q, C>(f_in, i, y, x, ny, nx, (zero_gradient_mask >> i) & 1, s);
+    pull<Q, C, kShard>(f_in, halo, d, i, y, x,
+                         (zero_gradient_mask >> i) & 1, s);
     const float usq_term = usq * prm.inv_feq_usq[i];
     const float uF_term = (Gx[i] * ub + Gy[i] * vb) * prm.inv_guo_uf[i];
 #pragma unroll
@@ -234,38 +262,43 @@ mc_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
           out += prm.w[j] * (r > col.lo && r < col.hi ? col.rate : 0.0f);
         }
       }
-      f_out[(size_t)(j * C + i) * plane + cell] = out;
+      f_out[(size_t)(j * C + i) * out_plane + cell] = out;
     }
   }
 }
 
-template <int Q, int C>
-cudaError_t launch(const float* f_in, float* f_out, float* rho,
-                   const float* ext, int ny, int nx, int zero_gradient_mask,
-                   const Lb2dMcParams* prm, cudaStream_t stream) {
-  const long long cells = (long long)ny * nx;
+template <int Q, int C, bool kShard>
+cudaError_t launch(const float* f, const HaloSource& halo, float* f_out,
+                   float* rho, const float* ext, const Domain& d,
+                   int zero_gradient_mask, const Lb2dMcParams* prm,
+                   cudaStream_t stream) {
+  const long long cells = (long long)d.rows * d.cols;
   const long long blocks = (cells + kBlock - 1) / kBlock;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (prm == nullptr)
-    mc_density_kernel<Q, C><<<(unsigned)blocks, kBlock, 0, stream>>>(
-        f_in, rho, ny, nx, zero_gradient_mask);
+    mc_density_kernel<Q, C, kShard><<<(unsigned)blocks, kBlock, 0, stream>>>(
+        f, halo, rho, d, zero_gradient_mask);
   else
-    mc_step_kernel<Q, C><<<(unsigned)blocks, kBlock, 0, stream>>>(
-        f_in, f_out, rho, ext, ny, nx, zero_gradient_mask, *prm);
+    mc_step_kernel<Q, C, kShard><<<(unsigned)blocks, kBlock, 0, stream>>>(
+        f, halo, f_out, rho, ext, d, zero_gradient_mask, *prm);
   return cudaGetLastError();
 }
 
-// prm == nullptr: mc_density into rho; else mc_step
-cudaError_t dispatch(int q, int fluids, const float* f_in, float* f_out,
-                     float* rho, const float* ext, int ny, int nx,
+// prm == nullptr: mc_density into rho; else mc_step. The grid's f (d
+// covers the grid, halo unused) or, kShard, the shard of halo.
+template <bool kShard>
+cudaError_t dispatch(int q, int fluids, const float* f,
+                     const HaloSource& halo, float* f_out, float* rho,
+                     const float* ext, const Domain& d,
                      int zero_gradient_mask, const Lb2dMcParams* prm,
                      void* stream) {
-  if (ny < 3 || nx < 3) return cudaErrorInvalidValue;
+  if (d.ny < 3 || d.nx < 3 || d.rows < 1 || d.cols < 1)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LB2D_MC(Q, C)                                                     \
-  if (q == Q && fluids == C)                                              \
-    return launch<Q, C>(f_in, f_out, rho, ext, ny, nx, zero_gradient_mask, \
-                        prm, s);
+#define LB2D_MC(Q, C)                                                    \
+  if (q == Q && fluids == C)                                             \
+    return launch<Q, C, kShard>(f, halo, f_out, rho, ext, d,             \
+                                zero_gradient_mask, prm, s);
   LB2D_MC(9, 1)
   LB2D_MC(9, 2)
   LB2D_MC(9, 3)
@@ -278,6 +311,26 @@ cudaError_t dispatch(int q, int fluids, const float* f_in, float* f_out,
   return cudaErrorInvalidValue;
 }
 
+bool bad_params(const Lb2dMcParams& prm) {
+  return prm.num_hooks < 0 || prm.num_hooks > kMcMaxHooks ||
+         prm.num_collisions < 0 || prm.num_collisions > kMcMaxCollisions;
+}
+
+// A shard's source and domain; valid when its halo covers the lattice's
+// reach (1 for D2Q9, 3 for D2Q25) and the shard lies in the grid
+bool shard(const float* f, const float* top, const float* bot,
+           const float* left, const float* right, int H, int W, int hk,
+           int y0, int x0, int ny, int nx, int q, HaloSource& halo,
+           Domain& d) {
+  halo = HaloSource{f, top, bot, left, right, H, W, hk};
+  d = Domain{H, W, y0, x0, ny, nx};
+  const int reach = q == 25 ? 3 : 1;
+  const bool x_wraps = left == nullptr && right == nullptr;
+  return hk >= reach && H >= 1 && W >= 1 && y0 >= 0 && x0 >= 0 &&
+         y0 + H <= ny && x0 + W <= nx && (!x_wraps || (x0 == 0 && W == nx)) &&
+         (left == nullptr) == (right == nullptr);
+}
+
 }  // namespace
 
 // Each fluid's post-stream density of f[q][fluids][ny][nx] into
@@ -288,8 +341,9 @@ cudaError_t dispatch(int q, int fluids, const float* f_in, float* f_out,
 extern "C" int lb2d_mc_density(const float* f, float* rho, int ny, int nx,
                                int q, int fluids, int zero_gradient_mask,
                                void* stream) {
-  return (int)dispatch(q, fluids, f, nullptr, rho, nullptr, ny, nx,
-                       zero_gradient_mask, nullptr, stream);
+  return (int)dispatch<false>(q, fluids, f, HaloSource{}, nullptr, rho,
+                              nullptr, Domain{ny, nx, 0, 0, ny, nx},
+                              zero_gradient_mask, nullptr, stream);
 }
 
 // One multicomponent step of f_in into f_out (both [q][fluids][ny][nx],
@@ -301,11 +355,53 @@ extern "C" int lb2d_mc_step(const float* f_in, float* f_out, const float* rho,
                             const float* ext, int ny, int nx, int q,
                             int fluids, int zero_gradient_mask,
                             Lb2dMcParams prm, void* stream) {
-  if (prm.num_hooks < 0 || prm.num_hooks > kMcMaxHooks ||
-      prm.num_collisions < 0 || prm.num_collisions > kMcMaxCollisions)
+  if (bad_params(prm)) return (int)cudaErrorInvalidValue;
+  return (int)dispatch<false>(q, fluids, f_in, HaloSource{}, f_out,
+                              const_cast<float*>(rho), ext,
+                              Domain{ny, nx, 0, 0, ny, nx},
+                              zero_gradient_mask, &prm, stream);
+}
+
+// K6h's density pass: the shard f[q][fluids][H][W] (global rows [y0, y0 +
+// H), columns [x0, x0 + W) of an ny x nx grid) with its hk-cell halos top,
+// bot [q fluids][hk][W] and, unless the shard spans the grid's width (both
+// NULL), left, right [q fluids][H + 2hk][hk]; writes the shard's band of
+// each fluid's post-stream density into the whole-grid rho[fluids][ny][nx].
+// hk is at least the lattice's reach. Otherwise as lb2d_mc_density.
+extern "C" int lb2d_mc_halo_density(const float* f, const float* top,
+                                    const float* bot, const float* left,
+                                    const float* right, float* rho, int H,
+                                    int W, int hk, int y0, int x0, int ny,
+                                    int nx, int q, int fluids,
+                                    int zero_gradient_mask, void* stream) {
+  HaloSource halo;
+  Domain d;
+  if (!shard(f, top, bot, left, right, H, W, hk, y0, x0, ny, nx, q, halo, d))
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch(q, fluids, f_in, f_out, const_cast<float*>(rho), ext,
-                       ny, nx, zero_gradient_mask, &prm, stream);
+  return (int)dispatch<true>(q, fluids, f, halo, nullptr, rho, nullptr, d,
+                             zero_gradient_mask, nullptr, stream);
+}
+
+// K6h's step: one step of the shard (pieces as lb2d_mc_halo_density) into
+// f_out [q][fluids][H][W]; rho and ext are whole-grid planes ([fluids][ny]
+// [nx] and [2 pairs][ny][nx]) read at the cells' global coordinates.
+// Otherwise as lb2d_mc_step.
+extern "C" int lb2d_mc_halo_step(const float* f, const float* top,
+                                 const float* bot, const float* left,
+                                 const float* right, float* f_out,
+                                 const float* rho, const float* ext, int H,
+                                 int W, int hk, int y0, int x0, int ny,
+                                 int nx, int q, int fluids,
+                                 int zero_gradient_mask, Lb2dMcParams prm,
+                                 void* stream) {
+  HaloSource halo;
+  Domain d;
+  if (bad_params(prm) ||
+      !shard(f, top, bot, left, right, H, W, hk, y0, x0, ny, nx, q, halo, d))
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch<true>(q, fluids, f, halo, f_out,
+                             const_cast<float*>(rho), ext, d,
+                             zero_gradient_mask, &prm, stream);
 }
 
 // sizeof(Lb2dMcParams), which ops/_build.py holds its ctypes mirror to

@@ -1,6 +1,8 @@
-"""The K9 checks that ``chip_smoke.py`` and the CUDA tests share: each
-physics' arguments, a random state, the cuts of a grid into shards, and K9
-on each shard against its plain twin.
+"""The halo kernels' checks that ``chip_smoke.py`` and the CUDA tests
+share: for K9 each physics' arguments, a random state, the cuts of a grid
+into shards, and K9 on each shard against its plain twin; for K6h and K7h
+(:func:`compare_mc_halo`, :func:`compare_coupled_halo`) a few steps of the
+shards against the unsharded K6 / K7 and against the plain twins.
 
 The cuts need not divide the grid: K9 takes any shard, so a 254x382 grid
 is cut 2x2, 4x1 and 1x4 into shards of unequal edges, each with the halo
@@ -16,15 +18,33 @@ import numpy as np
 import torch
 
 from .core import D2Q9
+from .ops.fused_coupled import (
+    coupled_density,
+    coupled_density_halo,
+    coupled_params,
+    coupled_step,
+    coupled_step_halo,
+    coupled_step_halo_reference,
+)
 from .ops.fused_halo import (
     Halo,
     cut_region,
     temporal_halo_step,
     temporal_halo_step_reference,
 )
+from .ops.fused_mc import (
+    lattice_reach,
+    mc_density,
+    mc_density_halo,
+    mc_params,
+    mc_step,
+    mc_step_halo,
+    mc_step_halo_reference,
+)
 
 __all__ = ["HALO_CASES", "HALO_MESHES", "halo_case_state", "halo_case_ks",
-           "shard_cuts", "compare_halo_case", "halo_tolerance"]
+           "shard_cuts", "compare_halo_case", "halo_tolerance",
+           "compare_mc_halo", "compare_coupled_halo"]
 
 _FLOW = dict(omega=1.3, inlet_rho=1.003, outlet_rho=1.0)
 _VELOCITY = dict(omega=1.3, u_w=0.05, u_e=0.05, incompressible=False)
@@ -131,3 +151,88 @@ def compare_halo_case(case: str, f: torch.Tensor, mask, cuts, k: int,
             raise RuntimeError(f"K9 {case}: non-finite populations")
         worst = max(worst, float((got - want).abs().max()))
     return worst
+
+
+def _max_diff(a, b) -> float:
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise RuntimeError("non-finite populations")
+    return float((a - b).abs().max())
+
+
+def _shard_steps(f, cuts, reach, steps, whole_step, shard_density,
+                 shard_step, twin):
+    """``steps`` steps of the state ``f [q, C, ny, nx]`` whole
+    (``whole_step(f) -> f``) and cut into ``cuts`` (each step's halos cut
+    from the assembled state, as an exchange gives them; every shard's
+    density pass, then every shard's step, ``shard_step(halo, out)``);
+    returns max |df| between the two and between each shard's step and
+    ``twin(halo)``."""
+    P = f.shape[0] * f.shape[1]
+    whole, sharded = f.clone(), f.clone()
+    d_whole = d_twin = 0.0
+    for _ in range(steps):
+        flat = sharded.view(P, *f.shape[2:])
+        halos = [Halo.cut(flat, y0, x0, H, W, reach)
+                 for y0, x0, H, W in cuts]
+        for halo in halos:
+            shard_density(halo)
+        whole = whole_step(whole)
+        nxt = torch.empty_like(flat)
+        for halo, (y0, x0, H, W) in zip(halos, cuts):
+            out = shard_step(halo, torch.empty_like(halo.f))
+            d_twin = max(d_twin, _max_diff(out, twin(halo)))
+            nxt[:, y0:y0 + H, x0:x0 + W] = out
+        sharded = nxt.view(f.shape)
+        d_whole = max(d_whole, _max_diff(sharded, whole))
+    return d_whole, d_twin
+
+
+def compare_mc_halo(f, cfg, lattice, ext, cuts, steps=5, solve=None):
+    """K6h on the shards ``cuts`` of the state ``f [q, C, ny, nx]`` (CUDA)
+    against K6 on the whole grid and against K6h's plain twins, ``steps``
+    steps; ``solve(rho, ext)`` fills a screened hook's ext planes from the
+    densities. Returns max |df| against K6, against the twins, and max
+    |drho| between the two density passes."""
+    C = f.shape[1]
+    params = mc_params(cfg, lattice)
+    rho_w = torch.empty((C, *f.shape[2:]), dtype=f.dtype, device=f.device)
+    rho_s = torch.empty_like(rho_w)
+    ext_s = None if ext is None else ext.clone()
+    d_rho = [0.0]
+
+    def whole_step(g):
+        mc_density(g, rho_w, cfg, lattice)
+        d_rho[0] = max(d_rho[0], _max_diff(rho_s, rho_w))
+        if solve is not None:
+            solve(rho_w, ext)
+            solve(rho_s, ext_s)
+        return mc_step(g, torch.empty_like(g), rho_w, ext, cfg, lattice,
+                       params)
+
+    d_whole, d_twin = _shard_steps(
+        f, cuts, lattice_reach(lattice), steps, whole_step,
+        lambda h: mc_density_halo(h, rho_s, cfg, lattice),
+        lambda h, out: mc_step_halo(h, out, rho_s, ext_s, cfg, lattice,
+                                    params),
+        lambda h: mc_step_halo_reference(h, rho_s, ext_s, cfg, lattice))
+    return d_whole, d_twin, d_rho[0]
+
+
+def compare_coupled_halo(f, cfg, ext, cuts, steps=5):
+    """K7h (after K6h's density pass) on the shards ``cuts`` of the state
+    ``f [9, F, ny, nx]`` (CUDA), the velocity planes ``ext`` held, against
+    K7 on the whole grid and against K7h's plain twin, ``steps`` steps;
+    returns max |df| against K7 and against the twin."""
+    params = coupled_params(cfg)
+    rho_w = torch.empty((cfg.fields, *f.shape[2:]), device=f.device)
+    rho_s = torch.empty_like(rho_w)
+
+    def whole_step(g):
+        coupled_density(g, rho_w)
+        return coupled_step(g, torch.empty_like(g), rho_w, ext, cfg, params)
+
+    return _shard_steps(
+        f, cuts, 1, steps, whole_step,
+        lambda h: coupled_density_halo(h, rho_s),
+        lambda h, out: coupled_step_halo(h, out, rho_s, ext, cfg, params),
+        lambda h: coupled_step_halo_reference(h, rho_s, ext, cfg))

@@ -37,8 +37,12 @@ writing ``amplitude (xg, yg)`` into the hook's ext plane pair, then
 once per K-step sweep and holds the force for the sweep (both backends;
 ``run`` runs the rest of ``n`` as exact single steps).
 
-Not ported yet: ``shard_over`` (ROADMAP queue 1 item 2) raises
-``NotImplementedError``.
+``shard_over(mesh)`` cuts the runner into the shards of a
+:class:`~lb2d_tpu_torch.parallel.Mesh`
+(:class:`~lb2d_tpu_torch.parallel.sharded.ShardedRunner`): each step runs
+K6h, K6's kernels on a shard and its halo, with K8 once per device on the
+gathered source density; ``run``, the getters, ``check_fields`` and the state
+transfer then work on the shards.
 """
 
 from __future__ import annotations
@@ -187,6 +191,7 @@ class SimulationRunner:
 
         C, q = self.num_populations, lattice.q
         like = dict(dtype=self.dtype, device=self.device)
+        self._sharded = None
         self.rho = torch.zeros((C, self.ny, self.nx), **like)
         self.u_bary = torch.zeros((self.ny, self.nx), **like)
         self.v_bary = torch.zeros((self.ny, self.nx), **like)
@@ -199,6 +204,7 @@ class SimulationRunner:
         # None for a "screened" hook (its pair is solved every step or sweep)
         self._plan = None         # (cfg, ext, K6 params) built at first run
         self._spare = self._rho_buf = None
+        self._hydro_step = None   # steps_taken of the gathered hydro fields
         self.backend_used = None
         self.steps_per_call = 1   # K6 runs one step per launch
         self.steps_taken = 0
@@ -324,10 +330,63 @@ class SimulationRunner:
                         float(interaction_length) ** 2, float(amplitude)))
 
     def shard_over(self, mesh):
-        """Not ported yet: ROADMAP queue 1 item 2 (``parallel/``, part 2)."""
-        raise NotImplementedError(
-            "shard_over comes with ROADMAP queue 1 item 2 (parallel/, part "
-            "2)")
+        """Cut the state into the shards of ``mesh`` (a
+        :class:`~lb2d_tpu_torch.parallel.Mesh`, e.g. ``make_mesh(devices=
+        ["cuda:0"] * 4, shape=(4, 1))`` or ``global_mesh()`` across
+        processes; ``["cpu"] * n`` with ``device="cpu"``) and return the
+        runner (``lb2d_tpu/models/multicomponent.py:834-871``). From then on
+        ``run`` steps the shards (K6h and, for a screened-Poisson hook, K8
+        once per device on the gathered density, on the kernel backend; the
+        plain twins on ``eager``) and ``get_fields``, ``check_fields``,
+        ``rho``, ``u_bary``, ``v_bary``, ``state_numpy`` and
+        ``load_numpy_state`` read or write the shards. The runner gives up
+        its whole-grid state: ``f`` is None. The grid must divide the mesh;
+        hooks may still be registered."""
+        from ..parallel.sharded import ShardedRunner
+
+        if self._sharded is not None:
+            self.f = torch.from_numpy(self.state_numpy()).to(self.device)
+            self._sharded = None
+        sharded = ShardedRunner(self, mesh)
+        self._sharded = sharded
+        self.f = None
+        self._spare = self._rho_buf = None
+        self._hydro_step = None
+        return self
+
+    # ---- hydro fields (gathered from the shards when sharded) ---------------
+    @property
+    def rho(self):
+        self._gather_hydro()
+        return self._rho
+
+    @rho.setter
+    def rho(self, value):
+        self._rho = value
+
+    @property
+    def u_bary(self):
+        self._gather_hydro()
+        return self._u_bary
+
+    @u_bary.setter
+    def u_bary(self, value):
+        self._u_bary = value
+
+    @property
+    def v_bary(self):
+        self._gather_hydro()
+        return self._v_bary
+
+    @v_bary.setter
+    def v_bary(self, value):
+        self._v_bary = value
+
+    def _gather_hydro(self):
+        if (self._sharded is not None
+                and self._hydro_step != self.steps_taken):
+            self._rho, self._u_bary, self._v_bary = self._sharded.hydro()
+            self._hydro_step = self.steps_taken
 
     # ---- numerics ------------------------------------------------------------
     def _columns(self):
@@ -448,6 +507,8 @@ class SimulationRunner:
         ``last_mlups``."""
         if k_steps is not None and int(k_steps) < 1:
             raise ValueError(f"k_steps must be >= 1, got {k_steps}")
+        if self._sharded is not None:
+            return self._run_sharded(num_iterations, debug, timed, k_steps)
         if self._plan is None:
             self._make_plan()
         single, steps = self._steps()
@@ -474,29 +535,60 @@ class SimulationRunner:
         self._refresh_hydro()
         return self
 
+    def _run_sharded(self, num_iterations, debug, timed, k_steps):
+        """``run`` on the shards (:class:`~lb2d_tpu_torch.parallel.sharded.
+        ShardedRunner`, which advances ``steps_taken``): the same sweeps,
+        debug dumps and timing."""
+        sh = self._sharded.prepare(k_steps, debug)
+        self.backend_used = self.backend
+        self.steps_per_call = sh.steps_per_call
+        if debug:
+            for _ in range(int(num_iterations)):
+                sh.run(1)
+                self.check_fields()
+            return self
+        sh.run(num_iterations, timed=timed)
+        if timed:
+            self.last_mlups = sh.last_mlups
+        return self
+
     def _synchronize(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _refresh_hydro(self):
+    def _hydro_of(self, f):
         """rho per fluid and the barycentric velocity without the half-force
-        term (``multicomponent.py:948-963``)."""
+        term of populations ``f [q, C, ...]`` (``multicomponent.py:
+        948-963``)."""
         _, cx, cy = self._columns()
-        f = self.f
         rho = f.sum(dim=0)
         rho_tot = rho.sum(dim=0)
-        self.u_bary = torch.tensordot(cx[:, 0, 0], f, dims=1).sum(0) / rho_tot
-        self.v_bary = torch.tensordot(cy[:, 0, 0], f, dims=1).sum(0) / rho_tot
-        self.rho = rho
+        u = torch.tensordot(cx[:, 0, 0], f, dims=1).sum(0) / rho_tot
+        v = torch.tensordot(cy[:, 0, 0], f, dims=1).sum(0) / rho_tot
+        return rho, u, v
+
+    def _refresh_hydro(self):
+        """rho and the barycentric velocity of the state (of the shards,
+        on first access, when sharded)."""
+        if self._sharded is None:
+            self.rho, self.u_bary, self.v_bary = self._hydro_of(self.f)
 
     def check_fields(self, accumulate: str = "f64"):
         """Conservation debug dump (``single_component.py:753-766``), with
-        float64-grade accumulation by default (see :func:`_accumulated_sum`)."""
-        rho = self.f.sum(dim=0)
+        float64-grade accumulation by default (see :func:`_accumulated_sum`);
+        sharded, the sums of the shards' sums."""
+        parts = ([self.f] if self._sharded is None
+                 else self._sharded.fluid_views())
         out = {}
         for i in range(self.num_populations):
-            out[f"sum_rho_{i}"] = _accumulated_sum(rho[i], accumulate)
-            out[f"sum_f_{i}"] = _accumulated_sum(self.f[:, i], accumulate)
+            out[f"sum_rho_{i}"] = out[f"sum_f_{i}"] = 0.0
+        for f in parts:
+            rho = f.sum(dim=0)
+            for i in range(self.num_populations):
+                out[f"sum_rho_{i}"] += _accumulated_sum(rho[i], accumulate)
+                out[f"sum_f_{i}"] += _accumulated_sum(f[:, i], accumulate)
+        if self._sharded is not None:
+            out = self._sharded.sum_over_processes(out)
         print(out)
         return out
 
@@ -509,7 +601,7 @@ class SimulationRunner:
             return t.detach().cpu().numpy()
 
         return {
-            "f": np.transpose(host(self.f), (3, 2, 1, 0)),
+            "f": np.transpose(self.state_numpy(), (3, 2, 1, 0)),
             "rho": np.transpose(host(self.rho), (2, 1, 0)),
             "u_bary": host(self.u_bary).T,
             "v_bary": host(self.v_bary).T,
@@ -522,17 +614,25 @@ class SimulationRunner:
 
     def state_numpy(self) -> np.ndarray:
         """The populations ``[q, C, ny, nx]`` as numpy (in JAX:
-        ``np.asarray(sim.f)``)."""
+        ``np.asarray(sim.f)``), gathered from the shards when sharded."""
+        if self._sharded is not None:
+            return self._sharded.state_numpy().reshape(
+                self.lattice.q, self.num_populations, self.ny, self.nx)
         return self.f.detach().cpu().numpy().copy()
 
     def load_numpy_state(self, f) -> None:
         """Replace the populations with a numpy array ``[q, C, ny, nx]``, for
-        example the state of the JAX runner built from the same arguments,
-        and refresh rho and the barycentric velocity."""
+        example the state of the JAX runner built from the same arguments
+        (split into the shards when sharded), and refresh rho and the
+        barycentric velocity."""
         f = np.ascontiguousarray(f)
-        if f.shape != tuple(self.f.shape):
-            raise ValueError(f"state must be {tuple(self.f.shape)}, got "
-                             f"{f.shape}")
+        want = (self.lattice.q, self.num_populations, self.ny, self.nx)
+        if f.shape != want:
+            raise ValueError(f"state must be {want}, got {f.shape}")
+        if self._sharded is not None:
+            self._sharded.load_numpy_state(f)
+            self._hydro_step = None
+            return
         self.f = torch.tensor(f, dtype=self.dtype, device=self.device)
         self._refresh_hydro()
 
@@ -540,7 +640,7 @@ class SimulationRunner:
 def _accumulated_sum(x: torch.Tensor, accumulate: str = "f64") -> float:
     """Global sum of a device tensor (a private copy of JAX
     ``utils.metrics.accumulated_sum``, ``metrics.py:56-77``; it moves to the
-    port's ``utils`` with ROADMAP queue 1 item 8). ``"f64"``: the lanes are
+    port's ``utils`` with ROADMAP queue 1 item 4). ``"f64"``: the lanes are
     summed on the device in 128-element windows (when ``nx`` is a multiple
     of 128 above 128, else whole rows) and the partials in float64 on the
     host; ``"f32"``: one device sum."""

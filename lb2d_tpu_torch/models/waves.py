@@ -10,7 +10,7 @@
   ``models/rocket_yeast.py`` use too.
 
 ``RepellingFisherWave`` comes with the Poisson slice (ROADMAP.md queue 1
-item 7).
+item 3).
 """
 
 from __future__ import annotations
@@ -176,7 +176,7 @@ class _ScreenedVelocity:
 def _mach_number(u, v, lattice=D2Q9) -> float:
     """max |u| / cs over the grid (a private copy of JAX
     ``utils.metrics.mach_number``, ``metrics.py:32-35``; it moves to the
-    port's ``utils`` with ROADMAP queue 1 item 8)."""
+    port's ``utils`` with ROADMAP queue 1 item 4)."""
     return float(torch.sqrt(torch.max(u * u + v * v))) / lattice.cs
 
 

@@ -150,10 +150,21 @@ _ENTRY_POINTS = {
     # f_in, f_out, rho, ext, ny, nx, q, fluids, zero-gradient fluid mask,
     # params, stream
     "lb2d_mc_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, McParams, _P],
+    # f, top, bot, left, right, rho, H, W, hk, y0, x0, ny, nx, q, fluids,
+    # zero-gradient fluid mask, stream
+    "lb2d_mc_halo_density": [_P] * 6 + [_I] * 10 + [_P],
+    # f, top, bot, left, right, f_out, rho, ext, H, W, hk, y0, x0, ny, nx,
+    # q, fluids, zero-gradient fluid mask, params, stream
+    "lb2d_mc_halo_step": [_P] * 8 + [_I] * 10 + [McParams, _P],
     # in0, in1, out0, out1, scratch, params, stream
     "lb2d_fft_lines": [_P, _P, _P, _P, _P, FftParams, _P],
     # f_in, f_out, rho, ext, ny, nx, params, stream
     "lb2d_coupled_step": [_P, _P, _P, _P, _I, _I, CoupledParams, _P],
+    # f, top, bot, left, right, f_out, rho, ext, H, W, hk, y0, x0, ny, nx,
+    # params, stream
+    "lb2d_coupled_halo_step": [_P] * 8 + [_I] * 7 + [CoupledParams, _P],
+    # in, out, rows, cols, stream
+    "lb2d_transpose": [_P, _P, _I, _I, _P],
     # out, n, key0, key1, step, stream
     "lb2d_normals": [_P, _LL, _U, _U, _ULL, _P],
     "lb2d_philox_bits": [_P, _LL, _U, _U, _ULL, _P],

@@ -26,10 +26,15 @@ pseudo-force). The state is ``f[9, F, ny, nx]``, K6's layout.
   K-step sweeps and density emit are TPU scheduling and are not carried
   over.
 
+* :func:`coupled_density_halo` and :func:`coupled_step_halo` (K7h): the
+  same on one shard and its one-cell halo, the densities and velocity
+  planes read from whole-grid planes at global coordinates; the plain
+  twin is :func:`coupled_step_halo_reference`.
+
 The kernels run only on CUDA tensors; on CPU tensors each wrapper runs the
 plain version. :func:`coupled_step` counts its launches in
-``coupled_step.launches``. :func:`coupled_params` packs a configuration's
-constants once.
+``coupled_step.launches``, :func:`coupled_step_halo` in its own.
+:func:`coupled_params` packs a configuration's constants once.
 """
 
 from __future__ import annotations
@@ -42,11 +47,17 @@ import torch
 from ..core import D2Q9
 from . import _build
 from .fused import _launch
+from .fused_halo import Halo, check_pieces
 from .fused_mc import (
     FluidParams,
     MCKernelConfig,
+    _check_grid_planes,
     _check_plane_stack,
+    gather_shifted,
     mc_density,
+    mc_density_halo,
+    shard_cells,
+    stream_halo,
 )
 from .stream import stream
 
@@ -55,8 +66,9 @@ __all__ = ["COUPLED_PHYSICS", "CoupledConfig", "stencil_gradient",
            "rocket_yeast_velocity", "coupled_feq",
            "rocket_yeast_step_reference",
            "screened_fisher_step_reference", "surfactant_step_reference",
-           "coupled_step_reference", "coupled_density", "coupled_step",
-           "coupled_params"]
+           "coupled_step_reference", "coupled_step_halo_reference",
+           "coupled_density", "coupled_step", "coupled_density_halo",
+           "coupled_step_halo", "coupled_params"]
 
 # Lb2dCoupledParams.physics (csrc/coupled_cell.cuh)
 COUPLED_PHYSICS = {"rocket_yeast": 0, "rocket_yeast_forces_only": 1,
@@ -144,30 +156,55 @@ def psi_sticky_repulsive(rho, rho_o):
     return r - rho_o * r * r
 
 
-def pseudo_force(psi, G_chen, lattice=D2Q9):
+def pseudo_force(psi, G_chen, lattice=D2Q9, sums=None):
     """Shan-Chen pseudo-force with periodic neighbours
     (``surfactant_nutrient_waves.cl:283-364``):
-    ``F = -cs^2 G_chen psi(x) sum_j w_j c_j psi(x + c_j)``."""
-    fx, fy = _belt_sum(psi, lattice)
+    ``F = -cs^2 G_chen psi(x) sum_j w_j c_j psi(x + c_j)``; ``sums``: the
+    belt sums, when they come from elsewhere (a shard's neighbours)."""
+    fx, fy = _belt_sum(psi, lattice) if sums is None else sums
     pref = -lattice.cs2 * G_chen * psi
     return pref * fx, pref * fy
 
 
-def rocket_yeast_velocity(rho, cfg: CoupledConfig):
+def _own_belt(rho):
+    """``belt(g)``: the belt sums of the field ``g(rho)`` of the grid's own
+    densities ``rho[F, ny, nx]``."""
+    return lambda g: _belt_sum(g(rho), D2Q9)
+
+
+def _surface(cfg):
+    """The surface-tension field ``S = (1 - exp(-c / c_o))^alpha`` of the
+    densities."""
+    def field(rho):
+        c = torch.clamp(rho[1], min=0.0)
+        return (1.0 - torch.exp(-c / cfg.c_o)) ** cfg.alpha
+    return field
+
+
+def _psi_pop(cfg):
+    return lambda rho: psi_shan_chen(rho[0], cfg.rho_o)
+
+
+def rocket_yeast_velocity(rho, cfg: CoupledConfig, belt=None):
     """The rocket-yeast advection velocity from the densities ``rho[2, ny,
     nx]`` (population, surfactant): ``-epsilon grad(surfactant)``
     (``rocket_yeast.py:401-410``), or, forces only, the surface-tension
     force ``-epsilon grad S``, ``S = (1 - exp(-c / c_o))^alpha``, plus the
     pressure force ``-G_chen grad(rho) (rho - rho_o)``
-    (``rocket_yeast_forces_only.cl:45-62, 225-316``)."""
+    (``rocket_yeast_forces_only.cl:45-62, 225-316``). ``belt(g)``: the belt
+    sums of a field ``g`` of the densities (default: of ``rho`` itself)."""
+    belt = belt or _own_belt(rho)
+
+    def grad(g):
+        gx, gy = belt(g)
+        return gx / D2Q9.cs2, gy / D2Q9.cs2
+
     if cfg.physics == "rocket_yeast":
-        gx, gy = stencil_gradient(rho[1])
+        gx, gy = grad(lambda r: r[1])
         return -cfg.epsilon * gx, -cfg.epsilon * gy
-    c = torch.clamp(rho[1], min=0.0)
-    S = (1.0 - torch.exp(-c / cfg.c_o)) ** cfg.alpha
-    sx, sy = stencil_gradient(S)
+    sx, sy = grad(_surface(cfg))
     sfx, sfy = -cfg.epsilon * sx, -cfg.epsilon * sy
-    gx, gy = stencil_gradient(rho[0])
+    gx, gy = grad(lambda r: r[0])
     pfx = -cfg.G_chen * gx * (rho[0] - cfg.rho_o)
     pfy = -cfg.G_chen * gy * (rho[0] - cfg.rho_o)
     return sfx + pfx, sfy + pfy
@@ -205,9 +242,15 @@ def rocket_yeast_step_reference(f, cfg: CoupledConfig):
     growth and the pseudo-force (rocket yeast) on the population, clipped
     at 0 (``rocket_yeast.cl:127``), production ``Gc rho`` into the
     surfactant."""
-    f = stream(f, D2Q9)
+    return _rocket_yeast_update(stream(f, D2Q9), cfg)
+
+
+def _rocket_yeast_update(f, cfg, belt=None):
+    """The rocket-yeast step after the stream; ``belt`` as
+    :func:`rocket_yeast_velocity`."""
     rho = f.sum(dim=0)
-    u, v = rocket_yeast_velocity(rho, cfg)
+    belt = belt or _own_belt(rho)
+    u, v = rocket_yeast_velocity(rho, cfg, belt)
     feq = coupled_feq(rho, u, v)
     w, cx, cy = _columns(f)
     om, om_c = _f32(cfg.omega, f), _f32(cfg.omega2, f)
@@ -215,7 +258,8 @@ def rocket_yeast_step_reference(f, cfg: CoupledConfig):
     growth = _f32(cfg.lb_G, f) * pop_rho * (1.0 - pop_rho)
     new_pop = f[:, 0] * (1 - om) + om * feq[:, 0] + w * growth
     if cfg.physics == "rocket_yeast":
-        force = pseudo_force(psi_shan_chen(pop_rho, cfg.rho_o), cfg.G_chen)
+        force = pseudo_force(psi_shan_chen(pop_rho, cfg.rho_o), cfg.G_chen,
+                             sums=belt(_psi_pop(cfg)))
         new_pop = new_pop + _force_term(w, cx, cy, force)
     new_pop = torch.clamp(new_pop, min=0.0)
     produce = _f32(cfg.lb_G2, f) * pop_rho
@@ -238,14 +282,18 @@ def screened_fisher_step_reference(f, cfg: CoupledConfig, ext=None,
     ``ext[2, ny, nx]``), linear feq, BGK + ``w G rho (1 - rho)``."""
     shape = f.shape
     f = stream(f.reshape(9, *shape[-2:]), D2Q9)
+    return _screened_fisher_update(f, cfg, ext, velocity).reshape(shape)
+
+
+def _screened_fisher_update(f, cfg, ext, velocity=None):
+    """The screened Fisher step of ``f[9, R, S]`` after the stream."""
     rho = f.sum(dim=0)
     u, v = _velocity_of(rho, ext, velocity)
     w, cx, cy = _columns(f)
     feq = w * rho * (1.0 + (cx * u + cy * v) / D2Q9.cs2)
     om = _f32(cfg.omega, f)
     react = _f32(cfg.lb_G, f) * rho * (1.0 - rho)
-    out = f * (1.0 - om) + om * feq + w * react
-    return out.reshape(shape)
+    return f * (1.0 - om) + om * feq + w * react
 
 
 def surfactant_step_reference(f, cfg: CoupledConfig, ext=None,
@@ -256,7 +304,12 @@ def surfactant_step_reference(f, cfg: CoupledConfig, ext=None,
     ``ext``, as :func:`screened_fisher_step_reference`), linear feq, growth
     ``G rho n`` fed to the population and taken from the nutrient, and for
     ``clumpy_surfactant`` the pseudo-force on the population."""
-    f = stream(f, D2Q9)
+    return _surfactant_update(stream(f, D2Q9), cfg, ext, velocity)
+
+
+def _surfactant_update(f, cfg, ext, velocity=None, belt=None):
+    """The surfactant-nutrient step after the stream; ``belt`` as
+    :func:`rocket_yeast_velocity` (the clumpy pseudo-force's sums)."""
     rho = f.sum(dim=0)
     u, v = _velocity_of(rho[0], ext, velocity)
     feq = coupled_feq(rho, u, v)
@@ -265,7 +318,9 @@ def surfactant_step_reference(f, cfg: CoupledConfig, ext=None,
     growth = _f32(cfg.lb_G, f) * rho[0] * rho[1]
     new_pop = f[:, 0] * (1 - om) + om * feq[:, 0] + w * growth
     if cfg.physics == "clumpy_surfactant":
-        force = pseudo_force(psi_shan_chen(rho[0], cfg.rho_o), cfg.G_chen)
+        belt = belt or _own_belt(rho)
+        force = pseudo_force(psi_shan_chen(rho[0], cfg.rho_o), cfg.G_chen,
+                             sums=belt(_psi_pop(cfg)))
         new_pop = new_pop + _force_term(w, cx, cy, force)
     new_nut = f[:, 1] * (1 - om_n) + om_n * feq[:, 1] - w * growth
     return torch.stack([new_pop, new_nut], dim=1)
@@ -281,6 +336,42 @@ def coupled_step_reference(f, cfg: CoupledConfig, ext=None):
     return surfactant_step_reference(f, cfg, ext=ext)
 
 
+def coupled_step_halo_reference(halo: Halo, rho: torch.Tensor | None,
+                                ext: torch.Tensor | None,
+                                cfg: CoupledConfig) -> torch.Tensor:
+    """One plain step of ``cfg``'s physics of a halo's shard, ``[9 F, H,
+    W]`` (the plain twin of :func:`coupled_step_halo`; a new tensor): the
+    stream of the halo-extended region cut back to the shard, then the
+    step of :func:`coupled_step_reference` with the one-belt sums read from
+    the whole-grid densities ``rho[F, ny, nx]`` and the velocity planes cut
+    from the whole-grid ``ext[2, ny, nx]``. Equals
+    :func:`coupled_step_reference` of the whole grid at the shard's
+    cells."""
+    f = stream_halo(halo, _density_config(cfg.fields), D2Q9)
+    rows, cols = shard_cells(halo)
+    belt = None
+    if cfg.reads_neighbours:
+        def belt(g):  # _belt_sum of g(rho) at the shard's cells
+            field = g(rho)  # the whole grid's, rounded as unsharded
+            fx = torch.zeros_like(field[rows, cols])
+            fy = torch.zeros_like(fx)
+            for j in range(1, D2Q9.q):
+                cxj, cyj = D2Q9.cx[j], D2Q9.cy[j]
+                shifted = gather_shifted(field, (rows, cols), cxj, cyj)
+                fx = fx + D2Q9.w[j] * cxj * shifted
+                fy = fy + D2Q9.w[j] * cyj * shifted
+            return fx, fy
+    if cfg.reads_ext:
+        ext = ext[:, rows, cols]
+    if cfg.physics.startswith("rocket_yeast"):
+        out = _rocket_yeast_update(f, cfg, belt)
+    elif cfg.physics == "screened_fisher":
+        out = _screened_fisher_update(f[:, 0], cfg, ext)
+    else:
+        out = _surfactant_update(f, cfg, ext, belt=belt)
+    return out.reshape(halo.f.shape)
+
+
 # -- the kernels --------------------------------------------------------------
 
 def _density_config(fields: int) -> MCKernelConfig:
@@ -294,6 +385,15 @@ def coupled_density(f: torch.Tensor, rho: torch.Tensor) -> torch.Tensor:
     ``rho[F, ny, nx]``: K6's ``mc_density`` on CUDA (counted there), the
     plain density on the CPU."""
     return mc_density(f, rho, _density_config(f.shape[1]), D2Q9)
+
+
+def coupled_density_halo(halo: Halo, rho: torch.Tensor) -> torch.Tensor:
+    """Each field's post-stream density of a halo's shard (``[9 F, H, W]``)
+    into its band of the whole-grid ``rho[F, ny, nx]``: K6h's
+    ``mc_density_halo`` on CUDA (counted there), its plain twin on the
+    CPU."""
+    return mc_density_halo(halo, rho, _density_config(halo.f.shape[0] // 9),
+                           D2Q9)
 
 
 def coupled_params(cfg: CoupledConfig) -> _build.CoupledParams:
@@ -374,3 +474,51 @@ def coupled_step(f_in: torch.Tensor, f_out: torch.Tensor,
 
 
 coupled_step.launches = 0
+
+
+def coupled_step_halo(halo: Halo, f_out: torch.Tensor,
+                      rho: torch.Tensor | None, ext: torch.Tensor | None,
+                      cfg: CoupledConfig,
+                      params: _build.CoupledParams | None = None
+                      ) -> torch.Tensor:
+    """Write one step of ``cfg``'s physics of a halo's shard (``halo.f`` is
+    ``[9 F, H, W]`` float32 with a halo of at least one cell) into
+    ``f_out`` and return it. ``rho`` (``[F, ny, nx]``) holds every shard's
+    post-stream densities (:func:`coupled_density_halo`) for the physics
+    that read the neighbours'; ``ext`` (``[2, ny, nx]``) the whole-grid
+    velocity planes for those that read them; both at the cells' global
+    coordinates. ``params`` as :func:`coupled_step`.
+
+    On CUDA tensors this launches K7h (counted in
+    ``coupled_step_halo.launches``); on CPU tensors it runs
+    :func:`coupled_step_halo_reference`.
+    """
+    check_pieces(halo, f_out)
+    F = cfg.fields
+    if halo.f.shape[0] != 9 * F:
+        raise ValueError(f"f must be [{9 * F}, H, W] for {cfg.physics}, got "
+                         f"{tuple(halo.f.shape)}")
+    if cfg.reads_ext:
+        _check_grid_planes(ext, "ext", 2, halo)
+    if cfg.reads_neighbours:
+        _check_grid_planes(rho, "rho", F, halo)
+    if halo.f.device.type == "cpu":
+        f_out.copy_(coupled_step_halo_reference(halo, rho, ext, cfg))
+        return f_out
+    if min(halo.ny, halo.nx) < 3:
+        raise ValueError(f"the coupled kernel needs a grid of at least 3 x "
+                         f"3, not {halo.ny} x {halo.nx}")
+    if params is None:
+        params = coupled_params(cfg)
+    H, W = halo.f.shape[1:]
+    with torch.cuda.device(halo.f.device):  # shards may lie on several cards
+        _launch("lb2d_coupled_halo_step", halo.f, halo.top, halo.bot,
+                halo.left, halo.right, f_out,
+                rho if cfg.reads_neighbours else None,
+                ext if cfg.reads_ext else None, H, W, halo.width, halo.y0,
+                halo.x0, halo.ny, halo.nx, params)
+    coupled_step_halo.launches += 1
+    return f_out
+
+
+coupled_step_halo.launches = 0

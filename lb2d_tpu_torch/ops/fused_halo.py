@@ -59,7 +59,7 @@ from .fused import (
 from .random import population_normals_at
 
 __all__ = ["Halo", "HALO_PHYSICS", "supports_temporal_halo", "halo_max_k",
-           "cut_region", "temporal_halo_step",
+           "cut_region", "check_pieces", "temporal_halo_step",
            "temporal_halo_step_reference"]
 
 # each physics and the keyword arguments of its step
@@ -331,6 +331,32 @@ def _check_halo(halo, f_out, mask, physics):
     """Check the shapes, types and devices of a halo, its output and mask;
     return the number of planes P."""
     f = halo.f
+    P, H, W = f.shape if f.dim() == 3 else (0, 0, 0)
+    hk = halo.top.shape[1] if halo.top.dim() == 3 else 0
+    multifield = physics.startswith("multifield")
+    if P % 9 or (not multifield and P != 9) or hk < 1:
+        raise ValueError(f"f must be [9, H, W] ([9F, H, W] for the "
+                         f"multifield physics) with a halo of >= 1 row, got "
+                         f"{tuple(f.shape)} and {hk} rows")
+    check_pieces(halo, f_out)
+    if mask is not None:
+        if physics not in ("flow", "velocity_inlet"):
+            raise ValueError(f"{physics} takes no obstacle mask")
+        region = (H + 2 * hk, W + 2 * hk)
+        if (mask.dtype != torch.int32 or tuple(mask.shape) != region
+                or mask.device != f.device or not mask.is_contiguous()):
+            raise ValueError(f"mask must be a contiguous int32 {region} "
+                             f"tensor on f's device")
+    return P
+
+
+def check_pieces(halo: Halo, f_out: torch.Tensor | None = None) -> None:
+    """Check that a halo's pieces (and ``f_out``, unless None) are
+    contiguous float32 ``[P, rows, cols]`` tensors on ``f``'s device of the
+    shapes a halo of ``halo.width`` cells around ``f [P, H, W]`` has, that
+    the shard lies in its grid and that ``f_out`` is a distinct ``[P, H,
+    W]`` tensor (the halo kernels' shared checks)."""
+    f = halo.f
     pieces = {"f": f, "top": halo.top, "bot": halo.bot, "left": halo.left,
               "right": halo.right, "f_out": f_out}
     for name, t in pieces.items():
@@ -342,13 +368,10 @@ def _check_halo(halo, f_out, mask, physics):
             raise ValueError(f"{name} must be a contiguous [P, rows, cols] "
                              f"tensor on f's device")
     P, H, W = f.shape
-    hk = halo.top.shape[1]
-    multifield = physics.startswith("multifield")
-    if P % 9 or (not multifield and P != 9) or hk < 1:
-        raise ValueError(f"f must be [9, H, W] ([9F, H, W] for the "
-                         f"multifield physics) with a halo of >= 1 row, got "
-                         f"{tuple(f.shape)} and {hk} rows")
-    want = {"top": (P, hk, W), "bot": (P, hk, W), "f_out": (P, H, W)}
+    hk = halo.width
+    want = {"top": (P, hk, W), "bot": (P, hk, W)}
+    if f_out is not None:
+        want["f_out"] = (P, H, W)
     if (halo.left is None) != (halo.right is None):
         raise ValueError("give both x strips (left, right) or neither")
     if halo.left is None:
@@ -361,19 +384,10 @@ def _check_halo(halo, f_out, mask, physics):
         if tuple(pieces[name].shape) != shape:
             raise ValueError(f"{name} must be {shape}, got "
                              f"{tuple(pieces[name].shape)}")
-    if f_out.data_ptr() == f.data_ptr():
+    if f_out is not None and f_out.data_ptr() == f.data_ptr():
         raise ValueError("f_out must be a distinct tensor (the step is out "
                          "of place)")
     if not (0 <= halo.y0 and halo.y0 + H <= halo.ny and 0 <= halo.x0
             and halo.x0 + W <= halo.nx):
         raise ValueError(f"a {H}x{W} shard at ({halo.y0}, {halo.x0}) does "
                          f"not lie in the {halo.ny}x{halo.nx} grid")
-    if mask is not None:
-        if physics not in ("flow", "velocity_inlet"):
-            raise ValueError(f"{physics} takes no obstacle mask")
-        region = (H + 2 * hk, W + 2 * hk)
-        if (mask.dtype != torch.int32 or tuple(mask.shape) != region
-                or mask.device != f.device or not mask.is_contiguous()):
-            raise ValueError(f"mask must be a contiguous int32 {region} "
-                             f"tensor on f's device")
-    return P

@@ -32,6 +32,15 @@ the plain step's order makes kernel and plain step sum forces alike.
   704``); its VMEM ring, CH/K tiling, ``nx % 128`` gate and density-emit
   stage are TPU scheduling and are not carried over.
 
+* :func:`mc_density_halo` and :func:`mc_step_halo` (K6h, the same kernels
+  on one shard of a domain-decomposed grid, the form JAX's halo kernel
+  runs under ``shard_map``): the shard and its halo of the lattice's reach
+  (a :class:`~lb2d_tpu_torch.ops.fused_halo.Halo`), with the densities and
+  ext planes read from whole-grid planes at global coordinates. Their plain
+  twins, :func:`mc_density_halo_reference` and
+  :func:`mc_step_halo_reference`, stream the halo-extended region
+  (:func:`stream_halo`) and run the plain step's update on the shard.
+
 The kernels run only on CUDA tensors; on CPU tensors each wrapper runs the
 plain version. Each wrapper counts its kernel launches in
 ``<wrapper>.launches``. :func:`mc_params` checks a configuration against
@@ -48,14 +57,18 @@ import torch
 
 from ..core import D2Q9, Lattice
 from . import _build
+from .boundary import GridCoords
 from .fused import _launch
+from .fused_halo import Halo, check_pieces
 from .spectral import screened_gradients_reference
 from .stream import stream
 
 __all__ = ["FluidParams", "MCKernelConfig", "SECOND_BELT_STENCIL", "get_psi",
            "mc_step_reference", "mc_density_reference", "mc_step",
-           "mc_density", "mc_params", "check_kernel_config", "MAX_MC_FLUIDS",
-           "MAX_MC_HOOKS", "MAX_MC_COLLISIONS"]
+           "mc_density", "stream_halo", "mc_density_halo_reference",
+           "mc_step_halo_reference", "mc_density_halo", "mc_step_halo",
+           "shard_cells", "lattice_reach", "mc_params", "check_kernel_config",
+           "MAX_MC_FLUIDS", "MAX_MC_HOOKS", "MAX_MC_COLLISIONS"]
 
 # what the kernels' by-value struct holds (csrc/mc_cell.cuh, Lb2dMcParams)
 MAX_MC_FLUIDS = 4
@@ -162,6 +175,22 @@ def _shift(field, cx, cy, bc):
     return field[..., rows, :][..., cols]
 
 
+def gather_shifted(field, cells, cx, cy, bc="periodic"):
+    """``field(x + c)`` ``[..., H, W]`` at the cells ``(rows, cols)`` (slices)
+    of a whole-grid ``field [..., ny, nx]``, with periodic wrap or
+    zero-gradient (clamped) neighbours: :func:`_shift` of the whole grid at
+    those cells."""
+    ny, nx = field.shape[-2:]
+    dev = field.device
+    rows = torch.arange(cells[0].start, cells[0].stop, device=dev) + cy
+    cols = torch.arange(cells[1].start, cells[1].stop, device=dev) + cx
+    if bc == "periodic":
+        rows, cols = rows % ny, cols % nx
+    else:
+        rows, cols = rows.clamp(0, ny - 1), cols.clamp(0, nx - 1)
+    return field[..., rows, :][..., cols]
+
+
 def get_psi(specifier, rho_1, rho_2, parameters, zero_density):
     """The 4 pseudopotential forms (``single_component.cl:609-651``)."""
     if specifier == 0:      # linear
@@ -188,15 +217,21 @@ def get_psi(specifier, rho_1, rho_2, parameters, zero_density):
     raise ValueError(f"unknown PSI specifier {specifier}")
 
 
-def _zero_gradient_bcs(f, i):
+def _zero_gradient_bcs(f, i, at: GridCoords | None = None):
     """``move_open_bcs`` (``single_component.cl:417-519``): every edge cell of
     fluid ``i`` copies all its populations from the adjacent interior cell,
     corners from the diagonal one; masked selects as the JAX version (rows
-    first, then lanes on the row-fixed values). Returns a new tensor."""
+    first, then lanes on the row-fixed values). ``at``: the global
+    coordinates of ``f``'s cells when ``f`` is a shard (its cells on the
+    grid's edges have their interior neighbours inside it); without it,
+    the array's edges. Returns a new tensor."""
     fi = f[:, i]
-    ny, nx = fi.shape[-2:]
-    row = torch.arange(ny, device=f.device)[:, None]
-    lane = torch.arange(nx, device=f.device)[None, :]
+    if at is None:
+        ny, nx = fi.shape[-2:]
+        row = torch.arange(ny, device=f.device)[:, None]
+        lane = torch.arange(nx, device=f.device)[None, :]
+    else:
+        row, lane, ny, nx = at
     down = torch.roll(fi, -1, dims=-2)   # value at (y+1, x)
     up = torch.roll(fi, 1, dims=-2)      # value at (y-1, x)
     fi = torch.where(row == 0, down, fi)
@@ -216,6 +251,34 @@ def _stream_bcs(f, cfg, lattice):
     for i, fl in enumerate(cfg.fluids):
         if fl.zero_gradient:
             f = _zero_gradient_bcs(f, i)
+    return f
+
+
+def shard_cells(halo: Halo) -> tuple:
+    """The rows and columns of a halo's shard in its grid, as slices."""
+    H, W = halo.f.shape[1:]
+    return (slice(halo.y0, halo.y0 + H), slice(halo.x0, halo.x0 + W))
+
+
+def stream_halo(halo: Halo, cfg: MCKernelConfig,
+                lattice: Lattice = D2Q9) -> torch.Tensor:
+    """The post-stream, post-BC populations ``[q, C, H, W]`` of a halo's
+    shard (``halo.f`` is ``[q C, H, W]``, its halo at least the lattice's
+    reach): the periodic stream of the halo-extended region cut back to
+    the shard, then the zero-gradient edges of ``cfg``'s fluids by global
+    coordinates. The same values as :func:`_stream_bcs` of the whole grid
+    at the shard's cells."""
+    q, hk = lattice.q, halo.width
+    P, H, W = halo.f.shape
+    region = halo.extended().view(q, P // q, H + 2 * hk, W + 2 * hk)
+    f = stream(region, lattice)[..., hk:hk + H, hk:hk + W].contiguous()
+    dev = halo.f.device
+    at = GridCoords((halo.y0 + torch.arange(H, device=dev))[:, None],
+                    (halo.x0 + torch.arange(W, device=dev))[None, :],
+                    halo.ny, halo.nx)
+    for i, fl in enumerate(cfg.fluids):
+        if fl.zero_gradient:
+            f = _zero_gradient_bcs(f, i, at)
     return f
 
 
@@ -247,6 +310,20 @@ def mc_step_reference(f: torch.Tensor, cfg: MCKernelConfig,
     density at its place among the hooks; with ``hold_screened`` it reads
     its pair of ``ext`` instead (the kernel path, and ``stale_force``
     sweeps)."""
+    # move + move_bcs per fluid (single_component.py:692-699)
+    return _mc_update(_stream_bcs(f, cfg, lattice), cfg, lattice, ext,
+                      hold_screened)
+
+
+def _mc_update(f, cfg, lattice, ext, hold_screened, around=None):
+    """The step after the stream: ``f`` the post-stream, post-BC
+    populations ``[q, C, R, S]``. ``around = (rho, cells)``: the
+    interactions read the neighbours' densities from the whole-grid
+    ``rho[C, ny, nx]`` at ``cells`` (a shard's rows and columns), not from
+    ``f``'s own: the pseudopotential of the whole grid's densities (the
+    same values, rounded as the unsharded step rounds them: PyTorch's CPU
+    ``pow`` rounds vector lanes and scalar tails apart), gathered at the
+    shifted cells (:func:`gather_shifted`)."""
     q, C = lattice.q, f.shape[1]
     like = dict(dtype=f.dtype, device=f.device)
     w = torch.tensor(lattice.w, **like)[:, None, None]
@@ -254,9 +331,6 @@ def mc_step_reference(f: torch.Tensor, cfg: MCKernelConfig,
     cy = torch.tensor(lattice.cy, **like)[:, None, None]
     cs2 = lattice.cs2
     zd = cfg.zero_density
-
-    # move + move_bcs per fluid (single_component.py:692-699)
-    f = _stream_bcs(f, cfg, lattice)
 
     # hydro per fluid (single_component.cl:214-274), direction order
     rho = _sum_in_order([f[j] for j in range(q)])          # [C, ny, nx]
@@ -301,6 +375,10 @@ def mc_step_reference(f: torch.Tensor, cfg: MCKernelConfig,
             bc = "zero_gradient" if clamped else "periodic"
             r1, r2 = rho[i1], rho[i2]
             psi1, psi2 = get_psi(spec, r1, r2, params, zd)
+            if around is not None:  # the whole grid's psi, as unsharded
+                rho_all, cells = around
+                nb1, nb2 = get_psi(spec, rho_all[i1], rho_all[i2], params,
+                                   zd)
             fx1 = torch.zeros_like(r1)
             fy1 = torch.zeros_like(r1)
             fx2 = torch.zeros_like(r1)
@@ -308,8 +386,12 @@ def mc_step_reference(f: torch.Tensor, cfg: MCKernelConfig,
             for wgt, (cxj, cyj) in stencil:
                 # psi is pointwise: psi of the shifted density is the
                 # shifted psi (single_component.cl:700-716)
-                p1 = _shift(psi1, cxj, cyj, bc)
-                p2 = _shift(psi2, cxj, cyj, bc)
+                if around is None:
+                    p1 = _shift(psi1, cxj, cyj, bc)
+                    p2 = _shift(psi2, cxj, cyj, bc)
+                else:
+                    p1 = gather_shifted(nb1, cells, cxj, cyj, bc)
+                    p2 = gather_shifted(nb2, cells, cxj, cyj, bc)
                 fx1 = fx1 + wgt * cxj * p2
                 fy1 = fy1 + wgt * cyj * p2
                 fx2 = fx2 + wgt * cxj * p1
@@ -458,6 +540,153 @@ def mc_step(f_in: torch.Tensor, f_out: torch.Tensor,
 
 
 mc_step.launches = 0
+
+
+# -- K6h: the same kernels on one shard of a domain-decomposed grid ---------
+
+def mc_density_halo_reference(halo: Halo, cfg: MCKernelConfig,
+                              lattice: Lattice = D2Q9) -> torch.Tensor:
+    """The post-stream densities ``[C, H, W]`` of a halo's shard (the plain
+    twin of :func:`mc_density_halo`): :func:`stream_halo`, summed in
+    direction order."""
+    f = stream_halo(halo, cfg, lattice)
+    return _sum_in_order([f[j] for j in range(lattice.q)])
+
+
+def mc_step_halo_reference(halo: Halo, rho: torch.Tensor | None,
+                           ext: torch.Tensor | None, cfg: MCKernelConfig,
+                           lattice: Lattice = D2Q9) -> torch.Tensor:
+    """One plain step of a halo's shard, ``[q C, H, W]`` (the plain twin of
+    :func:`mc_step_halo`; a new tensor): :func:`stream_halo`, then the step
+    of :func:`mc_step_reference` with the interactions' neighbour
+    densities read from the whole-grid ``rho[C, ny, nx]`` and the ext
+    planes (screened pairs held) cut from the whole-grid ``ext``. Equals
+    :func:`mc_step_reference` of the whole grid at the shard's cells."""
+    cells = shard_cells(halo)
+    if ext is not None:
+        ext = ext[:, cells[0], cells[1]]
+    out = _mc_update(stream_halo(halo, cfg, lattice), cfg, lattice, ext,
+                     True, around=(rho, cells) if cfg.interactions else None)
+    return out.reshape(halo.f.shape)
+
+
+def mc_density_halo(halo: Halo, rho: torch.Tensor, cfg: MCKernelConfig,
+                    lattice: Lattice = D2Q9) -> torch.Tensor:
+    """Write the post-stream densities of a halo's shard (``halo.f`` is
+    ``[q C, H, W]`` float32, its halo at least the lattice's reach: 1 cell
+    for D2Q9, 3 for D2Q25) into its band of the whole-grid ``rho[C, ny,
+    nx]`` and return ``rho``. Every shard's pass fills its band; a step
+    of :func:`mc_step_halo` reads its neighbours' bands.
+
+    On CUDA tensors this launches K6h's ``mc_density`` (counted in
+    ``mc_density_halo.launches``); on CPU tensors it runs
+    :func:`mc_density_halo_reference`.
+    """
+    C = _check_mc_halo(halo, None, cfg, lattice)
+    _check_grid_planes(rho, "rho", C, halo)
+    if halo.f.device.type == "cpu":
+        rows, cols = shard_cells(halo)
+        rho[:, rows, cols] = mc_density_halo_reference(halo, cfg, lattice)
+        return rho
+    with torch.cuda.device(halo.f.device):  # shards may lie on several cards
+        _launch("lb2d_mc_halo_density", *_pieces(halo), rho,
+                *_geometry(halo), lattice.q, C, _zero_gradient_mask(cfg))
+    mc_density_halo.launches += 1
+    return rho
+
+
+mc_density_halo.launches = 0
+
+
+def mc_step_halo(halo: Halo, f_out: torch.Tensor, rho: torch.Tensor | None,
+                 ext: torch.Tensor | None, cfg: MCKernelConfig,
+                 lattice: Lattice = D2Q9,
+                 params: _build.McParams | None = None) -> torch.Tensor:
+    """Write one multicomponent step of a halo's shard into ``f_out``
+    (``[q C, H, W]``) and return it. ``rho`` (``[C, ny, nx]``, when ``cfg``
+    has an interaction) holds every shard's post-stream densities
+    (:func:`mc_density_halo`); ``ext`` (``[2 pairs, ny, nx]``) the
+    whole-grid ext planes, screened pairs included; both are read at the
+    cells' global coordinates. ``params`` as :func:`mc_step`.
+
+    On CUDA tensors this launches K6h's ``mc_step`` (counted in
+    ``mc_step_halo.launches``); on CPU tensors it runs
+    :func:`mc_step_halo_reference`.
+    """
+    C = _check_mc_halo(halo, f_out, cfg, lattice)
+    pairs = cfg.num_ext_pairs
+    if pairs:
+        _check_grid_planes(ext, "ext", 2 * pairs, halo)
+    if cfg.interactions:
+        _check_grid_planes(rho, "rho", C, halo)
+    if halo.f.device.type == "cpu":
+        f_out.copy_(mc_step_halo_reference(halo, rho, ext, cfg, lattice))
+        return f_out
+    if params is None:
+        params = mc_params(cfg, lattice)
+    with torch.cuda.device(halo.f.device):
+        _launch("lb2d_mc_halo_step", *_pieces(halo), f_out,
+                rho if cfg.interactions else None, ext if pairs else None,
+                *_geometry(halo), lattice.q, C, _zero_gradient_mask(cfg),
+                params)
+    mc_step_halo.launches += 1
+    return f_out
+
+
+mc_step_halo.launches = 0
+
+
+def _pieces(halo):
+    return halo.f, halo.top, halo.bot, halo.left, halo.right
+
+
+def _geometry(halo):
+    H, W = halo.f.shape[1:]
+    return H, W, halo.width, halo.y0, halo.x0, halo.ny, halo.nx
+
+
+def _check_mc_halo(halo, f_out, cfg, lattice):
+    """Check a shard of ``cfg``'s fluids with a halo of the lattice's reach
+    (and its distinct output, unless None); return C."""
+    check_pieces(halo, f_out)
+    C = len(cfg.fluids)
+    if halo.f.shape[0] != lattice.q * C:
+        raise ValueError(f"f must hold {lattice.q} x {C} planes, got "
+                         f"{tuple(halo.f.shape)}")
+    if halo.width < lattice_reach(lattice):
+        raise ValueError(f"{lattice.name} needs a halo of "
+                         f"{lattice_reach(lattice)} cells, got {halo.width}")
+    H, W = halo.f.shape[1:]
+    if _zero_gradient_mask(cfg) and (H < 2 or (halo.left is not None
+                                               and W < 2)):
+        # the edge cell pulls at the cell inside it: reads one cell past
+        # the halo of a one-cell shard
+        raise ValueError(f"a zero-gradient fluid needs shards of at least "
+                         f"2 cells across, not {H}x{W}")
+    if halo.f.device.type == "cuda":
+        if C > MAX_MC_FLUIDS or lattice.q not in (9, 25):
+            check_kernel_config(cfg, lattice)  # raises, naming the limit
+        if min(halo.ny, halo.nx) < 3:
+            raise ValueError(f"the multicomponent kernel needs a grid of at "
+                             f"least 3 x 3, not {halo.ny} x {halo.nx}")
+    return C
+
+
+def _check_grid_planes(t, name, planes, halo):
+    want = (planes, halo.ny, halo.nx)
+    if t is None or tuple(t.shape) != want:
+        raise ValueError(f"{name} must be {want}, got "
+                         f"{None if t is None else tuple(t.shape)}")
+    if (t.dtype != halo.f.dtype or t.device != halo.f.device
+            or not t.is_contiguous()):
+        raise ValueError(f"{name} must be contiguous {halo.f.dtype} on "
+                         f"{halo.f.device}")
+
+
+def lattice_reach(lattice: Lattice) -> int:
+    """The farthest a population streams in one step: 1 for D2Q9, 3 for
+    D2Q25 (the halo a shard's step needs)."""
+    return int(max(abs(c) for c in (*lattice.cx, *lattice.cy)))
 
 
 def check_kernel_config(cfg: MCKernelConfig, lattice: Lattice):

@@ -16,7 +16,18 @@ read through their wrap; the BCs rewrite them by global coordinates.
 
 JAX exchanges x first and y second (``lb2d_tpu/parallel/halo.py:45-63``);
 its sharded K9 path y first (``lb2d_tpu/parallel/sharded.py:186-201``), as
-here. Both orders give the same extended block.
+here. Both orders give the same extended block. The exchange moves any
+stack of planes ``[P, H, W]`` at any width: K9's ``k``-step halos, the
+multicomponent and coupled shards' halos of the lattice's reach.
+
+The multicomponent and coupled shards' density passes write each shard's
+band of the post-stream densities into one whole-grid plane stack per
+device. :func:`exchange_bands` brings each device the belt around its
+shards' bands, which the interaction stencils read (the density halo, in
+the same two hops); :func:`gather_bands` completes the planes that the
+screened solve reads everywhere: a copy between the cards of one process,
+``all_gather`` across processes. Neither moves anything when one device
+of one process holds every shard.
 """
 
 from __future__ import annotations
@@ -27,7 +38,8 @@ import torch.distributed as dist
 from ..ops.fused_halo import Halo
 
 __all__ = ["Mesh", "this_rank", "ring_shift", "new_halos", "exchange_halos",
-           "extend_with_halo", "exchange_halo_2d"]
+           "extend_with_halo", "exchange_halo_2d", "band", "exchange_bands",
+           "gather_bands"]
 
 
 def this_rank() -> int:
@@ -84,14 +96,16 @@ def ring_shift(mesh: Mesh, chunks: dict, axis: str, direction: int,
     ring): each local shard ``pos`` receives into ``out[pos]`` the chunk of
     the shard ``direction`` places before it (``direction=+1``: from the
     previous shard). ``chunks`` and ``out`` hold tensors (views allowed) of
-    this process's shards. Returns ``out``."""
+    this process's shards; a chunk whose ``out`` is the same tensor is
+already in place. Returns ``out``."""
     rank = this_rank()
     ops, unpack = [], []
     for tag, dst in enumerate(mesh.positions()):
         src = mesh.neighbour(dst, axis, -direction)
         r_src, r_dst = mesh.rank(src), mesh.rank(dst)
         if r_src == rank and r_dst == rank:
-            out[dst].copy_(chunks[src])
+            if out[dst] is not chunks[src]:
+                out[dst].copy_(chunks[src])
         elif r_src == rank:
             ops.append(dist.P2POp(dist.isend, chunks[src].contiguous(),
                                   r_dst, tag=tag))
@@ -172,3 +186,104 @@ def extend_with_halo(mesh: Mesh, shards: dict, width: int = 1) -> dict:
 
 
 exchange_halo_2d = extend_with_halo  # JAX's second name for the same
+
+
+def band(pos, H: int, W: int) -> tuple:
+    """The rows and columns of shard ``pos``'s ``H x W`` band of the grid,
+    as slices."""
+    return (slice(pos[0] * H, (pos[0] + 1) * H),
+            slice(pos[1] * W, (pos[1] + 1) * W))
+
+
+def _one_device(mesh: Mesh, planes: dict) -> bool:
+    return len({rank for rank, _ in mesh.entries}) == 1 and len(planes) == 1
+
+
+def exchange_bands(mesh: Mesh, planes: dict, H: int, W: int,
+                   width: int) -> dict:
+    """Fill, in the whole-grid plane stacks of this process's devices
+    (``planes``: device -> ``[P, ny, nx]``, in which each local shard has
+    written its ``H x W`` band on its own device), the ``width`` rows and
+    columns around each local shard's band (corners included) from the
+    shards that hold them: the rows above and below first, then the
+    columns beside the y-extended rows, as :func:`exchange_halos` moves a
+    shard's halo (``width <= H``, and ``<= W`` when ``mx > 1``). Returns
+    ``planes``."""
+    if _one_device(mesh, planes):
+        return planes
+    ny, nx = mesh.my * H, mesh.mx * W
+    rank = this_rank()
+
+    def shift(axis, direction, y, rows, x, cols):
+        # src's cells [y0 + y, + rows) x [x0 + x, + cols), in every local
+        # dst's planes, from the shard ``direction`` places before dst
+        def region(src, dev):
+            y0, x0 = (src[0] * H + y) % ny, (src[1] * W + x) % nx
+            return planes[dev][:, y0:y0 + rows, x0:x0 + cols]
+
+        chunks, out = {}, {}
+        for pos in mesh.positions():
+            if mesh.rank(pos) == rank:
+                chunks[pos] = region(pos, mesh.device(pos))
+        for dst in mesh.positions():
+            if mesh.rank(dst) != rank:
+                continue
+            src = mesh.neighbour(dst, axis, -direction)
+            same = (mesh.rank(src) == rank
+                    and mesh.device(src) == mesh.device(dst))
+            out[dst] = chunks[src] if same else region(src, mesh.device(dst))
+        ring_shift(mesh, chunks, axis, direction, out)
+
+    w = width
+    shift("y", +1, H - w, w, 0, W)
+    shift("y", -1, 0, w, 0, W)
+    if mesh.mx > 1:
+        for y, rows in ((-w, w), (0, H), (H, w)):
+            shift("x", +1, y, rows, W - w, w)
+            shift("x", -1, y, rows, 0, w)
+    return planes
+
+
+def gather_bands(mesh: Mesh, planes: dict, H: int, W: int,
+                 index) -> dict:
+    """Complete planes ``index`` (a sequence of plane numbers) of the
+    whole-grid stacks of this process's devices (``planes``: device
+    -> ``[P, ny, nx]``, in which each local shard has written its ``H x
+    W`` band on its own device) with every other shard's band: copies
+    between this process's devices, and one ``all_gather`` of the local
+    bands across processes (each holds as many shards). Returns
+    ``planes``."""
+    if _one_device(mesh, planes):
+        return planes
+    index = list(index)
+    ranks = {rank for rank, _ in mesh.entries}
+    local = mesh.local_positions()
+    if len(ranks) == 1:
+        for pos in local:
+            rows, cols = band(pos, H, W)
+            src = planes[mesh.device(pos)]
+            for dev, t in planes.items():
+                if dev != mesh.device(pos):
+                    for i in index:
+                        t[i, rows, cols] = src[i, rows, cols]
+        return planes
+    counts = {rank: sum(1 for r, _ in mesh.entries if r == rank)
+              for rank in ranks}
+    if len(set(counts.values())) != 1:
+        raise ValueError(f"gather_bands needs as many shards on every "
+                         f"process, got {counts}")
+    first = planes[mesh.device(local[0])]
+    mine = torch.stack([planes[mesh.device(p)][index][(slice(None),) + band(
+        p, H, W)].to(first.device) for p in local])
+    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, mine)
+    rank = this_rank()
+    for r, part in enumerate(parts):
+        owned = [p for p in mesh.positions() if mesh.rank(p) == r]
+        for k, pos in enumerate(owned):
+            rows, cols = band(pos, H, W)
+            for dev, t in planes.items():
+                if r != rank or dev != mesh.device(pos):
+                    for j, i in enumerate(index):
+                        t[i, rows, cols] = part[k][j]
+    return planes

@@ -1,5 +1,6 @@
-"""Domain decomposition of the flow, diffusion and multifield families
-(counterpart of ``lb2d_tpu.parallel.sharded``).
+"""Domain decomposition of the flow, diffusion, multifield,
+multicomponent and coupled families (counterpart of
+``lb2d_tpu.parallel.sharded`` and ``SimulationRunner.shard_over``).
 
 A grid is cut into the ``H x W`` shards of a :class:`~lb2d_tpu_torch.
 parallel.halo.Mesh`; each process keeps its own shards on their devices
@@ -28,25 +29,65 @@ tensors (``[9, H, W]``; ``[9 F, H, W]`` for multifield, plane ``j F + p``);
 :meth:`load_numpy_state` splits one into the shards. A wrapped model gives
 its state up to the shards (its ``state`` becomes None, so no device keeps
 the whole grid) and follows the sharded model's ``steps_taken``.
+
+The multicomponent runner (:class:`ShardedRunner`, what
+``SimulationRunner.shard_over`` drives) and the coupled families
+(:class:`ShardedCoupled`) step one step per launch, K6h and K7h: the
+halo is the lattice's reach, and the post-stream densities, which the
+interaction stencils read at the neighbours and the screened-Poisson
+solve reads everywhere, go into one whole-grid plane stack per device,
+filled band by band by the shards' density passes; across devices and
+processes :func:`~lb2d_tpu_torch.parallel.halo.exchange_bands` brings
+each device the belt around its shards, and :func:`~lb2d_tpu_torch.
+parallel.halo.gather_bands` completes the solve's source planes alone; K8
+then solves once per device (JAX runs its matmul DFT on the sharded
+density under GSPMD, ``sharded.py:734-750``). JAX's sweeps of
+K kernel steps per exchange, its ext halo chunks and its 128-lane x strips
+are TPU scheduling and have no counterpart.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..models.base import plain_backend
+from ..models.base import held_solve_sweep, plain_backend
 from ..ops.fused import MAX_TEMPORAL_K, multifield_max_k
+from ..ops.fused_coupled import (
+    _density_config,
+    coupled_density_halo,
+    coupled_params,
+    coupled_step_halo,
+    coupled_step_halo_reference,
+)
 from ..ops.fused_halo import (
     cut_region,
     supports_temporal_halo,
     temporal_halo_step,
     temporal_halo_step_reference,
 )
-from .halo import Mesh, exchange_halos, new_halos, this_rank
+from ..ops.fused_mc import (
+    lattice_reach,
+    mc_density_halo,
+    mc_density_halo_reference,
+    mc_step_halo,
+    mc_step_halo_reference,
+    shard_cells,
+    stream_halo,
+)
+from .halo import (
+    Mesh,
+    band,
+    exchange_bands,
+    exchange_halos,
+    gather_bands,
+    new_halos,
+    this_rank,
+)
 
 __all__ = [
     "make_sharded_pipe_step",
@@ -56,6 +97,7 @@ __all__ = [
     "ShardedDiffusion",
     "ShardedMultifield",
     "ShardedCoupled",
+    "ShardedRunner",
 ]
 
 
@@ -208,6 +250,7 @@ class _ShardedModel:
         self._sweep_fn = sweep
         first = next(iter(blocks.values()))
         self._planes, self._H, self._W = first.shape
+        self._dtype = torch.empty((), dtype=first.dtype).numpy().dtype
 
     def _sweep(self, k):
         self._sweep_fn(self.halos, self._spare, k)
@@ -263,16 +306,21 @@ class _ShardedModel:
         process's shards; in JAX ``np.asarray(jax.device_get(sh.state))``)."""
         if self._single is not None:
             return self._single.state_numpy()
+        return self._assemble({pos: h.f for pos, h in self.halos.items()})
+
+    def _assemble(self, parts: dict) -> np.ndarray:
+        """The global ``[P', ny, nx]`` numpy array of per-shard tensors
+        ``[P', H, W]`` (position -> tensor), every process's."""
         H, W = self._H, self._W
-        blocks = {pos: (h.y0, h.x0, h.f.detach().cpu().numpy())
-                  for pos, h in self.halos.items()}
+        blocks = {pos: t.detach().cpu().numpy() for pos, t in parts.items()}
         if len({rank for rank, _ in self.mesh.entries}) > 1:
             gathered = [None] * dist.get_world_size()
             dist.all_gather_object(gathered, blocks)
             blocks = {k: v for part in gathered for k, v in part.items()}
-        out = np.empty((self._planes, self.ny, self.nx), np.float32)
-        for y0, x0, a in blocks.values():
-            out[:, y0:y0 + H, x0:x0 + W] = a
+        first = next(iter(blocks.values()))
+        out = np.empty((first.shape[0], self.ny, self.nx), first.dtype)
+        for pos, a in blocks.items():
+            out[(slice(None),) + band(pos, H, W)] = a
         return out
 
     def load_numpy_state(self, f) -> None:
@@ -281,7 +329,7 @@ class _ShardedModel:
         shards: for example a JAX model's state."""
         if self._single is not None:
             return self._single.load_numpy_state(f)
-        f = np.asarray(f, np.float32)
+        f = np.asarray(f, self._dtype)
         if f.size != self._planes * self.ny * self.nx:
             raise ValueError(f"state must hold {self._planes} planes of "
                              f"{self.ny}x{self.nx}, got {f.shape}")
@@ -445,17 +493,293 @@ class ShardedMultifield(_ShardedModel):
         base.state = None  # the shards hold it now
 
 
-class ShardedCoupled:
-    """Not ported yet: the coupled families over a mesh
-    (``sharded.py:630-853``) need K6/K7 on halo-extended shards and a
-    sharded screened solve, ROADMAP queue 1 item 2 (``parallel/``, part
-    2)."""
+class _DensityShards(_ShardedModel):
+    """The run loop of the multicomponent runner's and the coupled
+    families' shards, one step per launch (K6h, K7h) around whole-grid
+    planes on each device.
+
+    A step exchanges the shards' halos of the lattice's reach (1 for D2Q9,
+    3 for D2Q25); when the step reads densities, every shard's density pass
+    writes its band of the post-stream densities into one whole-grid
+    ``rho`` per device. Across devices and processes, each device then
+    receives the ``belt`` rows and columns around its shards' bands that
+    the interaction stencils read (:func:`~lb2d_tpu_torch.parallel.halo.
+    exchange_bands`), and, before a solve (the screened-Poisson force or
+    velocity), the whole of the planes the solve reads (:func:`~lb2d_tpu_
+    torch.parallel.halo.gather_bands`); the solve runs once per device from
+    them into whole-grid ext planes; then each shard's step reads ``rho``
+    at its neighbours' and ext at its own global cells.
+    ``held_solve_sweep`` holds the solve for a sweep of ``steps_per_call``
+    steps, as the unsharded models do; a shorter sweep, the rest of
+    ``run(n)``, is exact single steps.
+
+    Subclasses call :meth:`_place` with their shards, then
+    :meth:`_set_step` with ``density(halo, rho)``, ``step(halo, out, rho,
+    ext)``, the solve ``solve(rho, ext)`` (or None), the planes of ``rho``
+    (0 for none), the belt and the planes the solve reads.
+    """
+
+    def _set_step(self, density, step, solve, rho_planes, ext, dtype,
+                  belt, solve_planes):
+        """``ext``: the whole-grid ext planes ``[E, ny, nx]`` to start from
+        on every device (None for none); ``belt``: how far the step reads
+        the neighbours' densities (0: not at all, and the density pass runs
+        only before a solve); ``solve_planes``: the planes of ``rho`` the
+        solve reads."""
+        self._density_fn, self._step_fn, self._solve_fn = density, step, solve
+        self._belt, self._solve_planes = belt, tuple(solve_planes)
+        devices = {self.mesh.device(p) for p in self.halos}
+        like = dict(dtype=dtype)
+        self._rho = ({d: torch.empty((rho_planes, self.ny, self.nx),
+                                     device=d, **like) for d in devices}
+                     if rho_planes else {})
+        self._ext = ({d: ext.to(d, copy=True) for d in devices}
+                     if ext is not None else {})
+
+    def _sweep(self, k):
+        if 1 < k < self.steps_per_call:
+            for _ in range(k):
+                self._sweep(1)
+            return
+        fresh = [False]
+
+        def exchange():
+            if not fresh[0]:
+                exchange_halos(self.mesh, self.halos)
+                fresh[0] = True
+
+        def density(_):
+            exchange()
+            for pos, h in self.halos.items():
+                self._density_fn(h, self._rho[self.mesh.device(pos)])
+            if self._belt:
+                exchange_bands(self.mesh, self._rho, self._H, self._W,
+                               self._belt)
+            return self._rho
+
+        def solve(rho):
+            gather_bands(self.mesh, rho, self._H, self._W, self._solve_planes)
+            for dev, r in rho.items():
+                with _on(dev):  # K8 launches on the current card
+                    self._solve_fn(r, self._ext[dev])
+
+        def step(_, rho):
+            exchange()
+            for pos, h in self.halos.items():
+                dev = self.mesh.device(pos)
+                self._step_fn(h, self._spare[pos], self._rho.get(dev),
+                              self._ext.get(dev))
+            for pos, h in self.halos.items():
+                self._spare[pos], self.halos[pos] = h.f, h._replace(
+                    f=self._spare[pos])
+            fresh[0] = False
+
+        held_solve_sweep(None, k, step, density,
+                         solve if self._solve_fn is not None else None,
+                         density_every_step=bool(self._belt))
+
+    def _state_model(self) -> torch.Tensor:
+        """The global state in the wrapped model's layout (gathered to its
+        device)."""
+        return torch.from_numpy(self.state_numpy()).reshape(
+            self._base_shape).to(self.base.device)
+
+
+def _on(device):
+    """The context that makes ``device`` the current card (none for the
+    CPU)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _check_backend(model, mesh):
+    """The shards run on the device type the model was built for (so a
+    model built on the CPU, whose ``auto`` is the plain step, never runs
+    it on a card unasked), and the kernel backend on CUDA devices. Returns
+    whether the kernels run."""
+    devices = {mesh.device(p).type for p in mesh.positions()}
+    if devices != {model.device.type}:
+        raise ValueError(
+            f"a model built on {model.device.type} shards over "
+            f"{model.device.type} devices, not {sorted(devices)}: build it "
+            "with device='cuda' for a CUDA mesh (backend='eager' names the "
+            "plain step there), or shard over devices=['cpu'] * n")
+    if model.backend == "kernel" and devices != {"cuda"}:
+        raise ValueError("a model on the kernel backend shards over CUDA "
+                         f"devices, not {sorted(devices)}; build it with "
+                         "device='cpu' (the plain twins) for a CPU mesh")
+    return model.backend == "kernel"
+
+
+def _reach_fits(mesh, H, W, reach, what="the lattice's reach"):
+    if H < reach or (mesh.mx > 1 and W < reach):
+        raise ValueError(f"{H}x{W} shards are smaller than {what} of "
+                         f"{reach} cells")
+
+
+class ShardedRunner(_DensityShards):
+    """A :class:`~lb2d_tpu_torch.models.SimulationRunner` cut into the
+    shards of a mesh: what ``SimulationRunner.shard_over`` drives
+    (``lb2d_tpu/models/multicomponent.py:834-871``, whose kernel path runs
+    JAX's K6 per shard, ``:590-700``). Each step is K6h's density pass (when
+    an interaction or a screened-Poisson hook reads densities), K8 once per
+    device on the gathered density for each screened hook (once per
+    ``stale_force`` sweep), and K6h's step, on the ``kernel`` backend; the
+    plain twins on ``eager``. The runner gives its state up to the shards
+    (``runner.f`` becomes None). The sharded state is ``[q C, H, W]`` per
+    shard (plane ``j C + i``)."""
+
+    def __init__(self, runner, mesh: Mesh):
+        self.base, self.mesh = runner, mesh
+        self.ny, self.nx = runner.ny, runner.nx
+        self.steps_taken = runner.steps_taken
+        self.kernel = _check_backend(runner, mesh)
+        lat = runner.lattice
+        q, C = lat.q, runner.num_populations
+        H, W = _shard_shape(mesh, self.ny, self.nx)
+        reach = lattice_reach(lat)
+        _reach_fits(mesh, H, W, reach)
+        if any(fl.bc == "zero_gradient" for fl in runner.fluid_list):
+            # an edge cell pulls at the cell inside it, one cell further in
+            _reach_fits(mesh, H, W, 2, "a zero-gradient edge's reach")
+        self._base_shape = (q, C, self.ny, self.nx)
+        self._place(_split(mesh, runner.f.reshape(q * C, self.ny, self.nx),
+                           H, W), reach, None)
+        self.steps_per_call = 1
+        self._plan = None
+
+    def prepare(self, k_steps=None, debug=False):
+        """Build the step from the runner's plan (its hooks as registered
+        now) and set ``steps_per_call`` for a run."""
+        runner = self.base
+        if runner._plan is None:
+            runner._make_plan()
+        if self._plan is not runner._plan:  # hooks registered since
+            self._plan = runner._plan
+            cfg, ext, params = self._plan
+            lat, kernel = runner.lattice, self.kernel
+
+            def density(h, rho):
+                if kernel:
+                    mc_density_halo(h, rho, cfg, lat)
+                else:
+                    rows, cols = shard_cells(h)
+                    rho[:, rows, cols] = mc_density_halo_reference(h, cfg,
+                                                                   lat)
+
+            def step(h, out, rho, ext):
+                if kernel:
+                    mc_step_halo(h, out, rho, ext, cfg, lat, params)
+                else:
+                    out.copy_(mc_step_halo_reference(h, rho, ext, cfg, lat))
+
+            def solve(rho, ext):
+                runner._solve_screened(rho, ext, plain=not kernel)
+
+            belt = max((hook[6] for hook in cfg.interactions), default=0)
+            _reach_fits(self.mesh, self._H, self._W, belt,
+                        "the interactions' belt")
+            reads = bool(cfg.interactions or cfg.screened)
+            self._set_step(density, step, solve if cfg.screened else None,
+                           runner.num_populations if reads else 0, ext,
+                           runner.dtype, belt,
+                           sorted({hook[3] for hook in cfg.screened}))
+        self.steps_per_call = 1 if debug else runner._sweep_depth(k_steps)
+        return self
+
+    def fluid_views(self) -> list:
+        """This process's shards as ``[q, C, H, W]`` views."""
+        q, C = self.base.lattice.q, self.base.num_populations
+        return [h.f.view(q, C, self._H, self._W) for h in self.halos.values()]
+
+    def sum_over_processes(self, sums: dict) -> dict:
+        """Per-process sums (name -> float) summed over every process of
+        the mesh."""
+        if len({rank for rank, _ in self.mesh.entries}) == 1:
+            return sums
+        parts = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, sums)
+        return {k: sum(p[k] for p in parts) for k in sums}
+
+    def hydro(self):
+        """The runner's ``rho [C, ny, nx]``, ``u_bary`` and ``v_bary`` of
+        the shards (``_refresh_hydro``'s formulas per shard), gathered to
+        its device."""
+        C = self.base.num_populations
+        parts = {}
+        for pos, f in zip(self.halos, self.fluid_views()):
+            rho, u, v = self.base._hydro_of(f)
+            parts[pos] = torch.cat([rho, u[None], v[None]])
+        out = torch.from_numpy(self._assemble(parts)).to(self.base.device)
+        return out[:C], out[C], out[C + 1]
+
+
+class ShardedCoupled(_DensityShards):
+    """The coupled families over a mesh (``lb2d_tpu/parallel/sharded.py:
+    630-853``): wraps a constructed :class:`~lb2d_tpu_torch.models.
+    RocketYeast` (or ``RocketYeastForcesOnly``), ``SurfactantNutrientWave``
+    (or ``Clumpy...``) or ``ScreenedFisherWave``. Each step is K6h's density
+    pass when the step or the solve reads densities, the screened velocity
+    solved by K8 once per device on the gathered population density (once
+    per sweep of ``K = k_steps``, default the model's ``stale_velocity``),
+    and K7h per shard, on the model's ``kernel`` backend; the plain twins
+    on ``eager``. Rocket yeast is local: one step per sweep. The model gives
+    its state up to the shards (its ``state`` becomes None) and follows
+    ``steps_taken``. JAX's sweeps of K kernel steps and its matmul DFT under
+    GSPMD have no counterpart (``PERF.md``)."""
 
     def __init__(self, base, mesh: Mesh | None = None,
                  k_steps: int | None = None):
-        raise NotImplementedError(
-            "ShardedCoupled comes with ROADMAP queue 1 item 2 (parallel/, "
-            "part 2)")
+        from ..models.waves import CoupledModel
+
+        if not isinstance(base, CoupledModel):
+            raise TypeError(f"unsupported model {type(base).__name__}")
+        self.base = base
+        self.mesh = mesh if mesh is not None else make_mesh()
+        self.ny, self.nx = base.ny, base.nx
+        self.steps_taken = base.steps_taken
+        kernel = _check_backend(base, self.mesh)
+        cfg = base.coupled_config()
+        F = cfg.fields
+        H, W = _shard_shape(self.mesh, self.ny, self.nx)
+        _reach_fits(self.mesh, H, W, 1)
+        velocity = base._velocity
+        self.steps_per_call = (int(k_steps or base.stale_velocity)
+                               if velocity is not None else 1)
+        if self.steps_per_call < 1:
+            raise ValueError(f"k_steps must be >= 1, got {k_steps}")
+        self._base_shape = tuple(base.state.shape)
+        self._place(_split(self.mesh, base.state.reshape(9 * F, self.ny,
+                                                         self.nx), H, W),
+                    1, None)
+        base.state = None  # the shards hold it now
+        prm = coupled_params(cfg) if kernel else None
+        density_cfg = _density_config(F)
+
+        def density(h, rho):
+            if kernel:
+                coupled_density_halo(h, rho)
+            else:  # the eager model's density: the stream, summed
+                rows, cols = shard_cells(h)
+                rho[:, rows, cols] = stream_halo(h, density_cfg).sum(dim=0)
+
+        def step(h, out, rho, ext):
+            if kernel:
+                coupled_step_halo(h, out, rho, ext, cfg, prm)
+            else:
+                out.copy_(coupled_step_halo_reference(h, rho, ext, cfg))
+
+        def solve(rho, ext):
+            velocity.planes(rho[base.POP], out=ext)
+
+        ext = (torch.zeros((2, self.ny, self.nx), dtype=base.dtype)
+               if cfg.reads_ext else None)
+        reads = cfg.reads_neighbours or velocity is not None
+        self._set_step(density, step,
+                       solve if velocity is not None else None,
+                       F if reads else 0, ext, base.dtype,
+                       1 if cfg.reads_neighbours else 0, (base.POP,))
 
 
 def _split(mesh: Mesh, f: torch.Tensor, H: int, W: int) -> dict:

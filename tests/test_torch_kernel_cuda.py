@@ -24,6 +24,11 @@ K8 to the eager runner. K9, the step of one shard from its halos, is held
 to its plain twin at 1e-6 for the flow physics and at 0 for the diffusion
 and multifield physics, on shards of an unaligned grid, and the sharded
 models to the unsharded K2 / K4 runs (1e-6 for flow, 0 for the rest).
+K6h and K7h, K6 and K7 on a shard and its halo, are held to the unsharded
+K6 / K7 and to their plain twins at 1e-6 after 5 steps (the same per-cell
+code, so the unsharded kernels are expected to agree exactly), and the
+sharded runner (config 5, stale or not) and ``ShardedCoupled`` to the
+unsharded kernel runs. P2, the transpose, is exact.
 """
 
 import numpy as np
@@ -34,7 +39,9 @@ from lb2d_tpu_torch.core import D2Q9, D2Q25
 from lb2d_tpu_torch.halo_cases import (
     HALO_CASES,
     HALO_MESHES,
+    compare_coupled_halo,
     compare_halo_case,
+    compare_mc_halo,
     halo_case_ks,
     halo_case_state,
     halo_tolerance,
@@ -83,7 +90,14 @@ from lb2d_tpu_torch.ops.fused_coupled import (
     coupled_step_reference,
 )
 from lb2d_tpu_torch.ops.fused_halo import temporal_halo_step
-from lb2d_tpu_torch.ops.fused_mc import mc_density, mc_step, mc_step_reference
+from lb2d_tpu_torch.ops.fused_coupled import coupled_step_halo
+from lb2d_tpu_torch.ops.fused_mc import (
+    mc_density,
+    mc_density_halo,
+    mc_step,
+    mc_step_halo,
+    mc_step_reference,
+)
 from lb2d_tpu_torch.ops.spectral import (
     SOLVE_LAUNCHES,
     dft_axis0,
@@ -97,7 +111,9 @@ from lb2d_tpu_torch.ops.random import (
     philox4x32_10,
     philox_bits,
 )
+from lb2d_tpu_torch.ops.transpose import transpose, transpose_reference
 from lb2d_tpu_torch.parallel import (
+    ShardedCoupled,
     ShardedDiffusion,
     ShardedMultifield,
     ShardedPipeFlow,
@@ -819,3 +835,101 @@ def test_sharded_models_equal_unsharded_kernels(cuda, name, mesh):
     sh.run(n)
     want = single.state_numpy().reshape(sh.state_numpy().shape)
     assert np.array_equal(sh.state_numpy(), want)
+
+
+# K6h and K7h: K6 and K7 on a shard and its halo
+HALO_IDS = [f"{my}x{mx}" for my, mx in HALO_MESHES]
+
+
+@pytest.mark.parametrize("mesh", HALO_MESHES, ids=HALO_IDS)
+@pytest.mark.parametrize("case", list(MC_CASES))
+def test_mc_halo_kernel_matches_k6_and_twin(cuda, case, mesh):
+    """K6h on the shards of a 254x382 runner state (shards of unequal edges,
+    with and without x strips; D2Q25 and zero-gradient edges among the
+    cases), 5 steps, against K6 on the whole grid and the plain twins."""
+    sim = mc_case(case, 254, 382, device=cuda)
+    cuts = shard_cuts(254, 382, *mesh)
+    before = (mc_density_halo.launches, mc_step_halo.launches)
+    d_k6, d_twin, d_rho = compare_mc_halo(sim.f, sim.config(), sim.lattice,
+                                          sim.ext_planes(), cuts)
+    torch.cuda.synchronize()
+    assert (mc_density_halo.launches - before[0],
+            mc_step_halo.launches - before[1]) == (5 * len(cuts),) * 2
+    assert d_k6 <= TOL and d_twin <= TOL and d_rho <= TOL, (d_k6, d_twin,
+                                                            d_rho)
+
+
+@pytest.mark.parametrize("mesh", HALO_MESHES, ids=HALO_IDS)
+@pytest.mark.parametrize("physics", list(COUPLED_PHYSICS))
+def test_coupled_halo_kernel_matches_k7_and_twin(cuda, physics, mesh):
+    """K7h on the shards of a random 254x382 state with a random velocity
+    field, 5 steps, against K7 on the whole grid and the plain twin."""
+    cfg = _coupled_config(physics)
+    rs = np.random.RandomState(7)
+    w = np.asarray(D2Q9.w)[:, None, None, None]
+    f = torch.tensor(w * (0.2 + rs.rand(9, cfg.fields, 254, 382)),
+                     dtype=torch.float32, device=cuda)
+    ext = torch.tensor(0.02 * (rs.rand(2, 254, 382) - 0.5),
+                       dtype=torch.float32, device=cuda)
+    cuts = shard_cuts(254, 382, *mesh)
+    before = coupled_step_halo.launches
+    d_k7, d_twin = compare_coupled_halo(f, cfg, ext, cuts)
+    torch.cuda.synchronize()
+    assert coupled_step_halo.launches == before + 5 * len(cuts)
+    assert d_k7 <= TOL and d_twin <= TOL, (d_k7, d_twin)
+
+
+@pytest.mark.parametrize("stale", [None, 4], ids=["exact", "stale4"])
+@pytest.mark.parametrize("mesh", [(4, 1), (2, 2)], ids=["4x1", "2x2"])
+def test_sharded_config5_matches_unsharded_kernel(cuda, mesh, stale):
+    """BASELINE config 5 at 256^2 ``shard_over`` four shards of one card
+    (K6h, K8 once per step or sweep on the gathered density) against the
+    unsharded K6 + K8 runner, 9 steps."""
+    single = _config5(256, stale)
+    sh = _config5(256, stale).shard_over(make_mesh(devices=[cuda] * 4,
+                                                   shape=mesh))
+    assert sh.f is None
+    before = (mc_step_halo.launches, screened_gradients.launches)
+    single.run(9)
+    sh.run(9)
+    torch.cuda.synchronize()
+    solves = 9 if stale is None else 3
+    assert (mc_step_halo.launches - before[0],
+            screened_gradients.launches - before[1]) == (
+                4 * 9, 2 * SOLVE_LAUNCHES * solves)
+    d = float(np.abs(sh.state_numpy() - single.state_numpy()).max())
+    assert d <= TOL, d
+    assert float((sh.rho - single.rho).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("name,stale", COUPLED_RUNS,
+                         ids=[f"{n}-stale{k}" for n, k in COUPLED_RUNS])
+def test_sharded_coupled_matches_unsharded_kernel(cuda, name, stale):
+    """ShardedCoupled on 2x2 shards of one card (K7h, K8 on the gathered
+    density) against the unsharded kernel run, ``run(7)``."""
+    kw = dict(device=cuda)
+    if not name.startswith("Rocket"):
+        kw["stale_velocity"] = stale
+    single = COUPLED_MODELS[name](**kw)
+    sh = ShardedCoupled(COUPLED_MODELS[name](**kw),
+                        mesh=make_mesh(devices=[cuda] * 4, shape=(2, 2)))
+    before = coupled_step_halo.launches
+    single.run(7)
+    sh.run(7)
+    torch.cuda.synchronize()
+    assert coupled_step_halo.launches == before + 4 * 7
+    d = float(np.abs(sh.state_numpy().ravel()
+                     - single.state_numpy().ravel()).max())
+    assert d <= TOL, d
+
+
+# P2, the transpose
+@pytest.mark.parametrize("shape", [(4224, 8192), (254, 382), (1, 33),
+                                   (33, 1)])
+def test_transpose_kernel_is_exact(cuda, shape):
+    x = torch.randn(shape, device=cuda)
+    before = transpose.launches
+    got = transpose(x)
+    torch.cuda.synchronize()
+    assert transpose.launches == before + 1
+    assert torch.equal(got, transpose_reference(x))

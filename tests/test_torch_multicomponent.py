@@ -321,16 +321,26 @@ def test_d2q25_runner():
 
 def test_screened_poisson_and_shard_over_name_their_roadmap_item():
     """``add_screened_poisson_force`` is ported (it registers a hook and
-    checks its precision); ``shard_over`` still raises, naming queue 1
-    item 2."""
+    checks its precision); so is ``shard_over``, once a stub naming ROADMAP
+    queue 1 item 2: it returns the runner, which gives its state up to the
+    shards and runs on them (``tests/test_torch_sharded_runner.py`` holds
+    it to JAX)."""
+    from lb2d_tpu_torch.parallel import make_mesh
+
     sim = build(torch_mc, "c", 32, 32)
     sim.add_screened_poisson_force(0, 1, interaction_length=4.0,
                                    amplitude=0.02, precision="bf16x3")
     assert sim.config().screened == (("screened", 1, 0, 0, 16.0, 0.02),)
     with pytest.raises(ValueError, match="precision"):
         sim.add_screened_poisson_force(0, 1, 4.0, 0.02, precision="bf16")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        sim.shard_over(None)
+    single = build(torch_mc, "c", 32, 32)
+    single.add_screened_poisson_force(0, 1, interaction_length=4.0,
+                                      amplitude=0.02, precision="bf16x3")
+    assert sim.shard_over(make_mesh(devices=["cpu"] * 4)) is sim
+    assert sim.f is None
+    single.run(2)
+    sim.run(2)
+    assert np.array_equal(sim.state_numpy(), single.state_numpy())
 
 
 def test_kernel_backend_on_the_cpu_raises():

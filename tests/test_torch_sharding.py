@@ -316,8 +316,19 @@ def test_state_crosses_from_jax():
 
 
 def test_sharded_coupled_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        ShardedCoupled(None, mesh=_mesh((2, 2)))
+    """Once a stub that raised (ROADMAP queue 1 item 2): ShardedCoupled is
+    ported. It takes the model's state (``state`` becomes None) and its
+    run equals the unsharded model's bit for bit
+    (``tests/test_torch_sharded_coupled.py`` holds it to JAX)."""
+    kw = dict(Lx=1.0, Ly=1.0, R0=0.2, epsilon=0.05, N=32, G_chen=-0.1)
+    single = torch_models.RocketYeast(device="cpu", **kw)
+    sh = ShardedCoupled(torch_models.RocketYeast(device="cpu", **kw),
+                        mesh=_mesh((2, 2)))
+    assert sh.base.state is None
+    single.run(3)
+    sh.run(3)
+    assert np.array_equal(sh.state_numpy().reshape(single.state.shape),
+                          single.state_numpy())
 
 
 def _jax_halo_case(physics, rng):

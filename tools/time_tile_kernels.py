@@ -1,7 +1,7 @@
-"""Time K2 and K4 per launch on the card, at the shapes of PERF.md's kernel
-table, and print one JSON line.
+"""Time K2, K4, K6 and K7 per launch on the card, at the shapes of
+PERF.md's kernel table, and print one JSON line.
 
-    cd <checkout> && python3 <path>/tools/time_tile_kernels.py [label]
+    cd <checkout> && python3 <path>/tools/time_tile_kernels.py [label] [k7]
 
 imports ``lb2d_tpu_torch`` from the working directory, so one copy of this
 script times any checkout of the port: run two checkouts in turns (A, B, B,
@@ -12,7 +12,14 @@ launch. Shapes: K2 flow 4096^2 at K = 3, K2 diffusion and noisy Fisher
 with F = 3, both at K = 4 (the models' ``auto`` paths); where the checkout
 has K9, K9 flow on the first 2048 x 8192 shard of an 8192^2 grid (the
 sharded main path's) and K9 noisy Fisher on a 1024^2 shard of a 2048^2
-grid, from random states.
+grid, from random states; K6 ``mc_density`` and ``mc_step`` on the 8192^2
+porous two-fluid Shan-Chen runner of BASELINE config 5 (without its
+screened hook) and K7 per physics at the coupled models' shapes
+(``chip_smoke.py``'s: 1024^2, the surfactant waves 512^2; there a launch
+takes 15-90 us and the host's launch rate shows) and at 2048^2, on the
+models' states (K7's velocity planes those of the state's density). With
+``k7`` after the label, K7 alone, so that many pairs of runs fit in one
+call.
 """
 
 import json
@@ -76,6 +83,11 @@ def _ping_pong(state, step):
 def main():
     out = {"label": sys.argv[1] if len(sys.argv) > 1 else os.getcwd(),
            "card": torch.cuda.get_device_name(0)}
+    if sys.argv[2:] == ["k7"]:
+        for n in (1024, 2048):
+            out.update(_k7_times(n))
+        print(json.dumps(out), flush=True)
+        return
     sim = PipeFlow(device="cuda", **FLOW)
     kw = dict(omega=sim.omega, inlet_rho=sim.inlet_rho,
               outlet_rho=sim.outlet_rho, incompressible=False)
@@ -118,7 +130,83 @@ def main():
             outb = torch.empty_like(halo.f)
             out[f"K9 {name} {H}x{halo.f.shape[2]} shard K={k}"] = _median_ms(
                 lambda: temporal_halo_step(halo, outb, k, physics, **kw))
+    out.update(_k6_k7_times())
     print(json.dumps(out), flush=True)
+
+
+def _k6_k7_times():
+    """K6 at 8192^2 (C = 2, porous, Shan-Chen) and K7 per physics."""
+    import numpy as np
+
+    from lb2d_tpu_torch.models import Fluid, SimulationRunner
+    from lb2d_tpu_torch.ops.fused_mc import mc_density, mc_params, mc_step
+
+    out = {}
+    n = 8192
+    sim = SimulationRunner(nx=n, ny=n, L_lb=n, num_populations=2,
+                           porous=True, device="cuda")
+    for i in range(2):
+        sim.add_fluid(Fluid(sim, i, nu_e=1.0 / 6.0, epsilon=0.8,
+                            nu_fluid=1.0 / 6.0, K=10.0, Fe=0.1))
+    sim.complete_setup()
+    base = 0.5 + 0.05 * np.random.RandomState(0).rand(n, n).astype(
+        np.float32)
+    sim.fluid_list[0].initialize(base)
+    sim.fluid_list[1].initialize(1.0 - base)
+    sim.add_interaction_force(0, 1, G_int=1.5, potential="shan_chen",
+                              potential_parameters=[1.0])
+    cfg, lat = sim.config(), sim.lattice
+    params = mc_params(cfg, lat)
+    rho = torch.empty_like(sim.rho)
+    out["K6 mc_density 8192^2 C=2"] = _median_ms(
+        lambda: mc_density(sim.f, rho, cfg, lat))
+    out["K6 mc_step 8192^2 C=2"] = _median_ms(_ping_pong(
+        sim.f, lambda a, b: mc_step(a, b, rho, None, cfg, lat, params)))
+    del sim, rho
+    torch.cuda.empty_cache()
+    for n in (1024, 2048):
+        out.update(_k7_times(n))
+    return out
+
+
+def _k7_times(n):
+    """K7 per physics on ``n``^2 models' states (the surfactant waves at
+    ``n / 2`` when ``n`` is 1024, as ``chip_smoke.py`` runs them)."""
+    from lb2d_tpu_torch.models import (
+        ClumpySurfactantNutrientWave,
+        RocketYeast,
+        RocketYeastForcesOnly,
+        ScreenedFisherWave,
+        SurfactantNutrientWave,
+    )
+    from lb2d_tpu_torch.ops.fused_coupled import (
+        coupled_density,
+        coupled_params,
+        coupled_step,
+    )
+
+    out = {}
+    coupled = dict(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=n)
+    waves = dict(coupled, N=n // 2 if n == 1024 else n)
+    rocket = dict(Lx=1.0, Ly=1.0, R0=0.2, epsilon=0.05, Gc=2.0, N=n,
+                  G_chen=-0.1)
+    for model in (ScreenedFisherWave(device="cuda", **coupled),
+                  SurfactantNutrientWave(device="cuda", **waves),
+                  ClumpySurfactantNutrientWave(
+                      device="cuda", rho_o=1.0, G_chen=-5.0, **waves),
+                  RocketYeast(device="cuda", **rocket),
+                  RocketYeastForcesOnly(device="cuda", c_o=0.25, alpha=2.0,
+                                        **rocket)):
+        cfg = model.coupled_config()
+        f = model._fields4(model.state)
+        rho = coupled_density(f, torch.empty((cfg.fields, model.ny,
+                                              model.nx), device="cuda"))
+        ext = (model._velocity.planes(rho[0]) if model._velocity is not None
+               else None)
+        prm = coupled_params(cfg)
+        out[f"K7 {cfg.physics} {model.ny}^2"] = _median_ms(_ping_pong(
+            f, lambda a, b: coupled_step(a, b, rho, ext, cfg, prm)))
+    return out
 
 
 if __name__ == "__main__":
