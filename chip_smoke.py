@@ -33,8 +33,10 @@ set to 0 just before it and read just after:
   ``SurfactantNutrientWave`` at 512^2 (and ``stale_velocity=8`` at
   1024^2), ``ClumpySurfactantNutrientWave`` at 512^2, ``RocketYeast`` and
   ``RocketYeastForcesOnly`` at 1024^2. K8 is held to its plain solve at
-  8192^2, 1024^2, 512^2, 48^2, 50^2 and 127x250 and timed beside cuFFT
-  (``torch.fft``) computing the same function;
+  8192^2, 1024^2, 512^2, 48^2, 50^2, 45x64, 127x250 and 8191x16 (the tiled
+  plan's four-step and one-launch column paths, and the whole-line
+  kernel) and timed per solve and per pass at 8192^2 and 1024^2 beside
+  cuFFT (``torch.fft``) computing the same function;
 * the sharded slice (K9, ``temporal_halo_step``): K9 on the shards of
   random 254x382 states cut 2x2, 4x1 and 1x4, per physics, against its
   plain twin; ``ShardedPipeFlow`` at 8192^2 (``benchmarks/run_all.py``'s
@@ -167,12 +169,13 @@ from lb2d_tpu_torch.ops.fused_mc import (
 )
 from lb2d_tpu_torch.ops.moments import density
 from lb2d_tpu_torch.ops.spectral import (
-    SOLVE_LAUNCHES,
     dft_axis0,
     dft_axis0_reference,
     screened_gradients,
     screened_gradients_passes,
     screened_gradients_reference,
+    solve_launches,
+    solve_plan,
     spectral_grids,
 )
 from lb2d_tpu_torch.ops.random import (
@@ -250,7 +253,9 @@ C5_CHECK_STEPS = 3      # K6 + K8 against the eager step at 8192^2
 K8_TOL = 1e-5           # of max |g|: two float32 FFTs, sums in other orders
 K8_PASS_TOL = 1e-6      # of the scale: the 1-D pass against torch.fft.fft
 K8_SHAPES = ((8192, 8192), (1024, 1024), (512, 512), (48, 48), (50, 50),
-             (127, 250))  # the main paths' grids and odd and prime ones
+             (45, 64), (127, 250), (8191, 16))  # the main paths' grids
+# (the tiled plan's four-step and one-launch columns), mixed radices, an
+# odd row count, and primes (the whole-line kernel)
 COUPLED_STEPS = 256     # each coupled model's run (32 sweeps at K = 8)
 COUPLED_CHECK_STEPS = 5  # K7 against the plain step, from one state
 SCREENED_FISHER = dict(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=1024)
@@ -1565,7 +1570,7 @@ def spectral_kernel_phase():
         worst["K8"] = max(worst["K8"], d)
         worst["K8 abs"] = max(worst["K8 abs"], _max_diff(got, want))
         del rho, got, want
-    for n, W in ((8192, 128), (127, 250)):
+    for n, W in ((8192, 128), (127, 250), (8191, 8)):
         xr = torch.tensor(rng.rand(n, W).astype(np.float32), device="cuda")
         xi = torch.tensor(rng.rand(n, W).astype(np.float32), device="cuda")
         for label, args, kw in (("real", (xr,), dict(out_rows=n // 2 + 1)),
@@ -1660,8 +1665,10 @@ def coupled_kernel_phase(runs):
 
 def spectral_timing_phase(card):
     """Device ms of K8's solve at 8192^2 and 1024^2, of each of its passes
-    at 8192^2, of the plain solve, and of cuFFT (``torch.fft``) computing
-    the same function with its multiplier precomputed (CUDA events)."""
+    there beside the pass's byte bound, of the plain solve, and of cuFFT
+    (``torch.fft``) computing the same function with its multiplier
+    precomputed (CUDA events); and of one solve of an 8191 x 16 grid (a
+    prime column: the whole-line kernel)."""
     times = {}
     rng = np.random.RandomState(5)
     for n in (8192, 1024):
@@ -1693,28 +1700,35 @@ def spectral_timing_phase(card):
         times[f"library K8 {n}"] = _events_ms(library, reps)
         got = torch.stack(library())
         d = _relative(got, out)
-        print(f"K8 at {n}^2: {times[f'K8 {n}']:.4f} ms per solve; plain "
-              f"solve {times[f'plain K8 {n}']:.4f} ms; torch.fft (cuFFT) "
+        plan = solve_plan(n, n)
+        print(f"K8 at {n}^2 ({plan.path}, {len(plan.passes)} launches): "
+              f"{times[f'K8 {n}']:.4f} ms per solve; plain solve "
+              f"{times[f'plain K8 {n}']:.4f} ms; torch.fft (cuFFT) "
               f"{times[f'library K8 {n}']:.4f} ms, which K8 matches to "
               f"{d:.3e} of max|g| (CUDA events); card: {card}", flush=True)
-        if n == 8192:
-            for name, launch in screened_gradients_passes(rho, C5_LAM**2, out,
-                                                          C5_AMP):
-                launch()
-                times[f"K8 pass {name}"] = _events_ms(launch, reps)
-            # each pass's input read and output written once (B per cell
-            # of rho; the half spectrum holds n / 2 + 1 of n rows)
-            half = (n // 2 + 1) / n
-            pass_bytes = {"forward y": 4 + 8 * half, "forward x": 16 * half,
-                          "screen + inverse x": 8 * half + 8,
-                          "inverse y": 16}
-            print("K8 passes at 8192^2, ms (bound at the data sheet): "
-                  + ", ".join(
-                      f"{name} {times[f'K8 pass {name}']:.4f} "
-                      f"({_bound(per_cell * n * n, 0)[0]:.4f})"
-                      for name, per_cell in pass_bytes.items()), flush=True)
+        passes = []
+        for (name, launch), p in zip(
+                screened_gradients_passes(rho, C5_LAM**2, out, C5_AMP),
+                plan.passes):
+            launch()
+            ms = _events_ms(launch, reps)
+            bound = _bound(plan.bytes_moved(p), 0)[0]
+            times[f"K8 pass {n} {name}"] = ms
+            passes.append(f"{name} {ms:.4f} ({bound:.4f})")
+        print(f"K8 passes at {n}^2, ms (bound at the data sheet): "
+              + ", ".join(passes) + f"; all {_bound(sum(map(
+                  plan.bytes_moved, plan.passes)), 0)[0]:.4f}; card: {card}",
+              flush=True)
         del rho, out, mult
         torch.cuda.empty_cache()
+    rho = torch.tensor(rng.rand(8191, 16).astype(np.float32), device="cuda")
+    out = torch.empty((2, 8191, 16), device="cuda")
+    screened_gradients(rho, C5_LAM**2, out=out, out_scale=C5_AMP)
+    times["K8 8191x16"] = _events_ms(lambda: screened_gradients(
+        rho, C5_LAM**2, out=out, out_scale=C5_AMP), 1)
+    print(f"K8 at 8191x16 (whole-line kernel, "
+          f"{solve_launches(8191, 16)} launches): {times['K8 8191x16']:.4f} "
+          f"ms for one solve (CUDA events); card: {card}", flush=True)
     return times
 
 
@@ -1794,7 +1808,7 @@ def config5_phase(card, times):
         counts = _window(f"SimulationRunner {label}",
                          lambda: sim.run(C5_STEPS, timed=True),
                          {"K6d": C5_STEPS, "K6s": C5_STEPS,
-                          "K8": SOLVE_LAUNCHES * solves})
+                          "K8": solve_launches(sim.ny, sim.nx) * solves})
         m1 = _fluid_mass(sim)
         drift = float(np.max(np.abs(m1 - m0) / m0))
         step_ms = sim.num_cells / (sim.last_mlups * 1e6) * 1e3
@@ -1830,7 +1844,7 @@ def coupled_main_path_phase(runs, card):
         expected["K6d"] = (COUPLED_STEPS if sim.coupled_config(
         ).reads_neighbours or K == 1 else sweeps)
         if screened:
-            expected["K8"] = SOLVE_LAUNCHES * sweeps
+            expected["K8"] = solve_launches(sim.ny, sim.nx) * sweeps
         sim.run(K)  # warm
         counts = _window(f"{type(sim).__name__} {sim.ny}x{sim.nx} ({label})",
                          lambda sim=sim: sim.run(COUPLED_STEPS, timed=True),
@@ -2213,6 +2227,7 @@ def sharded_config5_phase(card, k8_ms):
     first main-path shard against its twins and timed. Returns MLUPS,
     launches and the K6h row information."""
     out = {}
+    per_solve = solve_launches(8192, 8192)
     for stale, steps in ((None, SHARDED_C5_STEPS),
                          (C5_STALE, SHARDED_C5_STALE_STEPS)):
         label = f"config 5 8192^2 stale_force={stale}" if stale else (
@@ -2229,12 +2244,15 @@ def sharded_config5_phase(card, k8_ms):
         counts = _window(f"SimulationRunner {label} shard_over 4x1",
                          lambda: sh.run(steps, timed=True),
                          {"K6hd": 4 * steps, "K6hs": 4 * steps,
-                          "K8": SOLVE_LAUNCHES * solves})
+                          "K8": per_solve * solves})
         _window(f"SimulationRunner {label} unsharded",
                 lambda: single.run(steps, timed=True),
-                {"K6d": steps, "K6s": steps, "K8": SOLVE_LAUNCHES * solves})
+                {"K6d": steps, "K6s": steps, "K8": per_solve * solves})
         d = max(d, _checked(f"{label} shard_over 4x1 vs unsharded after "
                             f"{n + steps} steps", _runner_diff(sh, single)))
+        if d != 0.0:  # K6h runs K6's tile code on the same values
+            raise RuntimeError(f"{label} shard_over 4x1 is not bit-equal to "
+                               f"the unsharded run: max|df| {d}")
         runner = sh._sharded
         H, W = runner._H, runner._W
         exchange_ms = _events_ms(lambda: exchange_halos(runner.mesh,
@@ -2335,11 +2353,14 @@ def mc_halo_phase():
         d_k6, d_twin, d_rho = compare_mc_halo(
             sim.f, sim.config(), sim.lattice, sim.ext_planes(), cuts,
             HALO_CHECK_STEPS)
+        # K6h runs K6's tile code on the same values: equal bit for bit,
+        # but D2Q25, whose two instantiations nvcc contracts differently
+        exact = 0.0 if sim.lattice.q == 9 else KERNEL_TOL
         print(f"K6h {label} 1024^2 {sim.lattice.name} on 2x2 shards, "
-              f"{HALO_CHECK_STEPS} steps: max|df| vs K6 {d_k6:.3e}, vs the "
-              f"twins {d_twin:.3e}, max|drho| vs K6 {d_rho:.3e} (limit "
-              f"{KERNEL_TOL:g})", flush=True)
-        if not max(d_k6, d_twin, d_rho) <= KERNEL_TOL:
+              f"{HALO_CHECK_STEPS} steps: max|df| vs K6 {d_k6:.3e} (limit "
+              f"{exact:g}), vs the twins {d_twin:.3e}, max|drho| vs K6 "
+              f"{d_rho:.3e} (limit {KERNEL_TOL:g})", flush=True)
+        if not (max(d_k6, d_rho) <= exact and d_twin <= KERNEL_TOL):
             raise RuntimeError(f"K6h {label} disagrees: {d_k6}, {d_twin}, "
                                f"{d_rho}")
         worst = max(worst, d_k6, d_twin, d_rho)
@@ -2390,7 +2411,7 @@ def sharded_coupled_phase(card):
         expected["K6hd"] = 4 * (SHARDED_COUPLED_STEPS if cfg.reads_neighbours
                                 or K == 1 else sweeps)
         if sim._velocity is not None:
-            expected["K8"] = SOLVE_LAUNCHES * sweeps
+            expected["K8"] = solve_launches(sim.ny, sim.nx) * sweeps
         counts = _window(f"ShardedCoupled({cls.__name__}) {sim.ny}x{sim.nx} "
                          f"({label})",
                          lambda: sh.run(SHARDED_COUPLED_STEPS, timed=True),
@@ -2703,11 +2724,12 @@ def main():
         "source": "lb2d_tpu_torch/csrc/spectral_dft.cu",
         "replaces": "lb2d_tpu/ops/dft_pallas.py:146",
         "launches": c5[None]["launches"]["K8"],
-        "launches_per_solve": SOLVE_LAUNCHES, "solves": c5[None]["solves"],
+        "launches_per_solve": solve_launches(8192, 8192),
+        "solves": c5[None]["solves"],
         "max_abs_err": max_err["K8 abs"], "max_rel_err": max_err["K8"],
         "ms": k8_times["K8 8192"], "plain_ms": k8_times["plain K8 8192"],
         "bound_ms": bound_ms, "bound_by": bound_by,
-        # per solve (its four launches); torch.fft (cuFFT): fft2, the
+        # per solve (its launches_per_solve); torch.fft (cuFFT): fft2, the
         # precomputed multiplier, ifft2
         "library_ms": k8_times["library K8 8192"],
         "steps_per_launch": 1, "shape": [8192, 8192]})

@@ -120,31 +120,43 @@ __device__ __forceinline__ int dir_cy(int j) {
 // The interaction stencils, in the order of the plain step: terms 0-7 the
 // D2Q9 moving vectors (belt 1 on every lattice, multi.py:517-529), 8-31 the
 // two-belt stencil (single_component.py:533-646). The weight of term k times
-// its c is kBeltW[k] * c exactly (c is 0, +-1 or +-2), the float32 rounding
-// of the plain step's double (wgt * c). Read in a rolled loop: unrolled,
-// each term inlines the pseudopotentials, and the build takes minutes.
-__constant__ int kBeltDx[kMcBeltTerms] = {
-    1, 0, -1, 0, 1, -1, -1, 1,
-    1, 0, -1, 0, 1, -1, -1, 1,
-    2, 0, -2, 0, 2, 2, 1, -1, -2, -2, -1, 1, 2, -2, -2, 2};
-__constant__ int kBeltDy[kMcBeltTerms] = {
-    0, 1, 0, -1, 1, 1, -1, -1,
-    0, 1, 0, -1, 1, 1, -1, -1,
-    0, 2, 0, -2, -1, 1, 2, 2, 1, -1, -2, -2, 2, 2, -2, -2};
-__constant__ float kBeltW[kMcBeltTerms] = {
-    (float)(1.0 / 9.0), (float)(1.0 / 9.0), (float)(1.0 / 9.0),
-    (float)(1.0 / 9.0), (float)(1.0 / 36.0), (float)(1.0 / 36.0),
-    (float)(1.0 / 36.0), (float)(1.0 / 36.0),
-    (float)(4.0 / 63.0), (float)(4.0 / 63.0), (float)(4.0 / 63.0),
-    (float)(4.0 / 63.0), (float)(4.0 / 135.0), (float)(4.0 / 135.0),
-    (float)(4.0 / 135.0), (float)(4.0 / 135.0),
-    (float)(1.0 / 180.0), (float)(1.0 / 180.0), (float)(1.0 / 180.0),
-    (float)(1.0 / 180.0),
-    (float)(2.0 / 945.0), (float)(2.0 / 945.0), (float)(2.0 / 945.0),
-    (float)(2.0 / 945.0), (float)(2.0 / 945.0), (float)(2.0 / 945.0),
-    (float)(2.0 / 945.0), (float)(2.0 / 945.0),
-    (float)(1.0 / 15120.0), (float)(1.0 / 15120.0), (float)(1.0 / 15120.0),
-    (float)(1.0 / 15120.0)};
+// its c is belt_w(k) * c exactly (c is 0, +-1 or +-2), the float32 rounding
+// of the plain step's double (wgt * c). Called with k known at compile time
+// (mc_step's unrolled belt sums read psi from a shared-memory window, so no
+// pseudopotential is inlined per term), so the tables fold away.
+__device__ __forceinline__ int belt_dx(int k) {
+  constexpr int t[kMcBeltTerms] = {
+      1, 0, -1, 0, 1, -1, -1, 1,
+      1, 0, -1, 0, 1, -1, -1, 1,
+      2, 0, -2, 0, 2, 2, 1, -1, -2, -2, -1, 1, 2, -2, -2, 2};
+  return t[k];
+}
+
+__device__ __forceinline__ int belt_dy(int k) {
+  constexpr int t[kMcBeltTerms] = {
+      0, 1, 0, -1, 1, 1, -1, -1,
+      0, 1, 0, -1, 1, 1, -1, -1,
+      0, 2, 0, -2, -1, 1, 2, 2, 1, -1, -2, -2, 2, 2, -2, -2};
+  return t[k];
+}
+
+__device__ __forceinline__ float belt_w(int k) {
+  constexpr float t[kMcBeltTerms] = {
+      (float)(1.0 / 9.0), (float)(1.0 / 9.0), (float)(1.0 / 9.0),
+      (float)(1.0 / 9.0), (float)(1.0 / 36.0), (float)(1.0 / 36.0),
+      (float)(1.0 / 36.0), (float)(1.0 / 36.0),
+      (float)(4.0 / 63.0), (float)(4.0 / 63.0), (float)(4.0 / 63.0),
+      (float)(4.0 / 63.0), (float)(4.0 / 135.0), (float)(4.0 / 135.0),
+      (float)(4.0 / 135.0), (float)(4.0 / 135.0),
+      (float)(1.0 / 180.0), (float)(1.0 / 180.0), (float)(1.0 / 180.0),
+      (float)(1.0 / 180.0),
+      (float)(2.0 / 945.0), (float)(2.0 / 945.0), (float)(2.0 / 945.0),
+      (float)(2.0 / 945.0), (float)(2.0 / 945.0), (float)(2.0 / 945.0),
+      (float)(2.0 / 945.0), (float)(2.0 / 945.0),
+      (float)(1.0 / 15120.0), (float)(1.0 / 15120.0), (float)(1.0 / 15120.0),
+      (float)(1.0 / 15120.0)};
+  return t[k];
+}
 
 // v mod n for v in [-n, 2n)
 __device__ __forceinline__ int wrap1(int v, int n) {

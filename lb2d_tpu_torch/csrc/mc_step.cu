@@ -6,7 +6,8 @@
 // rings, K steps per sweep, with its own density-emit stage; none of that is
 // carried over. Here one step is two launches, both one thread per cell on
 // any ny x nx (at least 3 x 3), templated on the lattice (Q = 9 or 25) and
-// the number of fluids (C = 1..4):
+// the number of fluids (C = 1..4), mc_density in blocks of 256 cells of a
+// row, mc_step in tiles of 32 x 8 cells:
 //
 // - mc_density (only when an interaction is registered): each fluid's
 //   post-stream, post-edge density rho[C][ny][nx], summed in direction
@@ -15,8 +16,12 @@
 //   fluid's edge cell pulls at its clamped interior cell), form rho_i and
 //   j_i, add the force hooks in registration order (constant, g rho, the
 //   precomputed ext planes and ext x rho, Shan-Chen over the first or
-//   second belt with psi of the neighbours' densities read from rho, with
-//   periodic or clamped neighbours), then the Darcy + Forchheimer drag last
+//   second belt with psi of the neighbours' densities, with periodic or
+//   clamped neighbours: for each such hook the block evaluates psi of both
+//   fluids once per cell of its tile and the belt around it into a window
+//   in shared memory, read from rho in whole rows, and each cell sums its
+//   belt from the window in the plain step's term order), then the Darcy +
+//   Forchheimer drag last
 //   and zero G where rho <= zd (porous), the barycentric velocity (no
 //   guard on rho_tot), porosity feq + Guo + BGK per fluid (Guo with rho and
 //   eps when porous, neither otherwise), the eating / growth collisions on
@@ -45,10 +50,11 @@
 // rho mostly from L1/L2), reads the ext planes and writes f once. At
 // 8192^2 with C = 2 on D2Q9 that is 80 + 152 B per cell-step against the 144
 // of one read and one write of f: the density pass is the price of the
-// one-step design. On an H100 (700 W) mc_density runs at 1.08x its byte
-// bound and mc_step at 2.2x, held by the interactions' gather of the
-// neighbours' rho (PERF.md). Temporal blocking in shared memory and a
-// single launch with a rho window in shared memory are later work.
+// one-step design. The psi window evaluates psi about 1.3 times per cell
+// and fluid (1.7 with the second belt) where a gather per cell would take
+// 8 (24), and the 32 x 8 tile lets the rows y +- 1 of f that its pulls
+// read come from L1. Temporal blocking in shared memory and a single
+// launch are later work.
 
 #include "mc_cell.cuh"
 
@@ -78,34 +84,85 @@ mc_density_kernel(const float* __restrict__ f, HaloSource halo,
   }
 }
 
-// The belt sums of one interaction at cell (y, x): fxa += (w c_x) psi_b(x +
-// c), ... over the stencil's terms [k0, k1), in the plain step's order
-// (terms with w c = 0 add nothing there either).
-__device__ __forceinline__ void belt_sums(
-    const Lb2dMcHook& hk, float zd, const float* __restrict__ rho_a,
-    const float* __restrict__ rho_b, int y, int x, int ny, int nx, float& fxa,
-    float& fya, float& fxb, float& fyb) {
-  const int k0 = hk.belt == 1 ? 0 : 8;
-  const int k1 = hk.belt == 1 ? 8 : kMcBeltTerms;
-#pragma unroll 1
+// mc_step's tile: kTileX x kTileY cells, one warp per row, and a window
+// of the tile plus the belts' reach (1 or 2 cells) on each side, where the
+// block puts psi of both fluids of one interaction at a time
+constexpr int kTileX = 32, kTileY = kBlock / kTileX;
+constexpr int kMaxBelt = 2;
+constexpr int kWindow = (kTileX + 2 * kMaxBelt) * (kTileY + 2 * kMaxBelt);
+
+constexpr int kWindowPerThread = (2 * kWindow + kBlock - 1) / kBlock;
+
+// The window of the interaction hk over the tile whose first cell is
+// global cell (gy0, gx0): win[0 .. wx wy) psi of fluid a, win[wx wy .. 2
+// wx wy) of fluid b (wx = kTileX + 2 reach, wy = kTileY + 2 reach), each
+// neighbour wrapped (periodic) or clamped at global coordinates as the
+// plain step shifts it. fetch_window reads the densities, a thread's
+// kWindowPerThread reads all in flight at once (coalesced rows of rho);
+// put_window evaluates psi of them into the window.
+__device__ __forceinline__ void fetch_window(
+    const Lb2dMcHook& hk, const float* __restrict__ rho_buf, size_t plane,
+    int gy0, int gx0, int ny, int nx, float (&r)[kWindowPerThread]) {
+  const int reach = hk.belt == 1 ? 1 : 2;
+  const int wx = kTileX + 2 * reach, cells = wx * (kTileY + 2 * reach);
+#pragma unroll
+  for (int v = 0; v < kWindowPerThread; ++v) {
+    const int i = threadIdx.x + v * kBlock;
+    if (i < 2 * cells) {
+      const int fluid = i >= cells, c = i - fluid * cells;
+      const int iy = c / wx, ix = c - iy * wx;
+      int yy = gy0 - reach + iy, xx = gx0 - reach + ix;
+      if (hk.clamped) {
+        yy = clamp_to(yy, 0, ny - 1);
+        xx = clamp_to(xx, 0, nx - 1);
+      } else {
+        yy = wrap(yy, ny);
+        xx = wrap(xx, nx);
+      }
+      r[v] = __ldg(rho_buf + (size_t)(fluid ? hk.b : hk.a) * plane +
+                   (size_t)yy * nx + xx);
+    }
+  }
+}
+
+__device__ __forceinline__ void put_window(const Lb2dMcHook& hk, float zd,
+                                           const float (&r)[kWindowPerThread],
+                                           float* win) {
+  const int reach = hk.belt == 1 ? 1 : 2;
+  const int cells = (kTileX + 2 * reach) * (kTileY + 2 * reach);
+#pragma unroll
+  for (int v = 0; v < kWindowPerThread; ++v) {
+    const int i = threadIdx.x + v * kBlock;
+    if (i < 2 * cells) win[i] = psi(hk, r[v], zd);
+  }
+}
+
+// The belt sums of one interaction at the cell at (ty, tx) of the tile:
+// fxa += (w c_x) psi_b(x + c), ... over belt kBelt's terms of the stencil,
+// in the plain step's order (terms with w c = 0 add nothing there either),
+// psi read from the window put_window filled
+template <int kBelt>
+__device__ __forceinline__ void belt_sums(const float* win, int ty, int tx,
+                                          float& fxa, float& fya, float& fxb,
+                                          float& fyb) {
+  constexpr int wx = kTileX + 2 * kBelt, cells = wx * (kTileY + 2 * kBelt);
+  constexpr int k0 = kBelt == 1 ? 0 : 8;
+  constexpr int k1 = kBelt == 1 ? 8 : kMcBeltTerms;
+  const int c = (ty + kBelt) * wx + tx + kBelt;
+#pragma unroll
   for (int k = k0; k < k1; ++k) {
-    const int dx = kBeltDx[k], dy = kBeltDy[k];
-    const int yy =
-        hk.clamped ? clamp_to(y + dy, 0, ny - 1) : wrap1(y + dy, ny);
-    const int xx =
-        hk.clamped ? clamp_to(x + dx, 0, nx - 1) : wrap1(x + dx, nx);
-    const size_t nb = (size_t)yy * nx + xx;
-    const float pa = psi(hk, rho_a[nb], zd);
-    const float pb = psi(hk, rho_b[nb], zd);
+    const int dx = belt_dx(k), dy = belt_dy(k);
+    const float pa = win[c + dy * wx + dx];
+    const float pb = win[cells + c + dy * wx + dx];
     if (dx != 0) {
-      const float wx = kBeltW[k] * (float)dx;
-      fxa += wx * pb;
-      fxb += wx * pa;
+      const float wgt = belt_w(k) * (float)dx;
+      fxa += wgt * pb;
+      fxb += wgt * pa;
     }
     if (dy != 0) {
-      const float wy = kBeltW[k] * (float)dy;
-      fya += wy * pb;
-      fyb += wy * pa;
+      const float wgt = belt_w(k) * (float)dy;
+      fya += wgt * pb;
+      fyb += wgt * pa;
     }
   }
 }
@@ -117,14 +174,30 @@ mc_step_kernel(const float* __restrict__ f_in, HaloSource halo,
                const float* __restrict__ rho_buf,
                const float* __restrict__ ext, Domain d,
                int zero_gradient_mask, Lb2dMcParams prm) {
-  const long long cell = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (cell >= (long long)d.rows * d.cols) return;
-  const int y = (int)(cell / d.cols), x = (int)(cell % d.cols);
+  __shared__ float win[2 * kWindow];
+  // the tile's cell (ty, tx); a thread past the domain's edge takes the
+  // edge's cell (within the tile), works with the block and stores nothing
+  const int bx0 = blockIdx.x * kTileX, by0 = blockIdx.y * kTileY;
+  const int tx0 = threadIdx.x % kTileX, ty0 = threadIdx.x / kTileX;
+  const bool live = bx0 + tx0 < d.cols && by0 + ty0 < d.rows;
+  const int x = min(bx0 + tx0, d.cols - 1), y = min(by0 + ty0, d.rows - 1);
+  const int tx = x - bx0, ty = y - by0;
+  const long long cell = (long long)y * d.cols + x;
   const CellAt<kShard> at(d, y, x, cell);
+  const int gy0 = at.gy - ty, gx0 = at.gx - tx;  // the tile's first cell
   const size_t plane = (size_t)d.ny * d.nx;  // rho's and ext's
   size_t out_plane = plane;                   // f_out's
   if constexpr (kShard) out_plane = (size_t)d.rows * d.cols;
   const float zd = prm.zero_density;
+
+  // the first interaction's window: its densities are read here, in flight
+  // while the cell pulls its populations, and put in shared memory after
+  int first = -1;
+  for (int h = prm.num_hooks - 1; h >= 0; --h)
+    if (prm.hooks[h].kind >= kHookInteraction) first = h;
+  float rw[kWindowPerThread];
+  if (first >= 0)
+    fetch_window(prm.hooks[first], rho_buf, plane, gy0, gx0, d.ny, d.nx, rw);
 
   // hydro per fluid (single_component.cl:214-274), direction order
   float rho[C], jx[C], jy[C], u[C], v[C];
@@ -146,6 +219,11 @@ mc_step_kernel(const float* __restrict__ f_in, HaloSource halo,
     const bool good = r > zd;
     u[i] = good ? ax / r : 0.0f;
     v[i] = good ? ay / r : 0.0f;
+  }
+
+  if (first >= 0) {
+    put_window(prm.hooks[first], zd, rw, win);
+    __syncthreads();
   }
 
   // the force hooks in registration order
@@ -179,11 +257,17 @@ mc_step_kernel(const float* __restrict__ f_in, HaloSource halo,
         break;
       }
       default: {  // Shan-Chen (single_component.cl:652-793, :795-967)
-        const float* rho_a = rho_buf + (size_t)hk.a * plane;
-        const float* rho_b = rho_buf + (size_t)hk.b * plane;
+        if (h != first) {
+          __syncthreads();  // every cell is done with the last window
+          fetch_window(hk, rho_buf, plane, gy0, gx0, d.ny, d.nx, rw);
+          put_window(hk, zd, rw, win);
+          __syncthreads();
+        }
         float fxa = 0.0f, fya = 0.0f, fxb = 0.0f, fyb = 0.0f;
-        belt_sums(hk, zd, rho_a, rho_b, at.gy, at.gx, d.ny, d.nx, fxa, fya,
-                  fxb, fyb);
+        if (hk.belt == 1)
+          belt_sums<1>(win, ty, tx, fxa, fya, fxb, fyb);
+        else
+          belt_sums<2>(win, ty, tx, fxa, fya, fxb, fyb);
         const float ra = pick<C>(rho, hk.a), rb = pick<C>(rho, hk.b);
         const float sa = hk.p[0] * psi(hk, ra, zd);  // -G psi_a
         const float sb = hk.p[0] * psi(hk, rb, zd);
@@ -262,7 +346,7 @@ mc_step_kernel(const float* __restrict__ f_in, HaloSource halo,
           out += prm.w[j] * (r > col.lo && r < col.hi ? col.rate : 0.0f);
         }
       }
-      f_out[(size_t)(j * C + i) * out_plane + cell] = out;
+      if (live) f_out[(size_t)(j * C + i) * out_plane + cell] = out;
     }
   }
 }
@@ -275,12 +359,16 @@ cudaError_t launch(const float* f, const HaloSource& halo, float* f_out,
   const long long cells = (long long)d.rows * d.cols;
   const long long blocks = (cells + kBlock - 1) / kBlock;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (prm == nullptr)
+  if (prm == nullptr) {
     mc_density_kernel<Q, C, kShard><<<(unsigned)blocks, kBlock, 0, stream>>>(
         f, halo, rho, d, zero_gradient_mask);
-  else
-    mc_step_kernel<Q, C, kShard><<<(unsigned)blocks, kBlock, 0, stream>>>(
+  } else {
+    const dim3 tiles((d.cols + kTileX - 1) / kTileX,
+                     (d.rows + kTileY - 1) / kTileY);
+    if (tiles.y > 65535) return cudaErrorInvalidValue;
+    mc_step_kernel<Q, C, kShard><<<tiles, kBlock, 0, stream>>>(
         f, halo, f_out, rho, ext, d, zero_gradient_mask, *prm);
+  }
   return cudaGetLastError();
 }
 

@@ -18,7 +18,7 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["load_library", "LIB_PATH", "MultifieldParams", "McParams",
-           "FftParams", "CoupledParams"]
+           "FftParams", "FftPass", "CoupledParams"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
@@ -94,6 +94,24 @@ class FftParams(ctypes.Structure):
                 ("num_radices", _I), ("radices", _I * 32)]
 
 
+class FftPass(ctypes.Structure):
+    """``Lb2dFftPass`` of ``csrc/spectral_dft.cu``, passed by value to K8's
+    tiled passes (``lb2d_tpu_torch/ops/spectral.py:FftPass`` holds the same
+    fields): the kind and direction, the line length and its radices, the
+    twiddle table's stride and the group twiddle, the block shape, the
+    strides of rows, column groups and planes, the grid and the screen's
+    constants. The two change together."""
+    _fields_ = [("kind", _I), ("inverse", _I), ("n", _I),
+                ("num_radices", _I), ("radices", _I * 12),
+                ("tw_stride", _I), ("tw_group", _I), ("lines", _I),
+                ("total", _I), ("threads", _I), ("groups", _I),
+                ("planes", _I), ("n1", _I), ("in_pitch", _I),
+                ("out_pitch", _I), ("in_len", _I), ("out_len", _I),
+                ("in_gmul", _I), ("in_stride", _I), ("out_gmul", _I),
+                ("out_stride", _I), ("ny", _I), ("nx", _I), ("lam2", _F),
+                ("out_scale", _F)]
+
+
 class CoupledParams(ctypes.Structure):
     """``Lb2dCoupledParams`` of ``csrc/coupled_cell.cuh``, passed by value
     to K7: the physics, the two fields' ``omega`` and ``1 - omega``, the
@@ -156,8 +174,10 @@ _ENTRY_POINTS = {
     # f, top, bot, left, right, f_out, rho, ext, H, W, hk, y0, x0, ny, nx,
     # q, fluids, zero-gradient fluid mask, params, stream
     "lb2d_mc_halo_step": [_P] * 8 + [_I] * 10 + [McParams, _P],
-    # in0, in1, out0, out1, scratch, params, stream
-    "lb2d_fft_lines": [_P, _P, _P, _P, _P, FftParams, _P],
+    # in0, in1, out0, out1, scratch, twiddle table, params, stream
+    "lb2d_fft_lines": [_P, _P, _P, _P, _P, _P, FftParams, _P],
+    # in0, in1, out0, out1, twiddle table, stage table, pass, stream
+    "lb2d_fft_pass": [_P, _P, _P, _P, _P, _P, FftPass, _P],
     # f_in, f_out, rho, ext, ny, nx, params, stream
     "lb2d_coupled_step": [_P, _P, _P, _P, _I, _I, CoupledParams, _P],
     # f, top, bot, left, right, f_out, rho, ext, H, W, hk, y0, x0, ny, nx,
@@ -176,6 +196,7 @@ _ENTRY_POINTS = {
 _STRUCT_SIZES = {"lb2d_multifield_params_size": MultifieldParams,
                  "lb2d_mc_params_size": McParams,
                  "lb2d_fft_params_size": FftParams,
+                 "lb2d_fft_pass_size": FftPass,
                  "lb2d_coupled_params_size": CoupledParams}
 
 _lib = None

@@ -99,11 +99,12 @@ from lb2d_tpu_torch.ops.fused_mc import (
     mc_step_reference,
 )
 from lb2d_tpu_torch.ops.spectral import (
-    SOLVE_LAUNCHES,
     dft_axis0,
     dft_axis0_reference,
     screened_gradients,
     screened_gradients_reference,
+    solve_launches,
+    solve_plan,
 )
 from lb2d_tpu_torch.ops.random import (
     normals,
@@ -537,6 +538,18 @@ def test_mc_kernel_matches_reference(cuda, case, shape):
     assert d <= TOL, d
 
 
+@pytest.mark.parametrize("shape", [(3, 3), (5, 37), (9, 65)],
+                         ids=["3x3", "5x37", "9x65"])
+@pytest.mark.parametrize("case", list(MC_CASES))
+def test_mc_step_tiles_match_reference_on_small_grids(cuda, case, shape):
+    """mc_step's 32 x 8 tiles and psi windows on grids smaller than a tile
+    or with a ragged last tile, the belts wrapping or clamped several
+    times around the grid."""
+    sim = mc_case(case, *shape, device=cuda)
+    d = _k6_against_plain(sim)
+    assert d <= TOL, d
+
+
 def _mc_fluids(device, C, lattice, porous, shape=(254, 382)):
     """C fluids: Shan-Chen between neighbours, a second-belt interaction
     between the first and the last, a constant force, growth and eating."""
@@ -592,19 +605,29 @@ def test_mc_runner_auto_runs_the_kernel(cuda):
 
 
 # K8, the screened-gradient solve, and its 1-D pass
-@pytest.mark.parametrize("shape", [(48, 48), (50, 50), (127, 250),
-                                   (1024, 1024), (16, 20000)],
-                         ids=["48", "50", "127x250", "1024", "16x20000"])
+K8_PATHS = {(48, 48): "tile", (50, 50): "tile", (45, 64): "tile",
+            (256, 384): "tile",
+            (1024, 1024): "tile", (2048, 48): "four-step",
+            (4096, 96): "four-step", (127, 250): None, (8191, 16): None,
+            (16, 20000): None}
+
+
+@pytest.mark.parametrize("shape", list(K8_PATHS),
+                         ids=[f"{y}x{x}" for y, x in K8_PATHS])
 def test_screened_gradients_kernel_matches_reference(cuda, shape):
-    """Any grid: powers of two, mixed radices, a prime line, and lines too
-    long for shared memory (the scratch-buffer path)."""
+    """Every path of the wrapper: the tiled plan with one column launch
+    (powers of two, mixed radices) or the four-step split, and the
+    whole-line kernel (a prime line, one too long for shared memory: the
+    scratch-buffer path)."""
+    plan = solve_plan(*shape)
+    assert (plan and plan.path) == K8_PATHS[shape]
     rho = torch.tensor(np.random.RandomState(0).rand(*shape).astype(
         np.float32), device=cuda)
     before = screened_gradients.launches
     got = screened_gradients(rho, 16.0, out_scale=-0.5)
     want = screened_gradients_reference(rho, 16.0, out_scale=-0.5)
     torch.cuda.synchronize()
-    assert screened_gradients.launches == before + SOLVE_LAUNCHES
+    assert screened_gradients.launches == before + solve_launches(*shape)
     d = float((got - want).abs().max() / want.abs().max())
     assert d <= 1e-5, d
     out = torch.empty_like(got)
@@ -614,7 +637,8 @@ def test_screened_gradients_kernel_matches_reference(cuda, shape):
         want.abs().max())
 
 
-@pytest.mark.parametrize("n,W", [(256, 256), (8192, 128), (127, 64)])
+@pytest.mark.parametrize("n,W", [(256, 256), (8192, 128), (127, 64),
+                                 (8191, 8)])
 @pytest.mark.parametrize("real,inverse", [(True, False), (False, False),
                                           (False, True)],
                          ids=["real", "complex", "inverse"])
@@ -708,7 +732,7 @@ def test_coupled_model_kernel_backend_matches_eager(cuda, name, stale):
     solves = 0 if name.startswith("Rocket") else (7 if stale == 1 else 4)
     assert (coupled_step.launches - before[0],
             screened_gradients.launches - before[1]) == (
-                7, SOLVE_LAUNCHES * solves)
+                7, solve_launches(sim.ny, sim.nx) * solves)
     d = float((sim.state - eager.state).abs().max())
     assert d <= 1e-5, d
 
@@ -744,7 +768,7 @@ def test_config5_kernel_matches_eager(cuda, stale):
     solves = 9 if stale is None else 3
     assert (mc_density.launches - before[0],
             screened_gradients.launches - before[1]) == (
-                9, SOLVE_LAUNCHES * solves)
+                9, solve_launches(256, 256) * solves)
     d = float((sim.f - eager.f).abs().max())
     assert d <= TOL, d
 
@@ -859,6 +883,20 @@ def test_mc_halo_kernel_matches_k6_and_twin(cuda, case, mesh):
                                                             d_rho)
 
 
+@pytest.mark.parametrize("case", list(MC_CASES))
+def test_mc_halo_kernel_equals_k6(cuda, case):
+    """K6h's shards hold the same cells as K6's grid, bit for bit on D2Q9:
+    the same tile code on the same values (2x2 shards of a 254x382 state).
+    nvcc contracts the D2Q25 instantiations' multiply-adds differently
+    (a few 1e-9), so case (d) is held to the kernels' tolerance."""
+    sim = mc_case(case, 254, 382, device=cuda)
+    d_k6, _, d_rho = compare_mc_halo(sim.f, sim.config(), sim.lattice,
+                                     sim.ext_planes(),
+                                     shard_cuts(254, 382, 2, 2))
+    limit = 0.0 if sim.lattice.q == 9 else TOL
+    assert d_k6 <= limit and d_rho <= limit, (d_k6, d_rho)
+
+
 @pytest.mark.parametrize("mesh", HALO_MESHES, ids=HALO_IDS)
 @pytest.mark.parametrize("physics", list(COUPLED_PHYSICS))
 def test_coupled_halo_kernel_matches_k7_and_twin(cuda, physics, mesh):
@@ -896,7 +934,7 @@ def test_sharded_config5_matches_unsharded_kernel(cuda, mesh, stale):
     solves = 9 if stale is None else 3
     assert (mc_step_halo.launches - before[0],
             screened_gradients.launches - before[1]) == (
-                4 * 9, 2 * SOLVE_LAUNCHES * solves)
+                4 * 9, 2 * solve_launches(256, 256) * solves)
     d = float(np.abs(sh.state_numpy() - single.state_numpy()).max())
     assert d <= TOL, d
     assert float((sh.rho - single.rho).abs().max()) <= TOL

@@ -13,13 +13,20 @@ with F = 3, both at K = 4 (the models' ``auto`` paths); where the checkout
 has K9, K9 flow on the first 2048 x 8192 shard of an 8192^2 grid (the
 sharded main path's) and K9 noisy Fisher on a 1024^2 shard of a 2048^2
 grid, from random states; K6 ``mc_density`` and ``mc_step`` on the 8192^2
-porous two-fluid Shan-Chen runner of BASELINE config 5 (without its
-screened hook) and K7 per physics at the coupled models' shapes
+porous two-fluid Shan-Chen runner of BASELINE config 5 with its hooks (the
+Shan-Chen interaction and the screened force's ext planes) and K7 per
+physics at the coupled models' shapes
 (``chip_smoke.py``'s: 1024^2, the surfactant waves 512^2; there a launch
 takes 15-90 us and the host's launch rate shows) and at 2048^2, on the
 models' states (K7's velocity planes those of the state's density). With
 ``k7`` after the label, K7 alone, so that many pairs of runs fit in one
-call.
+call; with ``k8``, K8 alone: one screened-gradient solve (config 5's
+screen and amplitude) of a random field at 8192^2, 1024^2 and 512^2 (20
+solves between the events at 8192^2); with ``paths``, the main paths that
+run K8, as MLUPS of ``run(n, timed=True)`` after a warm run (host clock,
+median of three): BASELINE config 5 at 8192^2 (``run(20)``, exact and
+``stale_force=8``) and the screened coupled models at
+``chip_smoke.py``'s sizes (``run(256)``).
 """
 
 import json
@@ -83,6 +90,14 @@ def _ping_pong(state, step):
 def main():
     out = {"label": sys.argv[1] if len(sys.argv) > 1 else os.getcwd(),
            "card": torch.cuda.get_device_name(0)}
+    if sys.argv[2:] == ["k8"]:
+        out.update(_k8_times())
+        print(json.dumps(out), flush=True)
+        return
+    if sys.argv[2:] == ["paths"]:
+        out.update(_path_mlups())
+        print(json.dumps(out), flush=True)
+        return
     if sys.argv[2:] == ["k7"]:
         for n in (1024, 2048):
             out.update(_k7_times(n))
@@ -155,17 +170,93 @@ def _k6_k7_times():
     sim.fluid_list[1].initialize(1.0 - base)
     sim.add_interaction_force(0, 1, G_int=1.5, potential="shan_chen",
                               potential_parameters=[1.0])
-    cfg, lat = sim.config(), sim.lattice
+    sim.add_screened_poisson_force(0, 1, interaction_length=10.0,
+                                   amplitude=1e-4)
+    cfg, lat, ext = sim.config(), sim.lattice, sim.ext_planes()
     params = mc_params(cfg, lat)
     rho = torch.empty_like(sim.rho)
     out["K6 mc_density 8192^2 C=2"] = _median_ms(
         lambda: mc_density(sim.f, rho, cfg, lat))
     out["K6 mc_step 8192^2 C=2"] = _median_ms(_ping_pong(
-        sim.f, lambda a, b: mc_step(a, b, rho, None, cfg, lat, params)))
+        sim.f, lambda a, b: mc_step(a, b, rho, ext, cfg, lat, params)))
     del sim, rho
     torch.cuda.empty_cache()
     for n in (1024, 2048):
         out.update(_k7_times(n))
+    return out
+
+
+def _k8_times():
+    """K8 per screened-gradient solve at 8192^2, 1024^2 and 512^2."""
+    import numpy as np
+
+    from lb2d_tpu_torch.ops.spectral import screened_gradients
+
+    out = {}
+    for n in (8192, 1024, 512):
+        rho = torch.tensor(np.random.RandomState(5).rand(n, n).astype(
+            np.float32), device="cuda")
+        res = torch.empty((2, n, n), device="cuda")
+        out[f"K8 {n}^2"] = _median_ms(
+            lambda: screened_gradients(rho, 100.0, out=res, out_scale=1e-4),
+            reps=20 if n == 8192 else 100)
+        del rho, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def _path_mlups():
+    """MLUPS of the main paths that run K8 (median of three timed runs)."""
+    import numpy as np
+
+    from lb2d_tpu_torch.models import (
+        ClumpySurfactantNutrientWave,
+        Fluid,
+        ScreenedFisherWave,
+        SimulationRunner,
+        SurfactantNutrientWave,
+    )
+
+    def median_mlups(sim, n):
+        sim.run(n)  # warm
+        runs = []
+        for _ in range(3):
+            sim.run(n, timed=True)
+            runs.append(sim.last_mlups)
+        return sorted(runs)[1]
+
+    out = {}
+    for stale in (None, 8):
+        n = 8192
+        sim = SimulationRunner(nx=n, ny=n, L_lb=n, num_populations=2,
+                               porous=True, device="cuda", stale_force=stale)
+        for i in range(2):
+            sim.add_fluid(Fluid(sim, i, nu_e=1.0 / 6.0, epsilon=0.8,
+                                nu_fluid=1.0 / 6.0, K=10.0, Fe=0.1))
+        sim.complete_setup()
+        base = 0.5 + 0.05 * np.random.RandomState(0).rand(n, n).astype(
+            np.float32)
+        sim.fluid_list[0].initialize(base)
+        sim.fluid_list[1].initialize(1.0 - base)
+        sim.add_interaction_force(0, 1, G_int=1.5, potential="shan_chen",
+                                  potential_parameters=[1.0])
+        sim.add_screened_poisson_force(0, 1, interaction_length=10.0,
+                                       amplitude=1e-4)
+        label = f"config 5 8192^2 stale_force={stale}" if stale else (
+            "config 5 8192^2")
+        out[label] = median_mlups(sim, 16 if stale else 20)
+        del sim
+        torch.cuda.empty_cache()
+    coupled = dict(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2)
+    for label, model in (
+            ("ScreenedFisherWave 1024^2", ScreenedFisherWave(
+                device="cuda", N=1024, **coupled)),
+            ("SurfactantNutrientWave 512^2", SurfactantNutrientWave(
+                device="cuda", N=512, **coupled)),
+            ("ClumpySurfactantNutrientWave 512^2",
+             ClumpySurfactantNutrientWave(device="cuda", N=512, rho_o=1.0,
+                                          G_chen=-5.0, **coupled))):
+        out[label] = median_mlups(model, 256)
     return out
 
 
