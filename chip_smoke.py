@@ -64,8 +64,10 @@ normal moments, wall mass conservation and the logistic cap, nutrient
 consumption, the Darcy balance, mass per fluid and spinodal separation,
 the screened Fisher wave's outward velocity, the surfactant wave's growth
 and consumption, rocket yeast's surfactant production),
-sweeps K2's steps per launch for the diffusion physics and K4's for the
-multifield physics, and prints the measured numbers. Every phase raises on
+sweeps K2's steps per launch for the flow and the diffusion physics and
+K4's for the multifield physics (K = 1..8), holds K2 and K4 (the row
+sweeps) to their plain steps at every K and on grids narrower than a strip
+or shorter than the card's segments, and prints the measured numbers. Every phase raises on
 failure; the last line is the JSON result and is printed only when all
 phases passed. Uses no JAX.
 """
@@ -125,6 +127,7 @@ from lb2d_tpu_torch.ops import _build
 from lb2d_tpu_torch.ops.fused import (
     MAX_MULTIFIELD_FIELDS,
     MAX_TEMPORAL_K,
+    band_max_k,
     diffusion_run_reference,
     expansion_band_reference,
     expansion_band_step,
@@ -151,6 +154,7 @@ from lb2d_tpu_torch.ops.fused_coupled import (
     coupled_step_reference,
 )
 from lb2d_tpu_torch.ops.fused_halo import (
+    HALO_TEMPORAL_K,
     Halo,
     temporal_halo_step,
     temporal_halo_step_reference,
@@ -374,6 +378,12 @@ def compare_k3(sim, obstacle, n):
     return _max_diff(f, pipe_run_reference(f0, n, **kw))
 
 
+def _velocity_run(f, k, kw):
+    for _ in range(k):
+        f = velocity_step_reference(f, **kw)
+    return f
+
+
 def compare_k2_velocity(sim, obstacle, outlet, incompressible,
                         k=TEMPORAL_K):
     """K2 with the velocity BCs against ``k`` plain velocity-inlet steps."""
@@ -394,9 +404,44 @@ def _checked(label, d):
     return d
 
 
+def _checked_ks(label, compare, tol=KERNEL_TOL, ks=None):
+    """``compare(k)`` (a max |df|) at every K from 1 to MAX_TEMPORAL_K (or
+    ``ks``), on one line; raise above ``tol``. Returns the largest."""
+    ds = {k: compare(k) for k in (ks or range(1, MAX_TEMPORAL_K + 1))}
+    d = max(ds.values())
+    print(f"{label}, K={min(ds)}..{max(ds)}: max|df| = {d:.3e} (limit "
+          f"{tol:g}; per K " + " ".join(f"{v:.1e}" for v in ds.values())
+          + ")", flush=True)
+    if not d <= tol:
+        raise RuntimeError(f"{label}: kernel disagrees, {d} > {tol}")
+    return d
+
+
+# K2's row sweep at every K on grids narrower than one strip (45x33: one
+# strip wrapping onto itself), with fewer rows than the card's segments
+# (7x300), ragged strips and segments (254x254, 401x401 and the cylinder's
+# 3751x1251), and the main path's 4096^2
+K2_SHAPES = ((254, 254), (401, 401), (45, 33), (7, 300))
+
+
+def _flow_inputs(ny, nx, incompressible, obstacle):
+    """A random state near rest (numpy seed 0) and the kernel arguments of
+    a pressure-driven step, with a disk obstacle or none."""
+    rng = np.random.RandomState(0)
+    w = np.asarray(D2Q9.w)[:, None, None]
+    f0 = torch.tensor(w * (1 + 0.01 * rng.randn(9, ny, nx)),
+                      dtype=torch.float32, device="cuda")
+    mask = torch.tensor(_disk(ny, nx), device="cuda") if obstacle else None
+    kw = dict(omega=1.3, inlet_rho=1.003, outlet_rho=1.0,
+              incompressible=incompressible, mask=mask)
+    return f0, kw
+
+
 def kernel_phase(main, small, cyl, inlet):
     """Each kernel against its plain version at the main path's shapes (and
-    its four variants at an unaligned grid). Returns max |df| per kernel."""
+    its four variants at an unaligned grid); K2 at every K from 1 to
+    MAX_TEMPORAL_K, per physics, also at K2_SHAPES. Returns max |df| per
+    kernel."""
     worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K2v": 0.0}
     for eq in ("compressible", "incompressible"):
         sim = PipeFlow(N=253, pipe_length=380.5 / 253, equilibrium=eq,
@@ -409,9 +454,17 @@ def kernel_phase(main, small, cyl, inlet):
             worst["K1"] = max(worst["K1"], _checked(
                 f"K1 vs plain 254x382 {tag}, 4 steps",
                 compare_k1(sim, obstacle or None)))
-            worst["K2"] = max(worst["K2"], _checked(
-                f"K2 vs plain 254x382 {tag}, {TEMPORAL_K} steps",
-                compare_k2(sim, obstacle or None)))
+            worst["K2"] = max(worst["K2"], _checked_ks(
+                f"K2 vs plain 254x382 {tag}",
+                lambda k: compare_k2(sim, obstacle or None, k)))
+            for ny, nx in K2_SHAPES:
+                f0, kw = _flow_inputs(ny, nx, eq == "incompressible",
+                                      obstacle)
+                worst["K2"] = max(worst["K2"], _checked_ks(
+                    f"K2 vs plain {ny}x{nx} random {tag}",
+                    lambda k: _max_diff(temporal_pipe_step(
+                        f0, torch.empty_like(f0), k, **kw),
+                        pipe_run_reference(f0, k, **kw))))
             for n in RESIDENT_CHECK_STEPS:
                 worst["K3"] = max(worst["K3"], _checked(
                     f"K3 vs plain 32x256 {tag}, {n} steps",
@@ -419,12 +472,12 @@ def kernel_phase(main, small, cyl, inlet):
     n = f"{main.ny}x{main.nx} compressible"
     worst["K1"] = max(worst["K1"], _checked(
         f"K1 vs plain {n}, 4 steps", compare_k1(main, None)))
-    worst["K2"] = max(worst["K2"], _checked(
-        f"K2 vs plain {n}, {TEMPORAL_K} steps", compare_k2(main, None)))
     cyl_mask = cyl.obstacle_mask.to(torch.int32)
-    worst["K2"] = max(worst["K2"], _checked(
-        f"K2 vs plain cylinder {cyl.ny}x{cyl.nx}, {TEMPORAL_K} steps",
-        compare_k2(cyl, cyl_mask)))
+    worst["K2"] = max(worst["K2"], _checked_ks(
+        f"K2 vs plain {n}", lambda k: compare_k2(main, None, k)))
+    worst["K2"] = max(worst["K2"], _checked_ks(
+        f"K2 vs plain cylinder {cyl.ny}x{cyl.nx}",
+        lambda k: compare_k2(cyl, cyl_mask, k)))
     for n in RESIDENT_CHECK_STEPS:
         worst["K3"] = max(worst["K3"], _checked(
             f"K3 vs plain {small.ny}x{small.nx} model state, {n} steps",
@@ -432,12 +485,22 @@ def kernel_phase(main, small, cyl, inlet):
     for outlet in ("zero_gradient", "velocity"):
         for incompressible in (False, True):
             for obstacle in (False, True):
-                worst["K2v"] = max(worst["K2v"], _checked(
-                    f"K2 velocity inlet vs plain {inlet.ny}x{inlet.nx} "
-                    f"outlet={outlet} incompressible={incompressible} "
-                    f"obstacle={obstacle}, {TEMPORAL_K} steps",
-                    compare_k2_velocity(inlet, obstacle or None, outlet,
-                                        incompressible)))
+                tag = (f"outlet={outlet} incompressible={incompressible} "
+                       f"obstacle={obstacle}")
+                worst["K2v"] = max(worst["K2v"], _checked_ks(
+                    f"K2 velocity inlet vs plain {inlet.ny}x{inlet.nx} {tag}",
+                    lambda k: compare_k2_velocity(
+                        inlet, obstacle or None, outlet, incompressible, k)))
+                for ny, nx in K2_SHAPES:
+                    f0, kw = _flow_inputs(ny, nx, incompressible, obstacle)
+                    kw = dict(omega=inlet.omega, u_w=inlet.u_w,
+                              u_e=inlet.u_e, outlet=outlet,
+                              incompressible=incompressible, mask=kw["mask"])
+                    worst["K2v"] = max(worst["K2v"], _checked_ks(
+                        f"K2 velocity inlet vs plain {ny}x{nx} random {tag}",
+                        lambda k: _max_diff(temporal_velocity_step(
+                            f0, torch.empty_like(f0), k, **kw),
+                            _velocity_run(f0, k, kw))))
     return worst
 
 
@@ -558,11 +621,12 @@ def main_path_phase(main, small, inlet, card, times, copy_bw):
     inlet.run(TEMPORAL_K + 1)
 
     def drive():
+        main.run(1)  # one step short of a K2 launch: K1
         main.run(MAIN_STEPS, timed=True)
         small.run(SMALL_STEPS, timed=True)
         inlet.run(INLET_STEPS, timed=True)
 
-    expected = {"K1": MAIN_STEPS % TEMPORAL_K,
+    expected = {"K1": 1 + MAIN_STEPS % TEMPORAL_K,
                 "K2": MAIN_STEPS // TEMPORAL_K, "K3": 1,
                 "K2v": -(-INLET_STEPS // TEMPORAL_K)}
     counts = _window("main path (flow)", drive, expected)
@@ -690,16 +754,18 @@ def diffusion_kernel_phase(adv, sto, wave, rad, inlet):
             raise RuntimeError(f"{label}: kernel disagrees, {d} > {tol}")
         worst[key] = max(worst[key], d)
 
-    odd = _random_state(254, 382)
     for key, sim in (("K2d", adv), ("K2n", sto)):
         kw = sim.step_kwargs()
-        for k in sorted({1, sim.temporal_k, MAX_TEMPORAL_K}):
-            check(key, f"{key} vs plain {sim.ny}x{sim.nx} model state, k={k}",
-                  compare_k2_diffusion(kw, sim.state, k))
-        for k in range(1, MAX_TEMPORAL_K + 1):
-            check(key, f"{key} vs plain 254x382 random rho, k={k}",
-                  compare_k2_diffusion(dict(kw, **_noise_of(sto, key)), odd,
-                                       k))
+        # bit for bit: the update rounds every operation alone
+        worst[key] = max(worst[key], _checked_ks(
+            f"{key} vs plain {sim.ny}x{sim.nx} model state",
+            lambda k: compare_k2_diffusion(kw, sim.state, k), tol=0.0))
+        for ny, nx in ((254, 382),) + K2_SHAPES:
+            rand = _random_state(ny, nx)
+            worst[key] = max(worst[key], _checked_ks(
+                f"{key} vs plain {ny}x{nx} random rho",
+                lambda k: compare_k2_diffusion(
+                    dict(kw, **_noise_of(sto, key)), rand, k), tol=0.0))
     for key, sim in (("K3d", rad), ("K3n", wave)):
         kw = sim.step_kwargs()
         rand = _random_state(sim.ny, sim.nx)
@@ -734,27 +800,35 @@ def _noise_of(sto, key):
     return {}
 
 
-def k_sweep_phase(adv, sto, card):
-    """Device ms per step of K2 at K = 1..8 for each diffusion physics, at
-    the main path's 2048^2 (CUDA events, 50 launches each)."""
+def k_sweep_phase(main, adv, sto, card):
+    """Device ms per step of K2 at K = 1..MAX_TEMPORAL_K for the flow at the
+    main path's 4096^2 and each diffusion physics at its 2048^2 (CUDA
+    events, 50 launches each)."""
     best = {}
-    for label, sim in (("diffusion", adv), ("noisy_fisher", sto)):
-        kw = sim.step_kwargs()
+    flow = dict(omega=main.omega, inlet_rho=main.inlet_rho,
+                outlet_rho=main.outlet_rho, incompressible=False)
+    for label, sim in (("flow", main), ("diffusion", adv),
+                       ("noisy_fisher", sto)):
+        kw = sim.step_kwargs() if sim is not main else flow
         bufs = [sim.state.clone(), torch.empty_like(sim.state)]
         per_step = {}
         for k in range(1, MAX_TEMPORAL_K + 1):
             def launch(k=k):
-                temporal_diffusion_step(bufs[0], bufs[1], k, step0=STEP0,
-                                        **kw)
+                if sim is main:
+                    temporal_pipe_step(bufs[0], bufs[1], k, **kw)
+                else:
+                    temporal_diffusion_step(bufs[0], bufs[1], k, step0=STEP0,
+                                            **kw)
                 bufs.reverse()
 
             launch()
             per_step[k] = _events_ms(launch, 50) / k
         best[label] = min(per_step, key=per_step.get)
+        model_k = TEMPORAL_K if sim is main else sim.temporal_k
         print(f"K sweep, K2 {label} at {sim.ny}x{sim.nx}, ms per step: "
               + ", ".join(f"K={k} {t:.5f}" for k, t in per_step.items())
               + f"; fastest K={best[label]} (model uses "
-              f"K={sim.temporal_k}); card: {card}", flush=True)
+              f"K={model_k}); card: {card}", flush=True)
         del bufs
     return best
 
@@ -1036,53 +1110,57 @@ def compare_k5(kw, f0, k, B, step0=STEP0):
 
 
 def multifield_kernel_phase(fe, ex):
-    """K4 and K5 against their plain versions: at the main path's models
-    and shapes (from step STEP0, noise on), and on random states at an
-    unaligned grid for F = 1, 2, 3 and the largest F. K4 fisher is held to
-    KERNEL_TOL; K4 expansion and K5, whose clips turn an ulp into a jump,
-    to 0."""
+    """K4 and K5 against their plain versions, all to 0 (every operation
+    rounds alone; the clips turn an ulp into a jump): at the main path's
+    models and shapes (from step STEP0, noise on), K4 at every K, and on
+    random states at an unaligned grid for F = 1..8 at every K, and at
+    45x33 and 7x300 for F = 1, 2, 3 and 8."""
     worst = dict.fromkeys(("K4f", "K4e", "K5"), 0.0)
 
     def check(key, label, d):
-        tol = KERNEL_TOL if key == "K4f" else 0.0
-        print(f"{label}: max|d| = {d:.3e} (limit {tol:g})", flush=True)
-        if not d <= tol:
-            raise RuntimeError(f"{label}: kernel disagrees, {d} > {tol}")
+        print(f"{label}: max|d| = {d:.3e} (limit 0)", flush=True)
+        if not d == 0.0:
+            raise RuntimeError(f"{label}: kernel disagrees, {d} > 0")
         worst[key] = max(worst[key], d)
+
+    def check_ks(key, label, compare, F):
+        ks = range(1, multifield_max_k(F) + 1)
+        worst[key] = max(worst[key], _checked_ks(label, compare, 0.0, ks))
 
     rng = np.random.RandomState(0)
     noise = torch.tensor((1 + 0.01 * rng.randn(*fe.state.shape)).astype(
         np.float32), device="cuda")
     f_fe = (fe.state * noise).contiguous()
-    for k in range(1, multifield_max_k(fe.num_fields) + 1):
-        check("K4f", f"K4 fisher vs plain {fe.ny}x{fe.nx} F={fe.num_fields} "
-              f"model state (1% perturbed), k={k}",
-              compare_k4(fe.step_kwargs(), f_fe, k))
+    check_ks("K4f", f"K4 fisher vs plain {fe.ny}x{fe.nx} F={fe.num_fields} "
+             "model state (1% perturbed)",
+             lambda k: compare_k4(fe.step_kwargs(), f_fe, k), fe.num_fields)
     del f_fe, noise
     kw = ex.step_kwargs()
-    for k in sorted({1, ex.temporal_k, multifield_max_k(ex.num_fields)}):
-        check("K4e", f"K4 expansion vs plain {ex.ny}x{ex.nx} "
-              f"F={ex.num_fields} model state, noise on, k={k}",
-              compare_k4(kw, ex.state, k))
+    check_ks("K4e", f"K4 expansion vs plain {ex.ny}x{ex.nx} "
+             f"F={ex.num_fields} model state, noise on",
+             lambda k: compare_k4(kw, ex.state, k), ex.num_fields)
+    for k in sorted({1, ex.temporal_k, band_max_k(ex.num_fields)}):
         for B in (2 * k, 2 * k + 5):
             check("K5", f"K5 vs plain and vs K4 rows [-{k}, {k}), band of "
                   f"{2 * B} rows of the {ex.ny}x{ex.nx} model state, k={k}",
                   compare_k5(kw, ex.state, k, B))
-    for F in (1, 2, 3, MAX_MULTIFIELD_FIELDS):
-        f0 = _mf_random_state(F, 254, 382, "fisher")
-        for k in range(1, multifield_max_k(F) + 1):
-            check("K4f", f"K4 fisher vs plain 254x382 F={F} random rho, k={k}",
-                  compare_k4(_mf_kwargs(F, "fisher"), f0, k))
-        if F == 1:
-            continue  # Expansion has a nutrient and at least one population
-        f0 = _mf_random_state(F, 254, 382, "expansion")
-        kw = _mf_kwargs(F, "expansion")
-        for k in range(1, multifield_max_k(F) + 1):
-            check("K4e", f"K4 expansion vs plain 254x382 F={F} random rho, "
-                  f"noise on, k={k}", compare_k4(kw, f0, k))
-        check("K5", f"K5 vs plain and vs K4 rows, 254x382 F={F} random rho, "
-              f"k={multifield_max_k(F)}",
-              compare_k5(kw, f0, multifield_max_k(F), 2 * multifield_max_k(F)))
+    for F in range(1, MAX_MULTIFIELD_FIELDS + 1):
+        shapes = ((254, 382), (45, 33), (7, 300)) if F in (1, 2, 3, 8) else (
+            (254, 382),)
+        for ny, nx in shapes:
+            f0 = _mf_random_state(F, ny, nx, "fisher")
+            check_ks("K4f", f"K4 fisher vs plain {ny}x{nx} F={F} random rho",
+                     lambda k: compare_k4(_mf_kwargs(F, "fisher"), f0, k), F)
+            if F == 1:
+                continue  # Expansion has a nutrient and at least one population
+            f0 = _mf_random_state(F, ny, nx, "expansion")
+            kw = _mf_kwargs(F, "expansion")
+            check_ks("K4e", f"K4 expansion vs plain {ny}x{nx} F={F} random "
+                     "rho, noise on", lambda k: compare_k4(kw, f0, k), F)
+            if (ny, nx) == (254, 382):
+                k = band_max_k(F)
+                check("K5", f"K5 vs plain and vs K4 rows, 254x382 F={F} "
+                      f"random rho, k={k}", compare_k5(kw, f0, k, 2 * k))
     return worst
 
 
@@ -2002,10 +2080,11 @@ def halo_velocity_phase(inlet, err):
     """K9 velocity_inlet (both outlets) as a sharded run drives it, on the
     401x401 inlet's perturbed state cut 4x1 and 2x2 (shards of unequal
     edges; each sweep's halos cut from the assembled state), 3 sweeps of
-    TEMPORAL_K against 3 K2 launches; the 4x1 zero-gradient run in its own
-    counted window. No sharded model runs this physics (JAX's neither)."""
+    K9's default K against 3 K2 launches; the 4x1 zero-gradient run in its
+    own counted window. No sharded model runs this physics (JAX's
+    neither)."""
     f0, _ = _inputs(inlet, None)
-    k = TEMPORAL_K
+    k = HALO_TEMPORAL_K["velocity_inlet"]
     counts = None
     for outlet in ("zero_gradient", "velocity"):
         kw = dict(omega=inlet.omega, u_w=inlet.u_w, u_e=inlet.u_e,
@@ -2057,7 +2136,8 @@ def sharded_flow_phase():
     worst, kept = 0.0, None
     for mesh in ((4, 1), (2, 2)):
         sh = ShardedPipeFlow(mesh=_cuda_mesh(mesh), **SHARDED_8192)
-        if (sh.backend, sh.steps_per_call) != ("temporal", TEMPORAL_K):
+        if (sh.backend, sh.steps_per_call) != ("temporal",
+                                               HALO_TEMPORAL_K["flow"]):
             raise RuntimeError(f"ShardedPipeFlow {mesh}: {sh.backend} K="
                                f"{sh.steps_per_call}")
         single.state = f0.clone()
@@ -2087,18 +2167,18 @@ def sharded_main_path_phase(single, sh, err, card):
     """The slice's main path: the 8192^2 ShardedPipeFlow on 4x1 shards,
     ``run(100, timed=True)`` in its own counted window, beside the
     unsharded PipeFlow's K2 run; the halo exchange's time per sweep."""
-    sh.run(TEMPORAL_K + 1)  # warm both sweep depths
-    sweeps = -(-SHARDED_STEPS // TEMPORAL_K)
+    sh.run(sh.steps_per_call + 1)  # warm both sweep depths
+    sweeps = -(-SHARDED_STEPS // sh.steps_per_call)
     counts = _window(f"ShardedPipeFlow {sh.ny}x{sh.nx} on 4x1 shards",
                      lambda: sh.run(SHARDED_STEPS, timed=True),
                      {"K9": 4 * sweeps})
     if not all(torch.isfinite(t).all() for t in sh.state):
         raise RuntimeError("ShardedPipeFlow: non-finite state")
     single.run(TEMPORAL_K + 1)
+    k2 = {"K2": SHARDED_STEPS // TEMPORAL_K, "K1": SHARDED_STEPS % TEMPORAL_K}
     _window(f"PipeFlow {single.ny}x{single.nx} (K2)",
             lambda: single.run(SHARDED_STEPS, timed=True),
-            {"K2": SHARDED_STEPS // TEMPORAL_K,
-             "K1": SHARDED_STEPS % TEMPORAL_K})
+            {name: n for name, n in k2.items() if n})
     exchange_ms = _events_ms(lambda: exchange_halos(sh.mesh, sh.halos), 20)
     sweep_ms = sh.num_cells * SHARDED_STEPS / (sh.last_mlups * 1e6) * 1e3 / (
         sweeps)
@@ -2572,7 +2652,7 @@ def main():
     more_times, more_steps, band_rows = multifield_timing_phase(fe, ex)
     times.update(more_times)
     steps.update(more_steps)
-    k_sweep_phase(adv, sto, card)
+    k_sweep_phase(main_sim, adv, sto, card)
     multifield_k_sweep_phase(fe, ex, card)
     launches = main_path_phase(main_sim, small, inlet, card, times, copy_bw)
     mass0 = float(density(adv.state).double().sum())
@@ -2689,7 +2769,8 @@ def main():
             "ms": times[key], "plain_ms": times["plain " + key],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes the same
-            "steps_per_launch": steps[key], "shape": shape})
+            "steps_per_launch": steps[key],
+            "ms_per_step": times[key] / steps[key], "shape": shape})
     k7 = "lb2d_tpu/ops/fused_coupled.py"
     for physics, tpu in (("rocket_yeast", f"{k7}:105"),
                          ("rocket_yeast_forces_only", f"{k7}:105"),
@@ -2745,7 +2826,8 @@ def main():
             "ms": info["ms"], "plain_ms": info["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes the same
-            "steps_per_launch": info["k"], "shape": info["shape"]})
+            "steps_per_launch": info["k"],
+            "ms_per_step": info["ms"] / info["k"], "shape": info["shape"]})
     halo_rows = [("mc_density halo", "mc_step.cu", f"{k6}", dict(
         c5_sharded["rows"]["K6hd"], err=max(
             c5_sharded["rows"]["K6hd"]["err"], k6h_err))),

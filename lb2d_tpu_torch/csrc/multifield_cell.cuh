@@ -1,7 +1,9 @@
-// The per-cell updates of the multifield range expansions, shared by K4 and
-// K5 (multifield_step.cu). F, the number of fields, is a template
-// parameter. A cell's values sit in a shared-memory tile of edge T as
-// planes j * F + p (direction j of field p), the layout of the state
+// The per-cell updates of the multifield range expansions, shared by K4,
+// K5 and K9's multifield physics (multifield_step.cu). F, the number of
+// fields, is a template parameter. A cell reads field p's 9 pulled values
+// through `pull(p, s)` and writes direction j of field p through
+// `put(j, p, value)` (row_sweep.cuh: RingPull, RingPut, GlobalPut); the
+// state's planes are j * F + p (direction j of field p), the layout of
 // f[9][F][ny][nx] and of the TPU kernel's f[9F][ny][nx]
 // (lb2d_tpu/ops/fused.py:1561).
 //
@@ -51,22 +53,6 @@ struct Lb2dMultifieldParams {
 
 namespace {
 
-// The 9 values that cell p of a tile with edge T pulls in the stream, for
-// one field: p points at direction 0 of that field, `dir` is the distance
-// between two directions' planes (F T^2).
-__device__ __forceinline__ void pull_field(const float* p, int dir, int T,
-                                           float (&s)[9]) {
-  s[0] = p[0];
-  s[1] = p[1 * dir - 1];
-  s[2] = p[2 * dir - T];
-  s[3] = p[3 * dir + 1];
-  s[4] = p[4 * dir + T];
-  s[5] = p[5 * dir - T - 1];
-  s[6] = p[6 * dir - T + 1];
-  s[7] = p[7 * dir + T + 1];
-  s[8] = p[8 * dir + T - 1];
-}
-
 // No-flux walls and corners of cell (y, x) of an ny x nx grid, from its
 // pulled values s into st: the selects of _mf_noflux_walls in its order
 // (full bounce-back of the three populations leaving through each wall,
@@ -104,30 +90,19 @@ __device__ __forceinline__ float sum_in_order(const float (&st)[9]) {
   return r;
 }
 
-// (1 + c_j.u / cs2) per direction, as feq_linear forms it.
-__device__ __forceinline__ void feq_coefficients(float u, float v,
-                                                 float (&coef)[9]) {
-  const float cu[9] = {0.0f, u, v, -u, -v, __fadd_rn(u, v), __fadd_rn(-u, v),
-                       __fadd_rn(-u, -v), __fadd_rn(u, -v)};
-#pragma unroll
-  for (int j = 0; j < 9; ++j) coef[j] = __fadd_rn(1.0f, __fdiv_rn(cu[j], kCs2));
-}
-
-// One FisherExpansion step of the cell at `src` (tile edge T, global
-// coordinates (y, x) of an ny x nx grid); writes direction j of field p to
-// dst[(j F + p) * dst_plane].
-template <int F>
+// One FisherExpansion step of the cell whose pulls `pull` reads (global
+// coordinates (y, x) of an ny x nx grid); writes through `put`.
+template <int F, class Pull, class Put>
 __device__ __forceinline__ void fisher_cell_update(
-    const float* src, int T, float* dst, size_t dst_plane, int y, int x,
-    int ny, int nx, const Lb2dMultifieldParams& prm, const float (&coef)[9]) {
-  const int dir = F * T * T;
+    const Pull& pull, const Put& put, int y, int x, int ny, int nx,
+    const Lb2dMultifieldParams& prm, const float (&coef)[9]) {
   const float w[9] = {kW0, kW1, kW1, kW1, kW1, kW2, kW2, kW2, kW2};
   float rho[F];
   float rho_tot = 0.0f;
 #pragma unroll
   for (int p = 0; p < F; ++p) {
     float s[9], st[9];
-    pull_field(src + p * T * T, dir, T, s);
+    pull(p, s);
     noflux_walls(s, st, y, x, ny, nx);
     rho[p] = sum_in_order(st);
     rho_tot = p ? __fadd_rn(rho_tot, rho[p]) : rho[p];
@@ -136,7 +111,7 @@ __device__ __forceinline__ void fisher_cell_update(
 #pragma unroll
   for (int p = 0; p < F; ++p) {
     float s[9], st[9];
-    pull_field(src + p * T * T, dir, T, s);
+    pull(p, s);
     noflux_walls(s, st, y, x, ny, nx);
     const float om = prm.omega[p];
     const float A = __fsub_rn(1.0f, om);
@@ -144,32 +119,30 @@ __device__ __forceinline__ void fisher_cell_update(
 #pragma unroll
     for (int j = 0; j < 9; ++j) {
       const float feq = __fmul_rn(__fmul_rn(w[j], rho[p]), coef[j]);
-      dst[(size_t)(j * F + p) * dst_plane] = __fadd_rn(
-          __fadd_rn(__fmul_rn(st[j], A), __fmul_rn(om, feq)),
-          __fmul_rn(w[j], growth));
+      put(j, p, __fadd_rn(__fadd_rn(__fmul_rn(st[j], A), __fmul_rn(om, feq)),
+                          __fmul_rn(w[j], growth)));
     }
   }
 }
 
-// One Expansion step (F - 1 populations, the nutrient last) of the cell at
-// `src`, whose noise is that of global cell index `cell` at global step
-// `step`: population p draws the normal of Philox words 2 (p % 2) and
-// 2 (p % 2) + 1 of counter (cell, step, p >> 1), one call per pair
+// One Expansion step (F - 1 populations, the nutrient last) of the cell
+// whose pulls `pull` reads and whose noise is that of global cell index
+// `cell` at global step `step`: population p draws the normal of Philox
+// words 2 (p % 2) and 2 (p % 2) + 1 of counter (cell, step, p >> 1), one call per pair
 // (lb2d_tpu_torch/ops/random.py:population_normals_reference); a
 // population with dg = 0 draws nothing. Writes as fisher_cell_update.
-template <int F>
+template <int F, class Pull, class Put>
 __device__ __forceinline__ void expansion_cell_update(
-    const float* src, int T, float* dst, size_t dst_plane,
-    unsigned long long cell, unsigned long long step,
-    const Lb2dMultifieldParams& prm, const float (&coef)[9]) {
+    const Pull& pull, const Put& put, unsigned long long cell,
+    unsigned long long step, const Lb2dMultifieldParams& prm,
+    const float (&coef)[9]) {
   constexpr int P = F - 1;
-  const int dir = F * T * T;
   const float w[9] = {kW0, kW1, kW1, kW1, kW1, kW2, kW2, kW2, kW2};
   float rho[F];
 #pragma unroll
   for (int p = 0; p < F; ++p) {
     float s[9];
-    pull_field(src + p * T * T, dir, T, s);
+    pull(p, s);
     const float r = sum_in_order(s);
     rho[p] = r >= prm.cutoff ? r : 0.0f;  // NaN lands in the zero branch
   }
@@ -204,7 +177,7 @@ __device__ __forceinline__ void expansion_cell_update(
 #pragma unroll
   for (int p = 0; p < F; ++p) {
     float s[9];
-    pull_field(src + p * T * T, dir, T, s);
+    pull(p, s);
     const float om = prm.omega[p];
     const float A = __fsub_rn(1.0f, om);
     const bool rho_low = rho[p] < prm.cutoff;
@@ -215,7 +188,7 @@ __device__ __forceinline__ void expansion_cell_update(
           __fadd_rn(__fmul_rn(s[j], A), __fmul_rn(om, feq)),
           __fmul_rn(w[j], react[p]));
       // negative or NaN -> 0 (o >= 0 is false for NaN)
-      dst[(size_t)(j * F + p) * dst_plane] = rho_low || !(o >= 0.0f) ? 0.0f : o;
+      put(j, p, rho_low || !(o >= 0.0f) ? 0.0f : o);
     }
   }
 }

@@ -155,7 +155,11 @@ __device__ __forceinline__ void bounce_back(float (&st)[9]) {
 // direction order as the plain version sums them; u = j / rho, or u = j
 // with kIncompMoments (He-Luo); u = v = 0 when zero_vel. feq is the
 // quadratic (compressible) or, with kIncompFeq, the incompressible one.
-template <bool kIncompMoments, bool kIncompFeq>
+// With kPaired the opposite directions share their quotients: IEEE
+// division and rounding are odd in the dividend, so (-c) / k = -(c / k)
+// and (-c)^2 = c^2 exactly: 8 of the 17 divisions by constants go, with
+// the same bits (K2; K1, K3 and K9 keep a division per direction).
+template <bool kIncompMoments, bool kIncompFeq, bool kPaired = false>
 __device__ __forceinline__ void collide(const float (&st)[9], float (&out)[9],
                                         bool zero_vel, float omega) {
   const float rho = st[0] + st[1] + st[2] + st[3] + st[4] + st[5] + st[6]
@@ -179,13 +183,26 @@ __device__ __forceinline__ void collide(const float (&st)[9], float (&out)[9],
   const float usq = (u * u + v * v) / kTwoCs2;
   const float cu[9] = {0.0f, u, v, -u, -v, u + v, -u + v, -u - v, u - v};
   const float w[9] = {kW0, kW1, kW1, kW1, kW1, kW2, kW2, kW2, kW2};
+  float lin[9], sq[9];  // cu / cs2 and cu^2 / (2 cs4) per direction
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    // directions 3, 4, 7, 8 are the opposites of 1, 2, 5, 6
+    const int o = j == 3 ? 1 : j == 4 ? 2 : j == 7 ? 5 : j == 8 ? 6 : j;
+    if (kPaired && o != j) {
+      lin[j] = -lin[o];
+      sq[j] = sq[o];
+    } else {
+      lin[j] = cu[j] / kCs2;
+      sq[j] = (cu[j] * cu[j]) / kTwoCs4;
+    }
+  }
 #pragma unroll
   for (int j = 0; j < 9; ++j) {
     float feq;
     if (kIncompFeq) {
-      feq = w[j] * (rho + cu[j] / kCs2 + (cu[j] * cu[j]) / kTwoCs4 - usq);
+      feq = w[j] * (rho + lin[j] + sq[j] - usq);
     } else {
-      feq = w[j] * rho * (1.0f + cu[j] / kCs2 + (cu[j] * cu[j]) / kTwoCs4 - usq);
+      feq = w[j] * rho * (1.0f + lin[j] + sq[j] - usq);
     }
     out[j] = st[j] * A + omega * feq;
   }
@@ -195,7 +212,7 @@ __device__ __forceinline__ void collide(const float (&st)[9], float (&out)[9],
 // post-collision values out: BCs, bounce-back if `solid`, moments, feq,
 // BGK. The incompressible equilibrium uses He-Luo moments and zeroes the
 // velocity inside the obstacle.
-template <bool kIncomp, bool kObstacle>
+template <bool kIncomp, bool kObstacle, bool kPaired = false>
 __device__ __forceinline__ void cell_update(const float (&s)[9],
                                             float (&out)[9], int y, int x,
                                             int ny, int nx, bool solid,
@@ -206,7 +223,8 @@ __device__ __forceinline__ void cell_update(const float (&s)[9],
   for (int j = 0; j < 9; ++j) st[j] = s[j];
   apply_bcs<kIncomp>(s, st, y, x, ny, nx, rin, rout);
   if (kObstacle && solid) bounce_back(st);  // from the post-BC snapshot
-  collide<kIncomp, kIncomp>(st, out, kIncomp && kObstacle && solid, omega);
+  collide<kIncomp, kIncomp, kPaired>(st, out, kIncomp && kObstacle && solid,
+                                     omega);
 }
 
 // Zou-He velocity inlet (u = uw) on the whole column x = 0 and, on
@@ -248,7 +266,7 @@ __device__ __forceinline__ void apply_velocity_bcs(const float (&s)[9],
 // of DIVERGENCES.md #20-21): velocity BCs, bounce-back if `solid`,
 // compressible moments with the velocity zeroed inside the obstacle, feq
 // (incompressible with kIncompFeq), BGK.
-template <bool kPair, bool kIncompFeq, bool kObstacle>
+template <bool kPair, bool kIncompFeq, bool kObstacle, bool kPaired = false>
 __device__ __forceinline__ void velocity_cell_update(
     const float (&s)[9], const float (&up)[3], float (&out)[9], int x, int nx,
     bool solid, float omega, float uw, float ue) {
@@ -257,7 +275,17 @@ __device__ __forceinline__ void velocity_cell_update(
   for (int j = 0; j < 9; ++j) st[j] = s[j];
   apply_velocity_bcs<kPair>(s, up, st, x, nx, uw, ue);
   if (kObstacle && solid) bounce_back(st);
-  collide<false, kIncompFeq>(st, out, kObstacle && solid, omega);
+  collide<false, kIncompFeq, kPaired>(st, out, kObstacle && solid, omega);
+}
+
+// (1 + c_j.u / cs2) per direction, as feq_linear forms it: the same for
+// every cell of a launch.
+__device__ __forceinline__ void feq_coefficients(float u, float v,
+                                                 float (&coef)[9]) {
+  const float cu[9] = {0.0f, u, v, -u, -v, __fadd_rn(u, v), __fadd_rn(-u, v),
+                       __fadd_rn(-u, -v), __fadd_rn(u, -v)};
+#pragma unroll
+  for (int j = 0; j < 9; ++j) coef[j] = __fadd_rn(1.0f, __fdiv_rn(cu[j], kCs2));
 }
 
 // One step of the periodic advection-diffusion family for the cell with
@@ -272,6 +300,38 @@ __device__ __forceinline__ void velocity_cell_update(
 // sqrt(rho (1 - rho)) has an unbounded slope at rho = 1, where one ulp of
 // rho moves the noise by up to ~1e-5. With g = 0 the growth adds an exact
 // zero; with dg = 0 no normal is drawn, as the plain step draws none.
+// coef: the launch's feq_coefficients(p.a, p.b) (K2 forms them once).
+template <bool kNoisy>
+__device__ __forceinline__ void diffusion_cell_update(
+    const float (&s)[9], float (&out)[9], const StepParams& p,
+    unsigned long long cell, unsigned long long step,
+    const float (&coef)[9]) {
+  float rho = s[0];
+#pragma unroll
+  for (int j = 1; j < 9; ++j) rho = __fadd_rn(rho, s[j]);
+  const float one_minus = __fsub_rn(1.0f, rho);
+  float react = __fmul_rn(__fmul_rn(p.g, rho), one_minus);
+  if (kNoisy && p.dg != 0.0f) {
+    const float var = __fmul_rn(__fmul_rn(p.dg, rho), one_minus);
+    // NaN passes through both clips, as in torch.clamp and jnp.maximum
+    const float amp = __fsqrt_rn(var < 0.0f ? 0.0f : var);
+    react = __fadd_rn(react,
+                      __fmul_rn(amp, cell_normal(cell, step, p.k0, p.k1)));
+  }
+  const float A = __fsub_rn(1.0f, p.omega);
+  const float w[9] = {kW0, kW1, kW1, kW1, kW1, kW2, kW2, kW2, kW2};
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    const float feq = __fmul_rn(__fmul_rn(w[j], rho), coef[j]);
+    const float o = __fadd_rn(
+        __fadd_rn(__fmul_rn(s[j], A), __fmul_rn(p.omega, feq)),
+        __fmul_rn(w[j], react));
+    out[j] = kNoisy && o < 0.0f ? 0.0f : o;
+  }
+}
+
+// The same, forming each coefficient where it is used (K3, K9: K9's noisy
+// shard ran 1.5-2% slower through the version above; PERF.md, PR 9).
 template <bool kNoisy>
 __device__ __forceinline__ void diffusion_cell_update(
     const float (&s)[9], float (&out)[9], const StepParams& p,

@@ -1,18 +1,17 @@
-// Where the tile kernels read a block's region from, and which cells they
-// write: the whole periodic grid (GridSource: K4 and K5 in
-// multifield_step.cu), or one shard of a domain-decomposed grid with its
-// neighbours' halos (HaloSource: K9, which replaces
-// lb2d_tpu/ops/fused_halo.py:make_temporal_halo_step, in temporal_step.cu
-// and multifield_step.cu). The multifield kernel takes the source as a
-// template parameter, so K9's multifield physics run K4's step loop; K9's
-// other physics run a copy of K2's loop (temporal_step.cu says why). Every
-// cell goes through the same per-cell updates as K2 and K4, so K9 agrees
-// with them bit for bit.
+// Where K4's row sweep and K9's tile loop read a block's cells from: the
+// whole periodic grid (GridSource: K4 and K5 in multifield_step.cu), or one
+// shard of a domain-decomposed grid with its neighbours' halos (HaloSource:
+// K9, which replaces lb2d_tpu/ops/fused_halo.py:make_temporal_halo_step, in
+// temporal_step.cu and multifield_step.cu). The multifield sweep takes the
+// source as a template parameter, so K9's multifield physics run K4's
+// sweep; K9's other physics run a loop of 32 x 32 tiles of their own
+// (temporal_step.cu says why). Every cell goes through the same per-cell
+// updates as K2 and K4, so K9 agrees with them bit for bit.
 //
-// A block's region is a square of domain cells (y, x), unwrapped: up to K
-// cells outside the written domain on each side, and, on the ragged last
-// row and column of blocks, further out. Each cell's BCs and noise use its
-// global coordinates, wrap(y0 + y, ny) and wrap(x0 + x, nx) (Domain).
+// A block reads domain cells (y, x), unwrapped: up to K cells outside the
+// written domain on each side, and, on the ragged last tiles of K9's tile
+// loop, further out. Each cell's BCs and noise use its global coordinates,
+// wrap(y0 + y, ny) and wrap(x0 + x, nx) (Domain).
 
 #pragma once
 

@@ -7,44 +7,54 @@
 // obstacle, as the model's plain step allows), and the fully periodic
 // "diffusion" and "noisy_fisher" of the advection-diffusion family. The
 // TPU kernel sweeps 16-row chunks in order and keeps K-1 VMEM rings of
-// intermediate steps; its skewed loop, DMA semaphores and 128-lane
-// alignment are scheduling for a sequential grid and are not carried over.
-// What is kept is the idea: read f once and write it once for K steps, so
-// HBM traffic per step falls from 72 B/cell towards 72/K.
+// intermediate steps; what is kept is the idea: read f once and write it
+// once for K steps, so HBM traffic per step falls from 72 B/cell to 72/K.
 //
-// Design: each block owns a 32 x 32 region of cells (kTile) whose inner
-// (32 - 2K)^2 cells it writes; the K-cell ring around them is the halo.
-// The block loads the region's 9 planes into shared memory (periodic wrap,
-// so any ny x nx works and a tile may wrap onto itself on a small grid),
-// then runs K steps between two shared-memory buffers. Step s is computed
-// on the cells at least s from the region's edge, which pull only from
-// cells valid at step s-1; the last step writes the inner cells straight
-// to f_out. Each cell uses cell_update, velocity_cell_update or
-// diffusion_cell_update (pipe_cell.cuh) with its wrapped global
-// coordinates, so the BCs and the mask apply exactly as in K single steps,
-// and the y-periodic families need no seam patch (the TPU kernel's chunks
-// do not wrap in y, so lb2d_tpu's models recompute the seam rows with
-// plain steps). The noise of a cell at stage s is the Philox normal of
-// (its global index, step0 + s - 1) (philox.cuh): a halo cell recomputed
-// here draws the same normal as the block that owns it, so K2 at any K
-// follows K single plain steps with noise on.
+// Design: the row sweep of row_sweep.cuh (flow, diffusion, noisy Fisher;
+// the velocity physics keep the first K2's tile loop, velocity_tile_kernel
+// below says why). A block takes a work item, a
+// strip of at most 128 columns (its stored columns and a K-column halo on
+// each side, wrapped in x) and a segment of rows, and sweeps the segment
+// one row per phase: the input row of the next phase arrives by cp.async
+// while level s = 1..K computes row ys - K + t - 2 s from level s - 1's
+// ring of rows in shared memory; level K writes straight to f_out, and one
+// barrier per phase orders it all. Each input row is read once, only the x
+// halo (2K columns per strip) is computed again, and the y halo is K
+// warm-up rows at each end of a segment. The segments are as long as one
+// wave of resident blocks allows (row_sweep.cuh: sweep_plan). The obstacle
+// mask streams through its own ring of byte rows. Each cell uses
+// cell_update, velocity_cell_update or diffusion_cell_update (pipe_cell.cuh)
+// with its wrapped global coordinates, so the BCs and the mask apply
+// exactly as in K single steps, and the y-periodic families need no seam
+// patch (the TPU kernel's chunks do not wrap in y, so lb2d_tpu's models
+// recompute the seam rows with plain steps). The noise of a cell at stage s
+// is the Philox normal of (its global index, step0 + s - 1) (philox.cuh):
+// a halo cell computed twice draws the same normal in both strips, so K2
+// at any K follows K single plain steps with noise on.
 //
-// Bound: per cell written, the block reads 1024/(32-2K)^2 cells' 36 B
-// (neighbouring blocks' overlapping halos mostly come from L2) and writes
-// 36 B once for K steps; it recomputes the halo, (32-2s)^2 cells at step s.
-// The noisy update adds ten Philox rounds and logf/sqrtf/cosf per
-// cell-step, paid again on every recomputed halo cell, so each physics has
-// its own best K (PERF.md: 3 for flow and diffusion, 2 for noisy_fisher
-// at 2048^2-4096^2; the diffusion update, though cheaper than flow's,
-// takes as long per cell-step, so the tile structure, not arithmetic,
-// bounds this kernel).
-// Two 36 KB buffers (plus 1 KB of mask) let three blocks share an SM. This
-// first version loads with plain loads and synchronises the whole block
-// between steps; cp.async/TMA double buffering, larger tiles and warp
-// specialisation are left to later work.
+// Bound: per cell and step, 72/K B of HBM (f read and written once per
+// launch) against the card's 3.35 TB/s, and the update's arithmetic,
+// computed 128 / (128 - 2K) times over for the x halo. The flow update is
+// instruction-bound (its IEEE divisions, the BC branches): a thread takes
+// two columns 64 apart of its level, so their pulls, arithmetic and stores
+// overlap, and the flow update shares the quotients of opposite directions
+// (collide<.., kPaired>, the same bits); the diffusion family forms its
+// (1 + c.u / cs2) once per launch. Each thread's input planes are
+// constants of an unrolled copy per load lane. Shared memory per block,
+// (27 K + 9) rows of 128 floats (row_sweep.cuh), sets the blocks per SM: 4
+// up to K = 3, 3 up to K = 5, 2 up to K = 8; K <= 8, as K = 9-16 (one
+// block per SM) ran 1.8-2x slower per step. On an H100 80GB HBM3 at 700 W
+// (PERF.md, section 6, PR 9): 4096^2 flow 0.27 ms per step at K = 4, 2048^2
+// diffusion 0.035 at K = 8 and noisy Fisher 0.075 at K = 4, against 0.35,
+// 0.086 and 0.122 for the tile loop below.
 //
-// K9 (halo_step_kernel, lb2d_halo_step) is K2's design on one shard of a
-// domain-decomposed grid: it replaces lb2d_tpu/ops/fused_halo.py:
+// The first K2 (PRs 1-8) ran 32 x 32 tiles with a K-cell halo, three
+// blocks per SM and a block-wide barrier per step: at K = 3 it read 1.51x
+// the cells it wrote and computed 1.16x the updates it kept, and larger K
+// lost more to the halo than it saved in bytes.
+//
+// K9 (halo_step_kernel, lb2d_halo_step) keeps that tile loop on one shard
+// of a domain-decomposed grid: it replaces lb2d_tpu/ops/fused_halo.py:
 // make_temporal_halo_step for the physics above. Its region loads through
 // region_source.cuh's HaloSource (the shard, the K-row halos from its
 // y-neighbours and, on 2-D meshes, the K-column strips from its
@@ -52,34 +62,223 @@
 // and every cell keeps its global coordinates, so the BCs, the mask and
 // the noise are those of K2 on the whole grid, through the same per-cell
 // updates. Bound as K2's, plus the halo's bytes (2K rows and, on 2-D
-// meshes, 2K columns per shard). The two kernels keep separate step loops:
-// one loop templated on the region's source made nvcc allocate K2's
-// registers differently, and K2 ran 7.6-22% slower (PERF.md, section 6).
+// meshes, 2K columns per shard). It kept a loop of its own when K2 had the
+// same one (templated on the region's source, K2 ran 7.6-22% slower;
+// PERF.md, section 6), and K2's row sweep on a halo source is later work
+// (ROADMAP.md, queue 2).
 
 #include "pipe_cell.cuh"
 #include "region_source.cuh"
+#include "row_sweep.cuh"
 
 namespace {
 
-constexpr int kTile = 32;                       // region edge, halo included
-constexpr int kThreads = 256;
-constexpr int kRowsPerPass = kThreads / kTile;  // 8
-constexpr int kPasses = kTile / kRowsPerPass;   // 4 rows per thread
-constexpr int kPlane = kTile * kTile;           // cells per region plane
-constexpr int kMaxK = 8;                        // inner edge >= 16
-
-// physics, a template parameter of the kernel
+// physics, a template parameter of the kernels
 constexpr int kFlow = 0;          // pressure inlet/outlet, walls (a, b = rho)
 constexpr int kVelocityOpen = 1;  // velocity inlet, open outlet (a, b = u)
 constexpr int kVelocityPair = 2;  // velocity inlet and outlet (a, b = u)
 constexpr int kDiffusion = 3;     // periodic, linear feq, growth (a, b = u, v)
 constexpr int kNoisyFisher = 4;   // kDiffusion + Philox noise and clip
 
+// K2: K steps of the periodic ny x nx grid f_in into f_out, one work item
+// (strip blockIdx.x, segment blockIdx.y of `plan`) per block. A thread
+// computes kCols columns, kSpan apart, of every kLanes-th level: two
+// independent cells that share their rows, so one thread overlaps them.
+constexpr int kCols = 2;
+constexpr int kMinBlocks = 3;  // __launch_bounds__: 85 registers a thread
+
 template <int kPhys, bool kIncomp, bool kObstacle>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kSweepThreads, kMinBlocks)
 temporal_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
                      const int* __restrict__ mask, int ny, int nx, int K,
-                     StepParams prm) {
+                     SweepPlan plan, StepParams prm) {
+  constexpr int W = strip_width<1>();
+  constexpr int kSpan = W / kCols;
+  constexpr int kLanes = kSweepThreads / kSpan;  // levels side by side
+  constexpr int kLoadLanes = kSweepThreads / W;  // threads per input column
+  constexpr int kLoads = (9 + kLoadLanes - 1) / kLoadLanes;
+  constexpr int kLevel = sweep_level_rows(false) * W;
+  extern __shared__ float smem[];
+  float* const ring_in = smem;
+  float* const rings = smem + sweep_level_rows(true) * W;  // levels 1..K-1
+  unsigned char* const solid =
+      reinterpret_cast<unsigned char*>(smem + sweep_ring_floats<1>(K));
+  const int mask_rows = sweep_mask_rows(K);
+
+  const int xs = blockIdx.x * plan.wo, ys = blockIdx.y * plan.seg;
+  const int width = min(plan.wo, nx - xs) + 2 * K;  // region columns
+  const int rows = min(plan.seg, ny - ys);          // rows written
+  const int inputs = rows + 2 * K;                  // input rows
+  const size_t plane = (size_t)ny * nx;
+
+  // the loads: column cl, planes lane_l, lane_l + kLoadLanes, ...
+  const int cl = threadIdx.x % W, lane_l = threadIdx.x / W;
+  const int gxl = wrap(xs - K + cl, nx);
+  // the cells: columns c + i kSpan of levels lane + 1, lane + 1 + kLanes, ..
+  const int c = threadIdx.x % kSpan, lane = threadIdx.x / kSpan;
+  int gx[kCols];
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) gx[i] = wrap(xs - K + c + i * kSpan, nx);
+
+  // the input row of phase t, wrapped row `row`, into group rows ld (and
+  // its mask row, returned)
+  auto issue = [&](int t, int row, const int (&ld)[3]) {
+    bool sol = false;
+    if (cl < width && t < inputs) {
+      const float* src = f_in + (size_t)row * nx + gxl;
+      // the thread's planes as constants: one unrolled copy per lane
+#pragma unroll
+      for (int l = 0; l < kLoadLanes; ++l) {
+        if (l != lane_l) continue;
+#pragma unroll
+        for (int i = 0; i < kLoads; ++i) {
+          const int q = l + i * kLoadLanes;
+          if (q < 9) cp_async4(ring_in + sweep_load_offset<1>(q, ld) + cl,
+                               src + q * plane);
+        }
+      }
+      if (kObstacle && lane_l == 0)
+        sol = __ldg(mask + (size_t)row * nx + gxl) != 0;
+    }
+    cp_async_commit();
+    return sol;
+  };
+  auto put_mask = [&](int t, bool sol) {
+    if (kObstacle && lane_l == 0 && cl < width && t < inputs)
+      solid[(t % mask_rows) * W + cl] = sol;
+  };
+  auto next_row = [&](int r) { return r + 1 == ny ? 0 : r + 1; };
+  float coef[9];  // the diffusion family's (1 + c_j.u / cs2)
+  if (kPhys == kDiffusion || kPhys == kNoisyFisher)
+    feq_coefficients(prm.a, prm.b, coef);
+
+  int row_t = wrap(ys - K, ny);  // the wrapped row of phase t's input row
+  int row_next = row_t;          // ... of the row issued at phase t
+#pragma unroll
+  for (int t = 0; t < kPrefetch; ++t) {
+    const SweepPhase<1> ph(t - kPrefetch);
+    put_mask(t, issue(t, row_next, ph.ld));
+    row_next = next_row(row_next);
+  }
+
+  for (int t = 0; t < rows + 3 * K; ++t) {
+    const SweepPhase<1> ph(t);
+    const bool sol_next = issue(t + kPrefetch, row_next, ph.ld);
+    const int t_mask = t % mask_rows;
+    for (int s = 1 + lane; s <= K; s += kLanes) {
+      if (t < 3 * s || t >= inputs + s) continue;
+      bool act[kCols], any = false;
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        act[i] = c + i * kSpan >= s && c + i * kSpan < width - s;
+        any |= act[i];
+      }
+      if (!any) continue;
+      int gy = row_t - 2 * s;
+      if (gy < 0) gy = wrap(gy, ny);
+      const bool first = s == 1;
+      const float* in = first ? ring_in : rings + (s - 2) * kLevel;
+      const float* g0 = in + (first ? ph.rd_in[0] : ph.rd[0]);
+      const float* g1 = in + (first ? ph.rd_in[1] : ph.rd[1]);
+      const float* g2 = in + (first ? ph.rd_in[2] : ph.rd[2]);
+      int m = t_mask - 2 * s;
+      m += m < 0 ? mask_rows : 0;
+      float v[kCols][9], out[kCols][9];
+      bool sol[kCols];
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        // an idle cell reads a kept column of its level and stores nothing
+        const int ci = act[i] ? c + i * kSpan : s;
+        const RingPull<1> pull = {g0 + ci, g1 + ci, g2 + ci};
+        pull(0, v[i]);
+        sol[i] = kObstacle && solid[m * W + ci];
+      }
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        if constexpr (kPhys == kFlow) {
+          cell_update<kIncomp, kObstacle, true>(v[i], out[i], gy, gx[i], ny,
+                                                nx, sol[i], prm.omega, prm.a,
+                                                prm.b);
+        } else {
+          diffusion_cell_update<kPhys == kNoisyFisher>(
+              v[i], out[i], prm, (unsigned long long)gy * nx + gx[i],
+              prm.step0 + (s - 1), coef);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        if (!act[i]) continue;
+        if (s == K) {  // row gy of the segment, column gx of the strip
+          const GlobalPut<1> put = {f_out + (size_t)gy * nx + gx[i], plane};
+#pragma unroll
+          for (int j = 0; j < 9; ++j) put(j, 0, out[i][j]);
+        } else {
+          float* o = rings + (s - 1) * kLevel + c + i * kSpan;
+          const RingPut<1> put = {o + ph.wr[0], o + ph.wr[1], o + ph.wr[2]};
+#pragma unroll
+          for (int j = 0; j < 9; ++j) put(j, 0, out[i][j]);
+        }
+      }
+    }
+    cp_async_wait<kPrefetch>();  // the row of phase t has landed
+    put_mask(t + kPrefetch, sol_next);
+    __syncthreads();
+    row_t = next_row(row_t);
+    row_next = next_row(row_next);
+  }
+}
+
+template <int kPhys, bool kIncomp, bool kObstacle>
+cudaError_t launch(const float* f_in, float* f_out, const int* mask, int ny,
+                   int nx, int K, const StepParams& prm, cudaStream_t stream) {
+  if (K < 1 || K > sweep_max_k<1>()) return cudaErrorInvalidValue;
+  const auto kernel = temporal_step_kernel<kPhys, kIncomp, kObstacle>;
+  const int smem = sweep_smem<1>(K, kObstacle);
+  static SweepSlots cache;  // per instantiation
+  int slots = 0;
+  const cudaError_t err = cache.get(kernel, smem, K, slots);
+  if (err != cudaSuccess) return err;
+  const SweepPlan plan = sweep_plan(ny, nx, K, strip_width<1>(), slots);
+  if (plan.segments > 65535) return cudaErrorInvalidValue;
+  kernel<<<dim3(plan.strips, plan.segments), kSweepThreads, smem, stream>>>(
+      f_in, f_out, mask, ny, nx, K, plan, prm);
+  return cudaGetLastError();
+}
+
+template <int kPhys>
+cudaError_t dispatch(const float* f_in, float* f_out, const int* mask, int ny,
+                     int nx, int K, const StepParams& prm, int incompressible,
+                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (incompressible) {
+    return mask ? launch<kPhys, true, true>(f_in, f_out, mask, ny, nx, K, prm, s)
+                : launch<kPhys, true, false>(f_in, f_out, mask, ny, nx, K, prm, s);
+  }
+  return mask ? launch<kPhys, false, true>(f_in, f_out, mask, ny, nx, K, prm, s)
+              : launch<kPhys, false, false>(f_in, f_out, mask, ny, nx, K, prm, s);
+}
+
+
+// The tile loop of the velocity physics and of K9: a 32 x 32 region of
+// cells, halo included, in shared memory
+constexpr int kTile = 32;
+constexpr int kThreads = 256;
+constexpr int kRowsPerPass = kThreads / kTile;  // 8
+constexpr int kPasses = kTile / kRowsPerPass;   // 4 rows per thread
+constexpr int kPlane = kTile * kTile;           // cells per region plane
+constexpr int kTileMaxK = 8;                    // inner edge >= 16
+
+// K2's velocity physics: K steps of the grid in 32 x 32 tiles, each block
+// writing the inner (32 - 2K)^2 cells of its region (the first K2's loop,
+// which the velocity inlet keeps: at its 401^2 the row sweep's segments
+// are a few rows long and its 3K phases of pipeline fill cost more than
+// the tiles' halo, 0.0095 against 0.0072 ms per step at K = 4; PERF.md,
+// PR 9).
+template <bool kPair, bool kIncomp, bool kObstacle>
+__global__ void __launch_bounds__(kThreads, 3)
+velocity_tile_kernel(const float* __restrict__ f_in,
+                     float* __restrict__ f_out, const int* __restrict__ mask,
+                     int ny, int nx, int K, StepParams prm) {
   extern __shared__ float smem[];
   float* cur = smem;
   float* nxt = smem + 9 * kPlane;
@@ -124,22 +323,14 @@ temporal_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
       v[7] = p[7 * kPlane + kTile + 1];
       v[8] = p[8 * kPlane + kTile - 1];
       const bool sol = kObstacle && solid[r * kTile + c];
-      if constexpr (kPhys == kFlow) {
-        cell_update<kIncomp, kObstacle>(v, out, gy, gx, ny, nx, sol, prm.omega,
-                                        prm.a, prm.b);
-      } else if constexpr (kPhys == kDiffusion || kPhys == kNoisyFisher) {
-        diffusion_cell_update<kPhys == kNoisyFisher>(
-            v, out, prm, (unsigned long long)gy * nx + gx, prm.step0 + (s - 1));
-      } else {
-        float up[3] = {0.0f, 0.0f, 0.0f};
-        if (kPhys == kVelocityOpen && gx == nx - 1) {
-          up[0] = p[3 * kPlane];
-          up[1] = p[6 * kPlane - kTile];
-          up[2] = p[7 * kPlane + kTile];
-        }
-        velocity_cell_update<kPhys == kVelocityPair, kIncomp, kObstacle>(
-            v, up, out, gx, nx, sol, prm.omega, prm.a, prm.b);
+      float up[3] = {0.0f, 0.0f, 0.0f};
+      if (!kPair && gx == nx - 1) {
+        up[0] = p[3 * kPlane];
+        up[1] = p[6 * kPlane - kTile];
+        up[2] = p[7 * kPlane + kTile];
       }
+      velocity_cell_update<kPair, kIncomp, kObstacle>(v, up, out, gx, nx, sol,
+                                                      prm.omega, prm.a, prm.b);
       if (last) {
         const size_t g = (size_t)gy * nx + gx;
 #pragma unroll
@@ -158,41 +349,51 @@ temporal_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
   }
 }
 
-template <int kPhys, bool kIncomp, bool kObstacle>
-cudaError_t launch(const float* f_in, float* f_out, const int* mask, int ny,
-                   int nx, int K, const StepParams& prm, cudaStream_t stream) {
+template <bool kPair, bool kIncomp, bool kObstacle>
+cudaError_t velocity_launch(const float* f_in, float* f_out, const int* mask,
+                            int ny, int nx, int K, const StepParams& prm,
+                            cudaStream_t stream) {
   const int smem = 18 * kPlane * (int)sizeof(float) + (kObstacle ? kPlane : 0);
-  static bool configured = false;  // once per instantiation
-  if (!configured) {
+  // once per instantiation and card: the attribute is the card's
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
+    return cudaErrorInvalidDevice;
+  if (!configured[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        temporal_step_kernel<kPhys, kIncomp, kObstacle>,
+        velocity_tile_kernel<kPair, kIncomp, kObstacle>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    configured = true;
+    configured[dev] = true;
   }
   const int inner = kTile - 2 * K;
   const dim3 grid((nx + inner - 1) / inner, (ny + inner - 1) / inner);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  temporal_step_kernel<kPhys, kIncomp, kObstacle>
+  velocity_tile_kernel<kPair, kIncomp, kObstacle>
       <<<grid, kThreads, smem, stream>>>(f_in, f_out, mask, ny, nx, K, prm);
   return cudaGetLastError();
 }
 
-template <int kPhys>
-cudaError_t dispatch(const float* f_in, float* f_out, const int* mask, int ny,
-                     int nx, int K, const StepParams& prm, int incompressible,
-                     void* stream) {
+template <bool kPair>
+cudaError_t velocity_dispatch(const float* f_in, float* f_out,
+                              const int* mask, int ny, int nx, int K,
+                              const StepParams& prm, int incompressible,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (incompressible) {
-    return mask ? launch<kPhys, true, true>(f_in, f_out, mask, ny, nx, K, prm, s)
-                : launch<kPhys, true, false>(f_in, f_out, mask, ny, nx, K, prm, s);
+    return mask ? velocity_launch<kPair, true, true>(f_in, f_out, mask, ny, nx,
+                                                     K, prm, s)
+                : velocity_launch<kPair, true, false>(f_in, f_out, mask, ny,
+                                                      nx, K, prm, s);
   }
-  return mask ? launch<kPhys, false, true>(f_in, f_out, mask, ny, nx, K, prm, s)
-              : launch<kPhys, false, false>(f_in, f_out, mask, ny, nx, K, prm, s);
+  return mask ? velocity_launch<kPair, false, true>(f_in, f_out, mask, ny, nx,
+                                                    K, prm, s)
+              : velocity_launch<kPair, false, false>(f_in, f_out, mask, ny,
+                                                     nx, K, prm, s);
 }
 
-// K9: K steps of one shard, the domain d, whose region comes from src.
-// K2's loop; the region's cells (y, x) are the shard's, unwrapped, their
+// K9: K steps of one shard, the domain d, whose region comes from src, in
+// 32 x 32 tiles; the region's cells (y, x) are the shard's, unwrapped, their
 // global coordinates wrap(d.y0 + y, d.ny) and wrap(d.x0 + x, d.nx).
 template <int kPhys, bool kIncomp, bool kObstacle>
 __global__ void __launch_bounds__(kThreads, 3)
@@ -321,14 +522,14 @@ cudaError_t halo_dispatch(const HaloSource& src, const int* mask,
 
 // k_steps pressure-driven steps of f_in into f_out. f_in, f_out: [9, ny, nx]
 // float32, contiguous, distinct. mask: [ny, nx] int32 or NULL.
-// 1 <= k_steps <= 8. Launches on `stream` and returns the launch's CUDA
-// error code.
+// 1 <= k_steps <= sweep_max_k<1>() (8). Launches on `stream` and returns
+// the launch's CUDA error code.
 extern "C" int lb2d_temporal_step(const float* f_in, float* f_out,
                                   const int* mask, int ny, int nx, int k_steps,
                                   float omega, float inlet_rho,
                                   float outlet_rho, int incompressible,
                                   void* stream) {
-  if (ny < 1 || nx < 1 || k_steps < 1 || k_steps > kMaxK)
+  if (ny < 1 || nx < 1 || k_steps < 1 || k_steps > sweep_max_k<1>())
     return (int)cudaErrorInvalidValue;
   const StepParams prm = {omega, inlet_rho, outlet_rho, 0.0f, 0.0f, 0u, 0u, 0ull};
   return (int)dispatch<kFlow>(f_in, f_out, mask, ny, nx, k_steps, prm,
@@ -343,14 +544,14 @@ extern "C" int lb2d_temporal_velocity_step(const float* f_in, float* f_out,
                                            int k_steps, float omega, float u_w,
                                            float u_e, int velocity_outlet,
                                            int incompressible, void* stream) {
-  if (ny < 1 || nx < 2 || k_steps < 1 || k_steps > kMaxK)
+  if (ny < 1 || nx < 2 || k_steps < 1 || k_steps > kTileMaxK)
     return (int)cudaErrorInvalidValue;
   const StepParams prm = {omega, u_w, u_e, 0.0f, 0.0f, 0u, 0u, 0ull};
   if (velocity_outlet)
-    return (int)dispatch<kVelocityPair>(f_in, f_out, mask, ny, nx, k_steps,
+    return (int)velocity_dispatch<true>(f_in, f_out, mask, ny, nx, k_steps,
                                         prm, incompressible, stream);
-  return (int)dispatch<kVelocityOpen>(f_in, f_out, mask, ny, nx, k_steps, prm,
-                                      incompressible, stream);
+  return (int)velocity_dispatch<false>(f_in, f_out, mask, ny, nx, k_steps,
+                                       prm, incompressible, stream);
 }
 
 // k_steps steps of the periodic advection-diffusion family of f_in into
@@ -361,7 +562,7 @@ extern "C" int lb2d_temporal_diffusion_step(
     const float* f_in, float* f_out, int ny, int nx, int k_steps, float omega,
     float u, float v, float g, float dg, int noisy, unsigned key0,
     unsigned key1, unsigned long long step0, void* stream) {
-  if (ny < 1 || nx < 1 || k_steps < 1 || k_steps > kMaxK)
+  if (ny < 1 || nx < 1 || k_steps < 1 || k_steps > sweep_max_k<1>())
     return (int)cudaErrorInvalidValue;
   const StepParams prm = {omega, u, v, g, dg, key0, key1, step0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -391,7 +592,7 @@ extern "C" int lb2d_halo_step(const float* f, const float* top,
                               float a, float b, float g, float dg,
                               unsigned key0, unsigned key1,
                               unsigned long long step0, void* stream) {
-  if (H < 1 || W < 1 || hk < 1 || k_steps < 1 || k_steps > kMaxK ||
+  if (H < 1 || W < 1 || hk < 1 || k_steps < 1 || k_steps > kTileMaxK ||
       k_steps > hk || (left == nullptr) != (right == nullptr) ||
       (left == nullptr && W != nx) || y0 < 0 || y0 + H > ny || x0 < 0 ||
       x0 + W > nx || (physics == kVelocityOpen && nx < 2))

@@ -83,16 +83,13 @@ def halo_tolerance(physics: str) -> float:
 
 def halo_case_ks(case: str):
     """The steps per sweep to check: 1, 2, 3 and the K of the physics'
-    unsharded path (``TEMPORAL_K`` and its siblings)."""
-    from .models.diffusion import DIFFUSION_TEMPORAL_K, NOISY_TEMPORAL_K
+    sharded path (K9's ``HALO_TEMPORAL_K``, the multifield models' own
+    ``FISHER_TEMPORAL_K`` and ``EXPANSION_TEMPORAL_K``)."""
     from .models.multifield import EXPANSION_TEMPORAL_K, FISHER_TEMPORAL_K
-    from .models.pipe_flow import TEMPORAL_K
+    from .ops.fused_halo import HALO_TEMPORAL_K
 
-    default = {"flow": TEMPORAL_K, "velocity_inlet": TEMPORAL_K,
-               "diffusion": DIFFUSION_TEMPORAL_K,
-               "noisy_fisher": NOISY_TEMPORAL_K,
-               "multifield_fisher": FISHER_TEMPORAL_K,
-               "multifield_expansion": EXPANSION_TEMPORAL_K}
+    default = dict(HALO_TEMPORAL_K, multifield_fisher=FISHER_TEMPORAL_K,
+                   multifield_expansion=EXPANSION_TEMPORAL_K)
     return sorted({1, 2, 3, default[HALO_CASES[case][0]]})
 
 

@@ -67,8 +67,8 @@ __all__ = [
 
 # steps per K2 launch: the fastest K of each physics at 2048^2 on an H100
 # (PERF.md, the K sweep of chip_smoke.py)
-DIFFUSION_TEMPORAL_K = 3
-NOISY_TEMPORAL_K = 2
+DIFFUSION_TEMPORAL_K = 8
+NOISY_TEMPORAL_K = 4
 _KERNEL_IDS = {"resident": "K3", "temporal": "K2"}
 
 

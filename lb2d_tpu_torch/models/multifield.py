@@ -71,7 +71,7 @@ __all__ = ["FisherExpansion", "Expansion", "noflux_bcs_multifield",
 # steps per K4 launch: the fastest K of each physics on an H100 at the
 # reference's sizes, 2048^2 with F = 2 and 1024^2 with F = 3 (PERF.md, the
 # K sweep of chip_smoke.py)
-FISHER_TEMPORAL_K = 4
+FISHER_TEMPORAL_K = 8
 EXPANSION_TEMPORAL_K = 4
 _BACKENDS = ("auto", "temporal", "eager")
 

@@ -44,7 +44,7 @@ from .base import LBModel, plain_backend, resolve_device
 __all__ = ["PipeFlow", "PipeFlowCylinder", "PipeFlowObstacles", "disk_mask",
            "TEMPORAL_K"]
 
-TEMPORAL_K = 3  # steps per K2 pass: the fastest K at 4096^2 on an H100
+TEMPORAL_K = 4  # steps per K2 pass: the fastest K at 4096^2 on an H100
 _KERNEL_IDS = {"resident": "K3", "temporal": "K2", "kernel": "K1"}
 _NOT_PORTED = {
     "pipelined": "ported as backend='kernel' (ROADMAP.md queue 2, K1)",

@@ -8,9 +8,12 @@ port of a Pallas kernel of ``lb2d_tpu.ops.fused``:
   and written once; ports ``make_fused_pipe_step`` and
   ``make_pipelined_pipe_step``.
 * :func:`temporal_pipe_step` (``csrc/temporal_step.cu``, K2): ``k_steps``
-  steps per pass over ``f``; ports ``make_temporal_pipe_step``
-  (``physics="flow"``). :func:`temporal_velocity_step` launches the same
-  kernel with the velocity-inlet BCs (``physics="velocity_inlet"``).
+  steps per pass over ``f``, a row sweep down strips of the grid
+  (:mod:`~lb2d_tpu_torch.ops.sweep`); ports ``make_temporal_pipe_step``
+  (``physics="flow"``). :func:`temporal_velocity_step` launches K2 with
+  the velocity-inlet BCs (``physics="velocity_inlet"``) as 32 x 32 tiles
+  with a K-cell halo, the first K2's loop, which is faster than the row
+  sweep at the inlet's 401^2.
 * :func:`resident_pipe_run` (``csrc/resident_run.cu``, K3): ``n`` steps in
   one launch; ports ``make_resident_pipe_step`` (``physics="flow"``).
   :func:`resident_velocity_run` launches it with the velocity-inlet BCs
@@ -33,10 +36,11 @@ plane ``j * F + p`` when flattened) run through K4 and K5
 * :func:`temporal_multifield_step` (K4): ``k_steps`` steps per pass, with
   ``physics="fisher"`` (no-flux walls on all four sides, logistic
   competition against the total density) or ``"expansion"`` (fully
-  periodic; populations plus a nutrient, Milstein noise, clips); ports
-  ``make_temporal_multifield_step``. The walls apply by global coordinates
-  and the periodic wrap is exact, so K4 equals ``k`` plain steps and the
-  JAX models' wall and seam patches are not needed.
+  periodic; populations plus a nutrient, Milstein noise, clips), K2's row
+  sweep on ``9 F`` planes; ports ``make_temporal_multifield_step``. The
+  walls apply by global coordinates and the periodic wrap is exact, so K4
+  equals ``k`` plain steps and the JAX models' wall and seam patches are
+  not needed.
 * :func:`expansion_band_step` (K5): ``k`` Expansion steps on a band of rows
   that wraps within itself, emitting its central ``2k`` rows; ports
   ``make_expansion_band_step``. Its noise is keyed to global rows, so the
@@ -70,7 +74,6 @@ from .boundary import (
 )
 from .collide import bgk
 from .equilibrium import feq_incompressible, feq_linear, feq_quadratic
-from .moments import hydro_compressible, hydro_incompressible
 from .random import (
     normals_reference,
     philox_key,
@@ -78,6 +81,7 @@ from .random import (
     population_normals_reference,
 )
 from .stream import stream
+from .sweep import max_k as _sweep_max_k
 
 __all__ = ["pipe_step", "pipe_step_reference", "pipe_run_reference",
            "temporal_pipe_step", "resident_pipe_run", "supports_resident",
@@ -88,14 +92,14 @@ __all__ = ["pipe_step", "pipe_step_reference", "pipe_run_reference",
            "noflux_walls_reference", "fisher_step_reference",
            "expansion_step_reference", "multifield_run_reference",
            "expansion_band_reference", "temporal_multifield_step",
-           "expansion_band_step", "multifield_max_k",
+           "expansion_band_step", "multifield_max_k", "band_max_k",
            "MAX_TEMPORAL_K", "MAX_MULTIFIELD_FIELDS", "RESIDENT_MAX_CELLS"]
 
-MAX_TEMPORAL_K = 8  # the K2 tile is 32 cells wide with a K-cell halo
+MAX_TEMPORAL_K = _sweep_max_k(1)  # K2's rings fit one block's shared memory
 # K3 keeps f and its scratch buffer (72 B/cell together) in the 50 MB L2;
 # on an H100 it beats K2 up to 724^2 and loses at 1024^2
 RESIDENT_MAX_CELLS = 1 << 19
-MAX_MULTIFIELD_FIELDS = 8  # K4 and K5 hold 2 x 9F planes of a tile in shared memory
+MAX_MULTIFIELD_FIELDS = 8  # K4 and K5 hold rings of 9F planes of a strip
 
 
 def supports_resident(ny: int, nx: int) -> bool:
@@ -121,8 +125,7 @@ def pipe_step_reference(f: torch.Tensor, omega, inlet_rho, outlet_rho, *,
     if mask is not None:
         mask = mask.bool()
         f = bounce_back_obstacle(f, mask, D2Q9)
-    hydro = hydro_incompressible if incompressible else hydro_compressible
-    rho, u, v = hydro(f, D2Q9)
+    rho, u, v = _hydro_in_order(f, incompressible)
     if mask is not None and incompressible:
         u = torch.where(mask, 0.0, u)
         v = torch.where(mask, 0.0, v)
@@ -162,13 +165,28 @@ def velocity_step_reference(f: torch.Tensor, omega, u_w, u_e, *,
     if mask is not None:
         mask = mask.bool()
         f = bounce_back_obstacle(f, mask, D2Q9)
-    rho, u, v = hydro_compressible(f, D2Q9)
+    rho, u, v = _hydro_in_order(f, False)
     if mask is not None:
         u = torch.where(mask, 0.0, u)
         v = torch.where(mask, 0.0, v)
     feq = (feq_incompressible if incompressible else feq_quadratic)(
         rho, u, v, D2Q9)
     return bgk(f, feq, omega)
+
+
+def _hydro_in_order(f: torch.Tensor, incompressible: bool):
+    """``(rho, u, v)`` of a D2Q9 ``f``, each sum added in direction order
+    as the flow kernels add it (``csrc/pipe_cell.cuh``: ``collide``); u = j
+    / rho, or u = j with ``incompressible`` (He-Luo). A reduction adds in an
+    order that follows the tensor's layout, so a block cut from the grid
+    would not give the grid's bits."""
+    rho = _density_in_order(f)
+    jx = f[1] - f[3] + f[5] - f[6] - f[7] + f[8]
+    jy = f[2] - f[4] + f[5] + f[6] - f[7] - f[8]
+    if incompressible:
+        return rho, jx, jy
+    inv = 1.0 / rho
+    return rho, jx * inv, jy * inv
 
 
 def _f32(value, like: torch.Tensor) -> torch.Tensor:
@@ -489,17 +507,19 @@ _WALLS = ((("n",), 7, 5), (("n",), 4, 2), (("n",), 8, 6),
           (("br",), 6, 8), (("bl",), 5, 7))
 
 
-def _multifield_tile(num_fields: int) -> int:
-    """Edge of the square region a K4/K5 block holds in shared memory: two
-    buffers of ``9 F`` planes, ``72 F T^2`` bytes, must fit in the 227 KB a
-    block may have (F = 3 at T = 32: 216 KB)."""
-    return 32 if num_fields <= 3 else 24 if num_fields <= 5 else 16
+def band_max_k(num_fields: int) -> int:
+    """The most steps per K5 launch for ``num_fields`` fields: its tiles
+    (two buffers of ``9 F`` planes of 32^2, 24^2 or 16^2 cells by F) keep
+    an inner edge of at least 8 cells."""
+    tile = 32 if num_fields <= 3 else 24 if num_fields <= 5 else 16
+    return min(MAX_TEMPORAL_K, (tile - 8) // 2)
 
 
 def multifield_max_k(num_fields: int) -> int:
-    """The most steps per K4/K5 launch for ``num_fields`` fields: the inner
-    region a block writes keeps an edge of at least 8 cells."""
-    return min(MAX_TEMPORAL_K, (_multifield_tile(num_fields) - 8) // 2)
+    """The most steps per K4/K5 launch for ``num_fields`` fields: the rings
+    of ``K`` levels fit one block's shared memory
+    (:func:`lb2d_tpu_torch.ops.sweep.max_k`)."""
+    return _sweep_max_k(num_fields)
 
 
 def _per_field(values, like: torch.Tensor) -> torch.Tensor:
@@ -704,16 +724,16 @@ def expansion_band_step(band: torch.Tensor, k_steps: int, omegas,
                         seed: int = 0, step0: int = 0, row0: int = 0,
                         ny: int) -> torch.Tensor:
     """``k_steps`` Expansion steps on the self-wrapping band ``band``
-    (``[9, F, R, nx]`` float32, ``R >= 4 k_steps``); returns a new ``[9, F,
-    2 k_steps, nx]`` tensor of its central rows. Arguments as
-    :func:`expansion_band_reference`.
+    (``[9, F, R, nx]`` float32, ``R >= 4 k_steps``, ``1 <= k_steps <=
+    band_max_k(F)``); returns a new ``[9, F, 2 k_steps, nx]`` tensor of its
+    central rows. Arguments as :func:`expansion_band_reference`.
 
     On CUDA tensors this launches K5 (counted in
     ``expansion_band_step.launches``); on CPU tensors it runs
     :func:`expansion_band_reference`.
     """
     F = _check_multifield(band, None)
-    k_steps = _check_k(k_steps, multifield_max_k(F))
+    k_steps = _check_k(k_steps, band_max_k(F))
     step0 = _check_step0(step0, k_steps)
     R, nx = band.shape[2:]
     _check_band_rows(R, k_steps)

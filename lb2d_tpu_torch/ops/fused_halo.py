@@ -24,11 +24,13 @@ rows or 128 lanes, which are TPU DMA alignment; any shard shape works.
 
 On CUDA tensors the wrapper launches K9 (``csrc/temporal_step.cu`` and
 ``csrc/multifield_step.cu``), counted in ``temporal_halo_step.launches``.
-Its multifield physics run K4's templated step loop through a halo source
-(``csrc/region_source.cuh``); its other physics run a copy of K2's loop on
-that source which shares K2's per-cell updates (templating K2's own loop
-cost it 7.6-22%, ``PERF.md`` section 6). On CPU tensors it runs the plain twin,
-:func:`temporal_halo_step_reference`.
+Its multifield physics run K4's row sweep, templated on the region's
+source, through a halo source (``csrc/region_source.cuh``); its other
+physics run a loop of 32 x 32 tiles with a K-cell halo of their own (K2's
+loop before K2 became a row sweep), on that source and through K2's
+per-cell updates, at most ``HALO_MAX_K`` steps per launch, by default
+``HALO_TEMPORAL_K`` (``PERF.md`` section 6). On CPU tensors it runs the
+plain twin, :func:`temporal_halo_step_reference`.
 """
 
 from __future__ import annotations
@@ -40,7 +42,6 @@ import torch
 
 from .boundary import GridCoords
 from .fused import (
-    MAX_TEMPORAL_K,
     _check_k,
     _check_outlet,
     _check_step0,
@@ -58,9 +59,16 @@ from .fused import (
 )
 from .random import population_normals_at
 
-__all__ = ["Halo", "HALO_PHYSICS", "supports_temporal_halo", "halo_max_k",
-           "cut_region", "check_pieces", "temporal_halo_step",
+__all__ = ["Halo", "HALO_PHYSICS", "HALO_MAX_K", "HALO_TEMPORAL_K",
+           "supports_temporal_halo", "halo_max_k", "cut_region",
+           "check_pieces", "temporal_halo_step",
            "temporal_halo_step_reference"]
+
+HALO_MAX_K = 8  # K9's tiles keep an inner edge of 16 cells
+# steps per launch of K9's tile physics: the tile loop's fastest K on an
+# H100 (PERF.md, section 6: 3 for flow and diffusion, 2 for noisy Fisher)
+HALO_TEMPORAL_K = {"flow": 3, "velocity_inlet": 3, "diffusion": 3,
+                   "noisy_fisher": 2}
 
 # each physics and the keyword arguments of its step
 _ARGS = {
@@ -138,16 +146,16 @@ class Halo(NamedTuple):
 
 
 def halo_max_k(physics: str, num_fields: int = 1) -> int:
-    """The most steps of one K9 launch: K2's limit, or K4's for
+    """The most steps of one K9 launch: its tiles' limit, or K4's for
     ``num_fields`` fields."""
     if physics.startswith("multifield"):
         return multifield_max_k(num_fields)
-    return MAX_TEMPORAL_K
+    return HALO_MAX_K
 
 
 def supports_temporal_halo(H: int, W: int, k_steps: int,
                            x_sharded: bool = True,
-                           max_k: int = MAX_TEMPORAL_K) -> bool:
+                           max_k: int = HALO_MAX_K) -> bool:
     """Whether K9 can take ``k_steps`` steps per sweep on ``H x W`` shards:
     ``1 <= k_steps <= min(H, W if x_sharded, max_k)`` (a halo of
     ``k_steps`` rows comes from one neighbour). JAX's TPU gates (lane

@@ -56,7 +56,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.base import held_solve_sweep, plain_backend
-from ..ops.fused import MAX_TEMPORAL_K, multifield_max_k
+from ..ops.fused import multifield_max_k
 from ..ops.fused_coupled import (
     _density_config,
     coupled_density_halo,
@@ -65,6 +65,8 @@ from ..ops.fused_coupled import (
     coupled_step_halo_reference,
 )
 from ..ops.fused_halo import (
+    HALO_MAX_K,
+    HALO_TEMPORAL_K,
     cut_region,
     supports_temporal_halo,
     temporal_halo_step,
@@ -208,12 +210,11 @@ def make_sharded_temporal_step(*, mesh: Mesh, ny: int, nx: int, omega,
     """The K9 sweep of the sharded pipe flow (``sharded.py:126-208``):
     returns ``(sweep, K)``; ``sweep(halos, out, k)`` exchanges the
     ``K``-cell halos and launches K9 once per local shard, writing ``k <=
-    K`` steps into ``out[pos]``. ``K`` is ``k_steps`` (default
-    ``TEMPORAL_K``, the unsharded K2's) capped by the shard's edge."""
-    from ..models.pipe_flow import TEMPORAL_K
-
+    K`` steps into ``out[pos]``. ``K`` is ``k_steps`` (default K9's
+    ``HALO_TEMPORAL_K["flow"]``) capped by the shard's edge."""
     H, W = _shard_shape(mesh, ny, nx)
-    K = _steps_per_sweep(k_steps or TEMPORAL_K, mesh, H, W, MAX_TEMPORAL_K)
+    K = _steps_per_sweep(k_steps or HALO_TEMPORAL_K["flow"], mesh, H, W,
+                         HALO_MAX_K)
     masks = _region_masks(mesh, obstacle_mask, H, W, K)
     kw = _flow_kwargs(omega, inlet_rho, outlet_rho, equilibrium)
 
@@ -360,7 +361,8 @@ class ShardedPipeFlow(_ShardedModel):
     places the shards) and its getters (``sharded.py:854-979``).
 
     ``backend``: ``"temporal"`` is K9, ``K = k_steps`` (default
-    ``TEMPORAL_K``, capped by the shard's edge) steps per sweep;
+    ``HALO_TEMPORAL_K["flow"]``, capped by the shard's edge) steps per
+    sweep;
     ``"eager"`` (alias ``"xla"``) the plain sharded step
     (:func:`make_sharded_pipe_step`); ``"auto"`` K9 on CUDA and
     ``"eager"`` on the CPU, and on a 1x1 mesh the unsharded model's own
@@ -428,8 +430,9 @@ class ShardedDiffusion(_ShardedModel):
     """The advection-diffusion family over a mesh (``sharded.py:211-363``):
     wraps a constructed model of :mod:`lb2d_tpu_torch.models.diffusion`
     (deterministic or stochastic) and runs K9 ``"diffusion"`` /
-    ``"noisy_fisher"`` per shard, ``K = k_steps`` (default the model's
-    ``temporal_k``, capped by the shard's edge) steps per sweep. The noise
+    ``"noisy_fisher"`` per shard, ``K = k_steps`` (default K9's
+    ``HALO_TEMPORAL_K`` of the physics, capped by the shard's edge) steps
+    per sweep. The noise
     is the unsharded model's: the model's ``rng_seed``, the global step
     ``steps_taken`` and the global cell."""
 
@@ -440,12 +443,13 @@ class ShardedDiffusion(_ShardedModel):
         self.ny, self.nx = base.ny, base.nx
         self.noisy = base.noisy
         self.steps_taken = base.steps_taken
+        self.physics = "noisy_fisher" if self.noisy else "diffusion"
         H, W = _shard_shape(self.mesh, self.ny, self.nx)
         K = self.steps_per_call = _steps_per_sweep(
-            k_steps or base.temporal_k, self.mesh, H, W, MAX_TEMPORAL_K)
+            k_steps or HALO_TEMPORAL_K[self.physics], self.mesh, H, W,
+            HALO_MAX_K)
         kw = self.step_kwargs = base.step_kwargs()
         kw.pop("noisy", None)
-        self.physics = "noisy_fisher" if self.noisy else "diffusion"
 
         def run_shard(pos, halo, out, k):
             temporal_halo_step(halo, out, k, self.physics, step0=self._step0,

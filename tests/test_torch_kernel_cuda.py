@@ -65,6 +65,8 @@ from lb2d_tpu_torch.models import (
 )
 from lb2d_tpu_torch.ops.fused import (
     MAX_MULTIFIELD_FIELDS,
+    MAX_TEMPORAL_K,
+    band_max_k,
     diffusion_run_reference,
     expansion_band_reference,
     expansion_band_step,
@@ -168,10 +170,17 @@ def test_kernel_matches_reference(cuda, equilibrium, obstacle, shape):
     assert d <= TOL, d
 
 
-# 5x7 is smaller than one 32x32 K2 tile, which then wraps onto itself
-@pytest.mark.parametrize("shape", [(254, 382), (31, 61), (5, 7)],
-                         ids=["254x382", "31x61", "5x7"])
-@pytest.mark.parametrize("k", [1, 3, 8])
+# K2's row sweep: 45x33, 31x61 and 5x7 are narrower than one strip, which
+# then wraps onto itself; 7x300 and 5x7 have fewer rows than the card's
+# segments; 3751x1251 is the cylinder's grid (ragged strips and segments)
+K2_SHAPES = [(254, 382), (254, 254), (401, 401), (1251, 3751), (45, 33),
+             (7, 300), (31, 61), (5, 7)]
+K2_IDS = [f"{ny}x{nx}" for ny, nx in K2_SHAPES]
+K2_KS = range(1, MAX_TEMPORAL_K + 1)
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES, ids=K2_IDS)
+@pytest.mark.parametrize("k", K2_KS)
 @pytest.mark.parametrize("equilibrium,obstacle", VARIANTS, ids=IDS)
 def test_temporal_kernel_matches_reference(cuda, equilibrium, obstacle, k,
                                            shape):
@@ -185,9 +194,8 @@ def test_temporal_kernel_matches_reference(cuda, equilibrium, obstacle, k,
     assert d <= TOL, d
 
 
-@pytest.mark.parametrize("shape", [(254, 382), (31, 61), (5, 7)],
-                         ids=["254x382", "31x61", "5x7"])
-@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("shape", K2_SHAPES, ids=K2_IDS)
+@pytest.mark.parametrize("k", K2_KS)
 @pytest.mark.parametrize("outlet", ["zero_gradient", "velocity"])
 @pytest.mark.parametrize("equilibrium,obstacle", VARIANTS, ids=IDS)
 def test_temporal_velocity_kernel_matches_reference(cuda, equilibrium,
@@ -270,12 +278,14 @@ def _diffusion_inputs(device, shape):
     return torch.tensor(f, dtype=torch.float32, device=device)
 
 
-@pytest.mark.parametrize("shape", [(254, 382), (128, 128)],
-                         ids=["254x382", "128x128"])
-@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("shape", [(254, 382), (128, 128), (45, 33),
+                                   (7, 300)],
+                         ids=["254x382", "128x128", "45x33", "7x300"])
+@pytest.mark.parametrize("k", K2_KS)
 @pytest.mark.parametrize("physics", list(PHYSICS))
 def test_temporal_diffusion_kernel_matches_reference(cuda, physics, k,
                                                      shape):
+    """Bit for bit: the diffusion update rounds each operation alone."""
     f = _diffusion_inputs(cuda, shape)
     kw = dict(DIFFUSION, **PHYSICS[physics])
     before = temporal_diffusion_step.launches
@@ -283,8 +293,7 @@ def test_temporal_diffusion_kernel_matches_reference(cuda, physics, k,
     want = diffusion_run_reference(f, k, **kw)
     torch.cuda.synchronize()
     assert temporal_diffusion_step.launches == before + 1
-    d = float((out - want).abs().max())
-    assert d <= TOL, d
+    assert torch.equal(out, want), float((out - want).abs().max())
 
 
 @pytest.mark.parametrize("shape", [(256, 256), (31, 61)],
@@ -389,9 +398,9 @@ def test_velocity_model_resident_backend_matches_eager(cuda):
 # velocity; Expansion noise on every other population (one Philox call
 # serves a pair, a population with Dg = 0 draws nothing), step0 just below
 # 2^32 so that the K steps cross into the counter's high word
-MF_FIELDS = [1, 2, 3, MAX_MULTIFIELD_FIELDS]
-MF_SHAPES = [(254, 382), (128, 128)]
-MF_IDS = ["254x382", "128x128"]
+MF_FIELDS = [1, 2, 3, 4, 5, 6, 7, MAX_MULTIFIELD_FIELDS]
+MF_SHAPES = [(254, 382), (128, 128), (45, 33), (7, 300)]
+MF_IDS = ["254x382", "128x128", "45x33", "7x300"]
 
 
 def _mf_kwargs(F, physics):
@@ -435,8 +444,7 @@ def test_temporal_multifield_fisher_matches_reference(cuda, F, shape):
         want = multifield_run_reference(f, k, **kw)
         torch.cuda.synchronize()
         assert temporal_multifield_step.launches == before + 1
-        d = float((out - want).abs().max())
-        assert d <= TOL, (k, d)
+        assert torch.equal(out, want), (k, float((out - want).abs().max()))
 
 
 @pytest.mark.parametrize("shape", MF_SHAPES, ids=MF_IDS)
@@ -444,7 +452,7 @@ def test_temporal_multifield_fisher_matches_reference(cuda, F, shape):
 def test_temporal_multifield_expansion_is_exact(cuda, F, shape):
     f = _mf_inputs(cuda, F, shape, "expansion")
     kw = _mf_kwargs(F, "expansion")
-    for k in sorted({1, 3, multifield_max_k(F)}):
+    for k in range(1, multifield_max_k(F) + 1):
         out = temporal_multifield_step(f, torch.empty_like(f), k, **kw)
         want = multifield_run_reference(f, k, **kw)
         torch.cuda.synchronize()
@@ -462,7 +470,7 @@ def test_expansion_band_kernel_is_exact_and_gives_k4_rows(cuda, extra, F):
     physics = kw.pop("physics")
     step0 = kw.pop("step0")
     ny = f.shape[2]
-    for k in range(1, multifield_max_k(F) + 1):
+    for k in range(1, band_max_k(F) + 1):
         B = 2 * k + extra
         band = torch.cat([f[:, :, -B:], f[:, :, :B]], dim=2).contiguous()
         args = [kw[n] for n in ("omegas", "omega_nutrient", "lb_G", "lb_Dg",

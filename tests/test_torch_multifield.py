@@ -322,8 +322,7 @@ def test_auto_backend_and_kernel_limits(monkeypatch):
     with pytest.raises(ValueError, match=f"{MAX_MULTIFIELD_FIELDS} fields.*"
                                          "backend='eager'"):
         wide._pick_backend("auto")
-    assert [multifield_max_k(F) for F in (1, 3, 4, 5, 6, 8)] == [8, 8, 8, 8,
-                                                                 4, 4]
+    assert [multifield_max_k(F) for F in (1, 3, 4, 5, 6, 8)] == [8] * 6
 
 
 def test_kernel_params_struct_layout():

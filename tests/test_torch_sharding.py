@@ -254,7 +254,7 @@ def test_sharded_multifield_fisher_matches_jax_and_unsharded(shape):
     sh = ShardedMultifield(torch_models.FisherExpansion(device="cpu",
                                                         **FISHER_128),
                            mesh=_mesh(shape))
-    assert sh.steps_per_call == 4
+    assert sh.steps_per_call == 8  # FISHER_TEMPORAL_K
     single.run(7)
     sh.run(7)
     got = sh.state_numpy().reshape(np.shape(fref))

@@ -1,32 +1,45 @@
-"""Time K2, K4, K6 and K7 per launch on the card, at the shapes of
+"""Time K2, K4, K5, K6, K7 and K9 per launch on the card, at the shapes of
 PERF.md's kernel table, and print one JSON line.
 
-    cd <checkout> && python3 <path>/tools/time_tile_kernels.py [label] [k7]
+    cd <checkout> && python3 <path>/tools/time_tile_kernels.py [label] [mode]
 
 imports ``lb2d_tpu_torch`` from the working directory, so one copy of this
 script times any checkout of the port: run two checkouts in turns (A, B, B,
 A) in one command on one card to compare them. Each kernel: 100 launches
 between two CUDA events, five times; the median is printed, in ms per
-launch. Shapes: K2 flow 4096^2 at K = 3, K2 diffusion and noisy Fisher
-2048^2 at K = 3 and 2, K4 fisher 2048^2 with F = 2 and K4 expansion 1024^2
-with F = 3, both at K = 4 (the models' ``auto`` paths); where the checkout
-has K9, K9 flow on the first 2048 x 8192 shard of an 8192^2 grid (the
-sharded main path's) and K9 noisy Fisher on a 1024^2 shard of a 2048^2
-grid, from random states; K6 ``mc_density`` and ``mc_step`` on the 8192^2
-porous two-fluid Shan-Chen runner of BASELINE config 5 with its hooks (the
-Shan-Chen interaction and the screened force's ext planes) and K7 per
-physics at the coupled models' shapes
+launch and ms per step. K2 and K4 run at the steps per launch of the
+checkout's own models (``TEMPORAL_K``, ``DIFFUSION_TEMPORAL_K``,
+``NOISY_TEMPORAL_K``, ``FISHER_TEMPORAL_K``, ``EXPANSION_TEMPORAL_K``), so
+that each checkout's main path is timed as it runs: K2 flow 4096^2, K2
+velocity inlet 401^2, K2 diffusion and noisy Fisher 2048^2, K4 fisher
+2048^2 with F = 2 and K4 expansion 1024^2 with F = 3, K5 on a band of 4K
+rows of that Expansion; where the checkout has K9, K9 flow on the first
+2048 x 8192 shard of an 8192^2 grid (K = 3, the sharded main path's) and
+K9 noisy Fisher on a 1024^2 shard of a 2048^2 grid (K = 2), from random
+states, and K9's multifield physics on the first shard of each
+multifield model cut 2 x 2, at the model's K; K6 ``mc_density`` and
+``mc_step`` on the 8192^2 porous two-fluid Shan-Chen runner of BASELINE
+config 5 with its hooks (the Shan-Chen interaction and the screened
+force's ext planes) and K7 per physics at the coupled models' shapes
 (``chip_smoke.py``'s: 1024^2, the surfactant waves 512^2; there a launch
 takes 15-90 us and the host's launch rate shows) and at 2048^2, on the
-models' states (K7's velocity planes those of the state's density). With
-``k7`` after the label, K7 alone, so that many pairs of runs fit in one
-call; with ``k8``, K8 alone: one screened-gradient solve (config 5's
-screen and amplitude) of a random field at 8192^2, 1024^2 and 512^2 (20
-solves between the events at 8192^2); with ``paths``, the main paths that
-run K8, as MLUPS of ``run(n, timed=True)`` after a warm run (host clock,
-median of three): BASELINE config 5 at 8192^2 (``run(20)``, exact and
-``stale_force=8``) and the screened coupled models at
-``chip_smoke.py``'s sizes (``run(256)``).
+models' states (K7's velocity planes those of the state's density). Modes
+after the label: ``k7``, K7 alone, so that many pairs of runs fit in one
+call; ``k8``, K8 alone: one screened-gradient solve (config 5's screen and
+amplitude) of a random field at 8192^2, 1024^2 and 512^2 (20 solves
+between the events at 8192^2); ``paths``, the main paths that run K8, as
+MLUPS of ``run(n, timed=True)`` after a warm run (host clock, median of
+three): BASELINE config 5 at 8192^2 (``run(20)``, exact and
+``stale_force=8``) and the screened coupled models at ``chip_smoke.py``'s
+sizes (``run(256)``); ``sweep``, K2 and K4 alone, then the main paths that
+run them, as MLUPS the same way: ``PipeFlow`` 4096^2 and
+``PipeFlowVelocityInlet`` 401^2 ``run(1000)``, ``AdvectionDiffusion`` and
+the stochastic Fisher wave 2048^2 ``run(2000)``,
+``FisherExpansion`` 2048^2 ``run(1000)`` and ``Expansion`` 1024^2
+``run(2048)``; ``ksweep``, K2's and K4's ms per step at every K up to
+the checkout's limit, at the same shapes (copies of the checkout whose
+constants were changed, ``kCols`` and the like, timed in turns this way
+compare designs).
 """
 
 import json
@@ -103,28 +116,15 @@ def main():
             out.update(_k7_times(n))
         print(json.dumps(out), flush=True)
         return
-    sim = PipeFlow(device="cuda", **FLOW)
-    kw = dict(omega=sim.omega, inlet_rho=sim.inlet_rho,
-              outlet_rho=sim.outlet_rho, incompressible=False)
-    out["K2 flow 4096^2 K=3"] = _median_ms(_ping_pong(
-        sim.state, lambda a, b: temporal_pipe_step(a, b, 3, **kw)))
-    del sim
-    for name, cls, cfg, k in (("diffusion", AdvectionDiffusion, ADVECTION, 3),
-                              ("noisy_fisher",
-                               ReactionAdvectionDiffusionStochastic,
-                               STOCHASTIC, 2)):
-        sim = cls(device="cuda", **cfg)
-        kw = sim.step_kwargs()
-        out[f"K2 {name} 2048^2 K={k}"] = _median_ms(_ping_pong(
-            sim.state, lambda a, b: temporal_diffusion_step(a, b, k,
-                                                            **kw)))
-    for name, cls, cfg in (("fisher", FisherExpansion, FISHER),
-                           ("expansion", Expansion, EXPANSION)):
-        sim = cls(device="cuda", **cfg)
-        kw = sim.step_kwargs()
-        out[f"K4 {name} {sim.ny}^2 F={sim.num_fields} K=4"] = _median_ms(
-            _ping_pong(sim.state, lambda a, b: temporal_multifield_step(
-                a, b, 4, **kw)))
+    if sys.argv[2:] == ["ksweep"]:
+        out.update(_k_sweeps())
+        print(json.dumps(out), flush=True)
+        return
+    out.update(_k2_k4_times())
+    if sys.argv[2:] == ["sweep"]:
+        out.update(_sweep_mlups())
+        print(json.dumps(out), flush=True)
+        return
     try:
         from lb2d_tpu_torch.ops.fused_halo import Halo, temporal_halo_step
     except ImportError:  # a checkout from before K9
@@ -145,8 +145,178 @@ def main():
             outb = torch.empty_like(halo.f)
             out[f"K9 {name} {H}x{halo.f.shape[2]} shard K={k}"] = _median_ms(
                 lambda: temporal_halo_step(halo, outb, k, physics, **kw))
+        out.update(_k9_multifield_times())
     out.update(_k6_k7_times())
     print(json.dumps(out), flush=True)
+
+
+def _models_k():
+    """The steps per launch of this checkout's models."""
+    from lb2d_tpu_torch.models.diffusion import (
+        DIFFUSION_TEMPORAL_K,
+        NOISY_TEMPORAL_K,
+    )
+    from lb2d_tpu_torch.models.multifield import (
+        EXPANSION_TEMPORAL_K,
+        FISHER_TEMPORAL_K,
+    )
+    from lb2d_tpu_torch.models.pipe_flow import TEMPORAL_K
+    return {"flow": TEMPORAL_K, "velocity": TEMPORAL_K,
+            "diffusion": DIFFUSION_TEMPORAL_K, "noisy_fisher": NOISY_TEMPORAL_K,
+            "fisher": FISHER_TEMPORAL_K, "expansion": EXPANSION_TEMPORAL_K}
+
+
+def _entry(ms, k):
+    return {"k": k, "ms": ms, "ms_per_step": ms / k}
+
+
+def _k2_k4_times():
+    """K2 per physics, K4 per physics and K5, at the models' K."""
+    from lb2d_tpu_torch.models import PipeFlowVelocityInlet
+    from lb2d_tpu_torch.ops.fused import (
+        expansion_band_step,
+        temporal_velocity_step,
+    )
+
+    ks = _models_k()
+    out = {}
+    sim = PipeFlow(device="cuda", **FLOW)
+    kw = dict(omega=sim.omega, inlet_rho=sim.inlet_rho,
+              outlet_rho=sim.outlet_rho, incompressible=False)
+    k = ks["flow"]
+    out["K2 flow 4096^2"] = _entry(_median_ms(_ping_pong(
+        sim.state, lambda a, b: temporal_pipe_step(a, b, k, **kw))), k)
+    del sim
+    sim = PipeFlowVelocityInlet(device="cuda")
+    kw = dict(omega=sim.omega, u_w=sim.u_w, u_e=sim.u_e, outlet=sim.outlet,
+              incompressible=False)
+    k = ks["velocity"]
+    out[f"K2 velocity {sim.ny}^2"] = _entry(_median_ms(_ping_pong(
+        sim.state, lambda a, b: temporal_velocity_step(a, b, k, **kw))), k)
+    for name, cls, cfg in (("diffusion", AdvectionDiffusion, ADVECTION),
+                           ("noisy_fisher",
+                            ReactionAdvectionDiffusionStochastic,
+                            STOCHASTIC)):
+        sim = cls(device="cuda", **cfg)
+        kw = sim.step_kwargs()
+        k = ks[name]
+        out[f"K2 {name} 2048^2"] = _entry(_median_ms(_ping_pong(
+            sim.state, lambda a, b: temporal_diffusion_step(a, b, k, **kw))),
+            k)
+    for name, cls, cfg in (("fisher", FisherExpansion, FISHER),
+                           ("expansion", Expansion, EXPANSION)):
+        sim = cls(device="cuda", **cfg)
+        kw = sim.step_kwargs()
+        k = ks[name]
+        out[f"K4 {name} {sim.ny}^2 F={sim.num_fields}"] = _entry(_median_ms(
+            _ping_pong(sim.state, lambda a, b: temporal_multifield_step(
+                a, b, k, **kw))), k)
+    kw.pop("physics")
+    B = 2 * k
+    band = torch.cat([sim.state[:, :, -B:], sim.state[:, :, :B]],
+                     dim=2).contiguous()
+    args = [kw[n] for n in ("omegas", "omega_nutrient", "lb_G", "lb_Dg",
+                            "cutoff", "u_lb", "v_lb")]
+    band_kw = dict(seed=kw["seed"], step0=sim.steps_taken, row0=sim.ny - B,
+                   ny=sim.ny)
+    out[f"K5 band {2 * B}x{sim.nx} F={sim.num_fields}"] = _entry(
+        _median_ms(lambda: expansion_band_step(band, k, *args, **band_kw)),
+        k)
+    return out
+
+
+def _k_sweeps():
+    """ms per step of K2 (flow, diffusion, noisy Fisher) and K4 (both
+    physics) at every K from 1 to the checkout's limit, at the main paths'
+    shapes (30 launches between the events, three times)."""
+    from lb2d_tpu_torch.ops.fused import MAX_TEMPORAL_K, multifield_max_k
+
+    def per_step(state, step, k_max):
+        return {k: _median_ms(_ping_pong(
+            state, lambda a, b, k=k: step(a, b, k)), reps=30, rounds=3) / k
+            for k in range(1, k_max + 1)}
+
+    out = {}
+    sim = PipeFlow(device="cuda", **FLOW)
+    kw = dict(omega=sim.omega, inlet_rho=sim.inlet_rho,
+              outlet_rho=sim.outlet_rho, incompressible=False)
+    out["K2 flow 4096^2 per step by K"] = per_step(
+        sim.state, lambda a, b, k: temporal_pipe_step(a, b, k, **kw),
+        MAX_TEMPORAL_K)
+    del sim
+    for name, cls, cfg in (("diffusion", AdvectionDiffusion, ADVECTION),
+                           ("noisy_fisher",
+                            ReactionAdvectionDiffusionStochastic,
+                            STOCHASTIC)):
+        sim = cls(device="cuda", **cfg)
+        kw = sim.step_kwargs()
+        out[f"K2 {name} 2048^2 per step by K"] = per_step(
+            sim.state, lambda a, b, k: temporal_diffusion_step(a, b, k, **kw),
+            MAX_TEMPORAL_K)
+    for name, cls, cfg in (("fisher", FisherExpansion, FISHER),
+                           ("expansion", Expansion, EXPANSION)):
+        sim = cls(device="cuda", **cfg)
+        kw = sim.step_kwargs()
+        out[f"K4 {name} {sim.ny}^2 F={sim.num_fields} per step by K"] = (
+            per_step(sim.state, lambda a, b, k: temporal_multifield_step(
+                a, b, k, **kw), multifield_max_k(sim.num_fields)))
+    return out
+
+
+def _k9_multifield_times():
+    """K9's multifield physics on the first shard of each multifield model
+    cut 2 x 2, at the model's K (after an exchange of its halo)."""
+    from lb2d_tpu_torch.ops.fused_halo import Halo, temporal_halo_step
+
+    ks = _models_k()
+    out = {}
+    for name, cls, cfg in (("fisher", FisherExpansion, FISHER),
+                           ("expansion", Expansion, EXPANSION)):
+        sim = cls(device="cuda", **cfg)
+        kw = sim.step_kwargs()
+        physics = "multifield_" + kw.pop("physics")
+        F, k = sim.num_fields, ks[name]
+        H, W = sim.ny // 2, sim.nx // 2
+        halo = Halo.cut(sim.state.reshape(9 * F, sim.ny, sim.nx), 0, 0, H, W,
+                        k)
+        outb = torch.empty_like(halo.f)
+        out[f"K9 multifield_{name} {H}^2 shard F={F}"] = _entry(_median_ms(
+            lambda: temporal_halo_step(halo, outb, k, physics, **kw)), k)
+    return out
+
+
+def _sweep_mlups():
+    """MLUPS of the main paths that run K2 and K4 (median of three timed
+    runs after a warm one)."""
+    def median_mlups(sim, n):
+        sim.run(n)  # warm
+        runs = []
+        for _ in range(3):
+            sim.run(n, timed=True)
+            runs.append(sim.last_mlups)
+        return sorted(runs)[1]
+
+    from lb2d_tpu_torch.models import PipeFlowVelocityInlet
+
+    out = {}
+    for label, make, n in (
+            ("PipeFlow 4096^2", lambda: PipeFlow(device="cuda", **FLOW), 1000),
+            ("PipeFlowVelocityInlet 401^2",
+             lambda: PipeFlowVelocityInlet(device="cuda"), 1000),
+            ("AdvectionDiffusion 2048^2",
+             lambda: AdvectionDiffusion(device="cuda", **ADVECTION), 2000),
+            ("ReactionAdvectionDiffusionStochastic 2048^2",
+             lambda: ReactionAdvectionDiffusionStochastic(
+                 device="cuda", **STOCHASTIC), 2000),
+            ("FisherExpansion 2048^2",
+             lambda: FisherExpansion(device="cuda", **FISHER), 1000),
+            ("Expansion 1024^2",
+             lambda: Expansion(device="cuda", **EXPANSION), 2048)):
+        sim = make()
+        out[f"MLUPS {label}"] = median_mlups(sim, n)
+        del sim
+        torch.cuda.empty_cache()
+    return out
 
 
 def _k6_k7_times():
