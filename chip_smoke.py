@@ -39,7 +39,8 @@ set to 0 just before it and read just after:
   cuFFT (``torch.fft``) computing the same function;
 * the sharded slice (K9, ``temporal_halo_step``): K9 on the shards of
   random 254x382 states cut 2x2, 4x1 and 1x4, per physics, against its
-  plain twin; ``ShardedPipeFlow`` at 8192^2 (``benchmarks/run_all.py``'s
+  plain twin (the physics of K2's row sweep at every K from 1 to 8);
+  ``ShardedPipeFlow`` at 8192^2 (``benchmarks/run_all.py``'s
   ``bench_sharded_8192``) on 4x1 and 2x2 meshes of shards on one card
   against ``PipeFlow`` through K2, and the sharded diffusion and
   multifield models against their unsharded K2 / K4 runs, all bit for bit
@@ -1996,8 +1997,9 @@ def coupled_physics_phase(runs, mass0):
 SHARDED_8192 = dict(diameter=1.0, rho=1.0, viscosity=0.1,
                     pressure_grad=-0.01, pipe_length=(8192 - 1.5) / 8191,
                     N=8191)
-SHARDED_STEPS = 100       # its run(100): 33 sweeps of 3 and one of 1
-SHARDED_CHECKS = (9, 10)  # whole sweeps, then a remainder sweep
+SHARDED_STEPS = 100  # its run(100): 25 sweeps of HALO_TEMPORAL_K["flow"] = 4
+# held to K2 after two whole sweeps, then after a remainder sweep of 1 step
+SHARDED_CHECKS = (2 * HALO_TEMPORAL_K["flow"], 2 * HALO_TEMPORAL_K["flow"] + 1)
 SHARDED_SHORT_STEPS = 20  # the other sharded models' counted runs
 K9_OPS = {"flow": FLOW_OPS, "velocity_inlet": FLOW_OPS,
           "diffusion": DIFFUSION_OPS, "noisy_fisher": NOISY_OPS}
@@ -2019,8 +2021,10 @@ def _shards_diff(sh, want):
 def halo_kernel_phase():
     """K9 against its plain twin on the shards of a random 254x382 state per
     case (HALO_CASES: every physics, flow with and without the obstacle and
-    incompressible), cut 2x2, 4x1 and 1x4, at K = 1, 2, 3 and the physics'
-    K, from step STEP0. Returns max |df| per physics."""
+    incompressible), cut 2x2, 4x1 and 1x4, at every K from 1 to 8 for the
+    physics of K2's row sweep (flow, diffusion, noisy Fisher) and at K = 1,
+    2, 3 and the physics' K for the others, from step STEP0. Returns max
+    |df| per physics."""
     worst = {}
     for case, (physics, _, _, _) in HALO_CASES.items():
         f, mask = halo_case_state(case, 254, 382, "cuda")
@@ -2067,13 +2071,15 @@ def _k9_info(halo, k, physics, kw, ops_per_cell, launches, err):
     hk = halo.width
     halo_cells = 2 * hk * W + (0 if halo.left is None
                                else 2 * (H + 2 * hk) * hk)
+    n_bytes, n_ops = 4 * P * (2 * H * W + halo_cells), H * W * k * ops_per_cell
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
     print(f"K9 {physics} at a {H}x{W} shard (P={P}, halo {hk}): {ms:.4f} ms "
-          f"per launch of {k} steps; plain twin {plain_ms:.4f} ms (CUDA "
-          f"events)", flush=True)
+          f"per launch of K={k} steps, {ms / k:.4f} per step; bound at K={k} "
+          f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / k:.4f} per step; "
+          f"plain twin {plain_ms:.4f} ms (CUDA events)", flush=True)
     err = max(err, d)
     return dict(ms=ms, plain_ms=plain_ms, launches=launches, err=err, k=k,
-                shape=[P, H, W], bytes=4 * P * (2 * H * W + halo_cells),
-                ops=H * W * k * ops_per_cell)
+                shape=[P, H, W], bytes=n_bytes, ops=n_ops)
 
 
 def halo_velocity_phase(inlet, err):

@@ -1,17 +1,19 @@
-// Where K4's row sweep and K9's tile loop read a block's cells from: the
-// whole periodic grid (GridSource: K4 and K5 in multifield_step.cu), or one
-// shard of a domain-decomposed grid with its neighbours' halos (HaloSource:
-// K9, which replaces lb2d_tpu/ops/fused_halo.py:make_temporal_halo_step, in
-// temporal_step.cu and multifield_step.cu). The multifield sweep takes the
-// source as a template parameter, so K9's multifield physics run K4's
-// sweep; K9's other physics run a loop of 32 x 32 tiles of their own
-// (temporal_step.cu says why). Every cell goes through the same per-cell
-// updates as K2 and K4, so K9 agrees with them bit for bit.
+// Where the row sweeps of K2, K4 and K9 and K9's velocity tiles read a
+// block's cells from: the whole periodic grid (GridSource: K2 in
+// temporal_step.cu, K4 and K5 in multifield_step.cu), or one shard of a
+// domain-decomposed grid with its neighbours' halos (HaloSource: K9, which
+// replaces lb2d_tpu/ops/fused_halo.py:make_temporal_halo_step, in
+// temporal_step.cu and multifield_step.cu). Both sweeps take the source as
+// a template parameter, so K9's flow, diffusion and noisy Fisher physics
+// run K2's sweep and its multifield physics K4's; its velocity physics run
+// K2's 32 x 32 tiles on this source (temporal_step.cu says why). Every
+// cell goes through the same per-cell updates as K2 and K4, so K9 agrees
+// with them bit for bit.
 //
-// A block reads domain cells (y, x), unwrapped: up to K cells outside the
-// written domain on each side, and, on the ragged last tiles of K9's tile
-// loop, further out. Each cell's BCs and noise use its global coordinates,
-// wrap(y0 + y, ny) and wrap(x0 + x, nx) (Domain).
+// A block reads domain cells (y, x), unwrapped: a sweep up to K cells
+// outside the written domain on each side, and, on the ragged last tiles
+// of K9's velocity tiles, further out. Each cell's BCs and noise use its
+// global coordinates, wrap(y0 + y, ny) and wrap(x0 + x, nx) (Domain).
 
 #pragma once
 
@@ -62,13 +64,22 @@ struct HaloSource {
   const float *f, *top, *bot, *left, *right;
   int H, W, hk;
 
-  __device__ __forceinline__ void place(int& y, int& x) const {
-    y = y < H + hk ? y : H + hk - 1;
-    x = left ? (x < W + hk ? x : W + hk - 1) : wrap(x, W);
+  // column x in the region: wrapped into the shard when x wraps there
+  __device__ __forceinline__ int place_x(int x) const {
+    return left ? (x < W + hk ? x : W + hk - 1) : wrap(x, W);
   }
   __device__ __forceinline__ const float* at(int y, int x,
                                              size_t& plane) const {
-    place(y, x);
+    return at_placed(y, place_x(x), plane);
+  }
+  __device__ __forceinline__ bool solid(const int* mask, int y, int x) const {
+    return solid_placed(mask, y, place_x(x));
+  }
+  // the same for a column placed once (place_x), as a sweep reads it row
+  // after row
+  __device__ __forceinline__ const float* at_placed(int y, int x,
+                                                    size_t& plane) const {
+    y = y < H + hk ? y : H + hk - 1;
     if (x < 0 || x >= W) {
       plane = (size_t)(H + 2 * hk) * hk;
       return (x < 0 ? left + (x + hk) : right + (x - W)) + (size_t)(y + hk) * hk;
@@ -80,8 +91,9 @@ struct HaloSource {
     plane = (size_t)H * W;
     return f + (size_t)y * W + x;
   }
-  __device__ __forceinline__ bool solid(const int* mask, int y, int x) const {
-    place(y, x);
+  __device__ __forceinline__ bool solid_placed(const int* mask, int y,
+                                               int x) const {
+    y = y < H + hk ? y : H + hk - 1;
     return __ldg(mask + (size_t)(y + hk) * (W + 2 * hk) + (x + hk)) != 0;
   }
 };

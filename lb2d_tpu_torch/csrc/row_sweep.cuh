@@ -1,7 +1,8 @@
-// The row sweep of K2 (temporal_step.cu) and K4 (multifield_step.cu): its
-// shared-memory rings, the cut of a grid into work items, and the
-// asynchronous row loads. lb2d_tpu_torch/ops/sweep.py mirrors every formula
-// here (the CPU tests emulate the schedule with it).
+// The row sweep of K2 and K9 (temporal_step.cu) and K4 (multifield_step.cu,
+// K9's multifield physics too): its shared-memory rings, the cut of a grid
+// or a shard into work items, and the asynchronous row loads.
+// lb2d_tpu_torch/ops/sweep.py mirrors every formula here (the CPU tests
+// emulate the schedule with it).
 //
 // A work item is a strip of columns (at most strip_width<P>() of them: the
 // stored columns and a K-column halo each side, wrapped in x) and a segment

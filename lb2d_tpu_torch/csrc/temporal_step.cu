@@ -53,19 +53,30 @@
 // the cells it wrote and computed 1.16x the updates it kept, and larger K
 // lost more to the halo than it saved in bytes.
 //
-// K9 (halo_step_kernel, lb2d_halo_step) keeps that tile loop on one shard
-// of a domain-decomposed grid: it replaces lb2d_tpu/ops/fused_halo.py:
-// make_temporal_halo_step for the physics above. Its region loads through
-// region_source.cuh's HaloSource (the shard, the K-row halos from its
-// y-neighbours and, on 2-D meshes, the K-column strips from its
-// x-neighbours) instead of the grid's wrap, it writes the shard's cells,
+// K9 (lb2d_halo_step) is the same sweep on one shard of a domain-decomposed
+// grid: it replaces lb2d_tpu/ops/fused_halo.py:make_temporal_halo_step for
+// the physics above. The sweep's body (sweep_steps) takes the region's
+// source as a template parameter and runs under two kernels: K2's
+// (temporal_step_kernel) reads the periodic grid (GridSource, its row
+// index kept wrapped from phase to phase), K9's (halo_sweep_kernel) a
+// shard and its halos (region_source.cuh's HaloSource: the shard, the
+// K-row halos from its y-neighbours and, on 2-D meshes, the K-column strips
+// from its x-neighbours), each thread's column placed once per sweep. One
+// kernel for both ran K2 2% slower per step. K9 writes the shard's rows,
 // and every cell keeps its global coordinates, so the BCs, the mask and
 // the noise are those of K2 on the whole grid, through the same per-cell
-// updates. Bound as K2's, plus the halo's bytes (2K rows and, on 2-D
-// meshes, 2K columns per shard). It kept a loop of its own when K2 had the
-// same one (templated on the region's source, K2 ran 7.6-22% slower;
-// PERF.md, section 6), and K2's row sweep on a halo source is later work
-// (ROADMAP.md, queue 2).
+// updates. A strip reads at most K cells past the shard, inside its halo.
+// Bound as K2's, plus the halo's bytes (2K rows and, on 2-D meshes, 2K
+// columns per shard). On an H100 80GB HBM3 at 700 W (PERF.md, section 6):
+// a 2048 x 8192 flow shard 0.308 ms per step at K = 4 (1.18x K2's time per
+// cell: its 69 strips take 5 segments of 410 rows, 345 of 396 resident
+// blocks), 1024^2 diffusion and noisy Fisher shards 0.012 at K = 8 and
+// 0.025 at K = 4, against 0.413, 0.025 and 0.043 in 32 x 32 tiles. K9's
+// velocity physics keep those tiles (halo_step_kernel, velocity_tile_kernel
+// on a halo source), as K2's do; templated on the source, the tile loop
+// had cost K2 7.6-22%, reading its source once per cell.
+
+#include <type_traits>
 
 #include "pipe_cell.cuh"
 #include "region_source.cuh"
@@ -80,18 +91,29 @@ constexpr int kVelocityPair = 2;  // velocity inlet and outlet (a, b = u)
 constexpr int kDiffusion = 3;     // periodic, linear feq, growth (a, b = u, v)
 constexpr int kNoisyFisher = 4;   // kDiffusion + Philox noise and clip
 
-// K2: K steps of the periodic ny x nx grid f_in into f_out, one work item
-// (strip blockIdx.x, segment blockIdx.y of `plan`) per block. A thread
-// computes kCols columns, kSpan apart, of every kLanes-th level: two
-// independent cells that share their rows, so one thread overlaps them.
+// K2 and K9: K steps of the domain d, whose region comes from src
+// (region_source.cuh), into f_out[9][d.rows][d.cols], one work item (strip
+// blockIdx.x, segment blockIdx.y of `plan`) per block. K2's source is the
+// whole periodic grid (GridSource, d the grid itself): it reads row `row`
+// of f_in at its wrapped column, the row kept wrapped from phase to phase.
+// K9's is one shard and its halos (HaloSource): a thread places its column
+// in the region once and reads row y of it through src.at_placed, and a
+// strip reads no further than K cells past the shard, inside the halo.
+// Every cell's BCs, mask and noise use its global coordinates wrap(d.y0 +
+// y, d.ny), wrap(d.x0 + x, d.nx). A thread computes kCols columns, kSpan
+// apart, of every kLanes-th level: two independent cells that share their
+// rows, so one thread overlaps them.
 constexpr int kCols = 2;
 constexpr int kMinBlocks = 3;  // __launch_bounds__: 85 registers a thread
 
-template <int kPhys, bool kIncomp, bool kObstacle>
-__global__ void __launch_bounds__(kSweepThreads, kMinBlocks)
-temporal_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
-                     const int* __restrict__ mask, int ny, int nx, int K,
-                     SweepPlan plan, StepParams prm) {
+template <int kPhys, bool kIncomp, bool kObstacle, class Src>
+__device__ __forceinline__ void sweep_steps(const Src& src,
+                                            const int* __restrict__ mask,
+                                            float* __restrict__ f_out,
+                                            const Domain& d, int K,
+                                            const SweepPlan& plan,
+                                            const StepParams& prm) {
+  constexpr bool kGrid = std::is_same<Src, GridSource>::value;
   constexpr int W = strip_width<1>();
   constexpr int kSpan = W / kCols;
   constexpr int kLanes = kSweepThreads / kSpan;  // levels side by side
@@ -106,26 +128,42 @@ temporal_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
   const int mask_rows = sweep_mask_rows(K);
 
   const int xs = blockIdx.x * plan.wo, ys = blockIdx.y * plan.seg;
-  const int width = min(plan.wo, nx - xs) + 2 * K;  // region columns
-  const int rows = min(plan.seg, ny - ys);          // rows written
-  const int inputs = rows + 2 * K;                  // input rows
-  const size_t plane = (size_t)ny * nx;
+  const int width = min(plan.wo, d.cols - xs) + 2 * K;  // region columns
+  const int rows = min(plan.seg, d.rows - ys);          // rows written
+  const int inputs = rows + 2 * K;                      // input rows
+  const int y0 = ys - K;  // domain row of the first input row
+  const size_t plane = (size_t)d.rows * d.cols;
 
-  // the loads: column cl, planes lane_l, lane_l + kLoadLanes, ...
+  // the loads: column cl (domain column xs - K + cl; K2 wraps it into the
+  // grid, K9 places it in the region once), planes lane_l, lane_l +
+  // kLoadLanes, ...
   const int cl = threadIdx.x % W, lane_l = threadIdx.x / W;
-  const int gxl = wrap(xs - K + cl, nx);
+  int xl;
+  if constexpr (kGrid) {
+    xl = wrap(xs - K + cl, d.cols);
+  } else {
+    xl = src.place_x(xs - K + cl);
+  }
   // the cells: columns c + i kSpan of levels lane + 1, lane + 1 + kLanes, ..
   const int c = threadIdx.x % kSpan, lane = threadIdx.x / kSpan;
   int gx[kCols];
 #pragma unroll
-  for (int i = 0; i < kCols; ++i) gx[i] = wrap(xs - K + c + i * kSpan, nx);
+  for (int i = 0; i < kCols; ++i)
+    gx[i] = wrap(d.x0 + xs - K + c + i * kSpan, d.nx);
 
-  // the input row of phase t, wrapped row `row`, into group rows ld (and
-  // its mask row, returned)
+  // the input row of phase t (K2: wrapped grid row `row`) into group rows
+  // ld (and its mask cell, returned)
   auto issue = [&](int t, int row, const int (&ld)[3]) {
     bool sol = false;
     if (cl < width && t < inputs) {
-      const float* src = f_in + (size_t)row * nx + gxl;
+      const float* p;
+      size_t stride;
+      if constexpr (kGrid) {
+        p = src.f + (size_t)row * d.cols + xl;
+        stride = plane;
+      } else {
+        p = src.at_placed(y0 + t, xl, stride);
+      }
       // the thread's planes as constants: one unrolled copy per lane
 #pragma unroll
       for (int l = 0; l < kLoadLanes; ++l) {
@@ -134,11 +172,16 @@ temporal_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
         for (int i = 0; i < kLoads; ++i) {
           const int q = l + i * kLoadLanes;
           if (q < 9) cp_async4(ring_in + sweep_load_offset<1>(q, ld) + cl,
-                               src + q * plane);
+                               p + q * stride);
         }
       }
-      if (kObstacle && lane_l == 0)
-        sol = __ldg(mask + (size_t)row * nx + gxl) != 0;
+      if (kObstacle && lane_l == 0) {
+        if constexpr (kGrid) {
+          sol = __ldg(mask + (size_t)row * d.cols + xl) != 0;
+        } else {
+          sol = src.solid_placed(mask, y0 + t, xl);
+        }
+      }
     }
     cp_async_commit();
     return sol;
@@ -147,13 +190,15 @@ temporal_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
     if (kObstacle && lane_l == 0 && cl < width && t < inputs)
       solid[(t % mask_rows) * W + cl] = sol;
   };
-  auto next_row = [&](int r) { return r + 1 == ny ? 0 : r + 1; };
+  auto next_row = [&](int r) { return r + 1 == d.ny ? 0 : r + 1; };
   float coef[9];  // the diffusion family's (1 + c_j.u / cs2)
   if (kPhys == kDiffusion || kPhys == kNoisyFisher)
     feq_coefficients(prm.a, prm.b, coef);
 
-  int row_t = wrap(ys - K, ny);  // the wrapped row of phase t's input row
-  int row_next = row_t;          // ... of the row issued at phase t
+  // the global row of phase t's input row, and (K2) of the row issued at
+  // phase t
+  int row_t = wrap(d.y0 + y0, d.ny);
+  int row_next = row_t;
 #pragma unroll
   for (int t = 0; t < kPrefetch; ++t) {
     const SweepPhase<1> ph(t - kPrefetch);
@@ -175,7 +220,7 @@ temporal_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
       }
       if (!any) continue;
       int gy = row_t - 2 * s;
-      if (gy < 0) gy = wrap(gy, ny);
+      if (gy < 0) gy = wrap(gy, d.ny);
       const bool first = s == 1;
       const float* in = first ? ring_in : rings + (s - 2) * kLevel;
       const float* g0 = in + (first ? ph.rd_in[0] : ph.rd[0]);
@@ -196,20 +241,23 @@ temporal_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
 #pragma unroll
       for (int i = 0; i < kCols; ++i) {
         if constexpr (kPhys == kFlow) {
-          cell_update<kIncomp, kObstacle, true>(v[i], out[i], gy, gx[i], ny,
-                                                nx, sol[i], prm.omega, prm.a,
-                                                prm.b);
+          cell_update<kIncomp, kObstacle, true>(v[i], out[i], gy, gx[i], d.ny,
+                                                d.nx, sol[i], prm.omega,
+                                                prm.a, prm.b);
         } else {
           diffusion_cell_update<kPhys == kNoisyFisher>(
-              v[i], out[i], prm, (unsigned long long)gy * nx + gx[i],
+              v[i], out[i], prm, (unsigned long long)gy * d.nx + gx[i],
               prm.step0 + (s - 1), coef);
         }
       }
 #pragma unroll
       for (int i = 0; i < kCols; ++i) {
         if (!act[i]) continue;
-        if (s == K) {  // row gy of the segment, column gx of the strip
-          const GlobalPut<1> put = {f_out + (size_t)gy * nx + gx[i], plane};
+        if (s == K) {  // domain row y0 + t - 2K, column xs - K + c + i kSpan
+          // (K2: the grid's gy, gx)
+          const int oy = kGrid ? gy : y0 + t - 2 * K;
+          const int ox = kGrid ? gx[i] : xs - K + c + i * kSpan;
+          const GlobalPut<1> put = {f_out + (size_t)oy * d.cols + ox, plane};
 #pragma unroll
           for (int j = 0; j < 9; ++j) put(j, 0, out[i][j]);
         } else {
@@ -228,21 +276,64 @@ temporal_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
   }
 }
 
+// K2: the grid's own kernel, its source and domain known to the compiler
+// (one kernel templated on the source ran K2 2% slower per step; PERF.md,
+// section 6)
 template <int kPhys, bool kIncomp, bool kObstacle>
-cudaError_t launch(const float* f_in, float* f_out, const int* mask, int ny,
-                   int nx, int K, const StepParams& prm, cudaStream_t stream) {
+__global__ void __launch_bounds__(kSweepThreads, kMinBlocks)
+temporal_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
+                     const int* __restrict__ mask, int ny, int nx, int K,
+                     SweepPlan plan, StepParams prm) {
+  sweep_steps<kPhys, kIncomp, kObstacle>(GridSource{f_in, ny, nx}, mask,
+                                         f_out, Domain{ny, nx, 0, 0, ny, nx},
+                                         K, plan, prm);
+}
+
+// K9: one shard d from its halos
+template <int kPhys, bool kIncomp, bool kObstacle>
+__global__ void __launch_bounds__(kSweepThreads, kMinBlocks)
+halo_sweep_kernel(HaloSource src, const int* __restrict__ mask,
+                  float* __restrict__ f_out, Domain d, int K, SweepPlan plan,
+                  StepParams prm) {
+  sweep_steps<kPhys, kIncomp, kObstacle>(src, mask, f_out, d, K, plan, prm);
+}
+
+// Launch a sweep kernel, whose arguments are `head` then K, plan and prm,
+// on a rows x cols domain: the work items fill one wave of resident blocks
+// (`cache`: the kernel's occupancy per card and K).
+template <bool kObstacle, class Kernel, class... Head>
+cudaError_t launch_sweep(Kernel kernel, SweepSlots& cache, int rows, int cols,
+                         int K, const StepParams& prm, cudaStream_t stream,
+                         Head... head) {
   if (K < 1 || K > sweep_max_k<1>()) return cudaErrorInvalidValue;
-  const auto kernel = temporal_step_kernel<kPhys, kIncomp, kObstacle>;
   const int smem = sweep_smem<1>(K, kObstacle);
-  static SweepSlots cache;  // per instantiation
   int slots = 0;
   const cudaError_t err = cache.get(kernel, smem, K, slots);
   if (err != cudaSuccess) return err;
-  const SweepPlan plan = sweep_plan(ny, nx, K, strip_width<1>(), slots);
+  const SweepPlan plan = sweep_plan(rows, cols, K, strip_width<1>(), slots);
   if (plan.segments > 65535) return cudaErrorInvalidValue;
   kernel<<<dim3(plan.strips, plan.segments), kSweepThreads, smem, stream>>>(
-      f_in, f_out, mask, ny, nx, K, plan, prm);
+      head..., K, plan, prm);
   return cudaGetLastError();
+}
+
+template <int kPhys, bool kIncomp, bool kObstacle>
+cudaError_t launch(const float* f_in, float* f_out, const int* mask, int ny,
+                   int nx, int K, const StepParams& prm, cudaStream_t stream) {
+  static SweepSlots cache;  // per instantiation
+  return launch_sweep<kObstacle>(
+      temporal_step_kernel<kPhys, kIncomp, kObstacle>, cache, ny, nx, K, prm,
+      stream, f_in, f_out, mask, ny, nx);
+}
+
+template <int kPhys, bool kIncomp, bool kObstacle>
+cudaError_t halo_launch(const HaloSource& src, const int* mask, float* f_out,
+                        const Domain& d, int K, const StepParams& prm,
+                        cudaStream_t stream) {
+  static SweepSlots cache;  // per instantiation
+  return launch_sweep<kObstacle>(
+      halo_sweep_kernel<kPhys, kIncomp, kObstacle>, cache, d.rows, d.cols, K,
+      prm, stream, src, mask, f_out, d);
 }
 
 template <int kPhys>
@@ -258,8 +349,21 @@ cudaError_t dispatch(const float* f_in, float* f_out, const int* mask, int ny,
               : launch<kPhys, false, false>(f_in, f_out, mask, ny, nx, K, prm, s);
 }
 
+template <int kPhys>
+cudaError_t halo_dispatch(const HaloSource& src, const int* mask,
+                          float* f_out, const Domain& d, int K,
+                          const StepParams& prm, int incompressible,
+                          cudaStream_t s) {
+  if (incompressible) {
+    return mask ? halo_launch<kPhys, true, true>(src, mask, f_out, d, K, prm, s)
+                : halo_launch<kPhys, true, false>(src, mask, f_out, d, K, prm, s);
+  }
+  return mask ? halo_launch<kPhys, false, true>(src, mask, f_out, d, K, prm, s)
+              : halo_launch<kPhys, false, false>(src, mask, f_out, d, K, prm, s);
+}
 
-// The tile loop of the velocity physics and of K9: a 32 x 32 region of
+
+// The tile loop of K2's and K9's velocity physics: a 32 x 32 region of
 // cells, halo included, in shared memory
 constexpr int kTile = 32;
 constexpr int kThreads = 256;
@@ -392,10 +496,11 @@ cudaError_t velocity_dispatch(const float* f_in, float* f_out,
                                                      nx, K, prm, s);
 }
 
-// K9: K steps of one shard, the domain d, whose region comes from src, in
-// 32 x 32 tiles; the region's cells (y, x) are the shard's, unwrapped, their
-// global coordinates wrap(d.y0 + y, d.ny) and wrap(d.x0 + x, d.nx).
-template <int kPhys, bool kIncomp, bool kObstacle>
+// K9's velocity physics: K steps of one shard, the domain d, whose region
+// comes from src, in 32 x 32 tiles (velocity_tile_kernel on a halo source);
+// the region's cells (y, x) are the shard's, unwrapped, their global
+// coordinates wrap(d.y0 + y, d.ny) and wrap(d.x0 + x, d.nx).
+template <bool kPair, bool kIncomp, bool kObstacle>
 __global__ void __launch_bounds__(kThreads, 3)
 halo_step_kernel(HaloSource src, const int* __restrict__ mask,
                  float* __restrict__ f_out, Domain d, int K,
@@ -432,7 +537,6 @@ halo_step_kernel(HaloSource src, const int* __restrict__ mask,
       const int r = r_first + i * kRowsPerPass;
       if (r < s || r >= kTile - s || c < s || c >= kTile - s) continue;
       if (last && (y0 + r >= d.rows || x0 + c >= d.cols)) continue;  // ragged edge
-      const int gy = wrap(d.y0 + y0 + r, d.ny);
       const float* p = cur + r * kTile + c;
       float v[9], out[9];
       v[0] = p[0 * kPlane];
@@ -445,23 +549,15 @@ halo_step_kernel(HaloSource src, const int* __restrict__ mask,
       v[7] = p[7 * kPlane + kTile + 1];
       v[8] = p[8 * kPlane + kTile - 1];
       const bool sol = kObstacle && solid[r * kTile + c];
-      if constexpr (kPhys == kFlow) {
-        cell_update<kIncomp, kObstacle>(v, out, gy, gx, d.ny, d.nx, sol,
-                                        prm.omega, prm.a, prm.b);
-      } else if constexpr (kPhys == kDiffusion || kPhys == kNoisyFisher) {
-        diffusion_cell_update<kPhys == kNoisyFisher>(
-            v, out, prm, (unsigned long long)gy * d.nx + gx,
-            prm.step0 + (s - 1));
-      } else {
-        float up[3] = {0.0f, 0.0f, 0.0f};
-        if (kPhys == kVelocityOpen && gx == d.nx - 1) {
-          up[0] = p[3 * kPlane];
-          up[1] = p[6 * kPlane - kTile];
-          up[2] = p[7 * kPlane + kTile];
-        }
-        velocity_cell_update<kPhys == kVelocityPair, kIncomp, kObstacle>(
-            v, up, out, gx, d.nx, sol, prm.omega, prm.a, prm.b);
+      float up[3] = {0.0f, 0.0f, 0.0f};
+      if (!kPair && gx == d.nx - 1) {
+        up[0] = p[3 * kPlane];
+        up[1] = p[6 * kPlane - kTile];
+        up[2] = p[7 * kPlane + kTile];
       }
+      velocity_cell_update<kPair, kIncomp, kObstacle>(v, up, out, gx, d.nx,
+                                                      sol, prm.omega, prm.a,
+                                                      prm.b);
       if (last) {
         const size_t g = (size_t)(y0 + r) * d.cols + (x0 + c);
 #pragma unroll
@@ -480,10 +576,10 @@ halo_step_kernel(HaloSource src, const int* __restrict__ mask,
   }
 }
 
-template <int kPhys, bool kIncomp, bool kObstacle>
-cudaError_t halo_launch(const HaloSource& src, const int* mask, float* f_out,
-                        const Domain& d, int K, const StepParams& prm,
-                        cudaStream_t stream) {
+template <bool kPair, bool kIncomp, bool kObstacle>
+cudaError_t halo_velocity_launch(const HaloSource& src, const int* mask,
+                                 float* f_out, const Domain& d, int K,
+                                 const StepParams& prm, cudaStream_t stream) {
   const int smem = 18 * kPlane * (int)sizeof(float) + (kObstacle ? kPlane : 0);
   // once per instantiation and card: the attribute is the card's
   static bool configured[kMaxDevices] = {};
@@ -492,7 +588,7 @@ cudaError_t halo_launch(const HaloSource& src, const int* mask, float* f_out,
     return cudaErrorInvalidDevice;
   if (!configured[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        halo_step_kernel<kPhys, kIncomp, kObstacle>,
+        halo_step_kernel<kPair, kIncomp, kObstacle>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     configured[dev] = true;
@@ -500,22 +596,26 @@ cudaError_t halo_launch(const HaloSource& src, const int* mask, float* f_out,
   const int inner = kTile - 2 * K;
   const dim3 grid((d.cols + inner - 1) / inner, (d.rows + inner - 1) / inner);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  halo_step_kernel<kPhys, kIncomp, kObstacle>
+  halo_step_kernel<kPair, kIncomp, kObstacle>
       <<<grid, kThreads, smem, stream>>>(src, mask, f_out, d, K, prm);
   return cudaGetLastError();
 }
 
-template <int kPhys>
-cudaError_t halo_dispatch(const HaloSource& src, const int* mask,
-                          float* f_out, const Domain& d, int K,
-                          const StepParams& prm, int incompressible,
-                          cudaStream_t s) {
+template <bool kPair>
+cudaError_t halo_velocity_dispatch(const HaloSource& src, const int* mask,
+                                   float* f_out, const Domain& d, int K,
+                                   const StepParams& prm, int incompressible,
+                                   cudaStream_t s) {
   if (incompressible) {
-    return mask ? halo_launch<kPhys, true, true>(src, mask, f_out, d, K, prm, s)
-                : halo_launch<kPhys, true, false>(src, mask, f_out, d, K, prm, s);
+    return mask ? halo_velocity_launch<kPair, true, true>(src, mask, f_out, d,
+                                                          K, prm, s)
+                : halo_velocity_launch<kPair, true, false>(src, mask, f_out, d,
+                                                           K, prm, s);
   }
-  return mask ? halo_launch<kPhys, false, true>(src, mask, f_out, d, K, prm, s)
-              : halo_launch<kPhys, false, false>(src, mask, f_out, d, K, prm, s);
+  return mask ? halo_velocity_launch<kPair, false, true>(src, mask, f_out, d,
+                                                         K, prm, s)
+              : halo_velocity_launch<kPair, false, false>(src, mask, f_out, d,
+                                                          K, prm, s);
 }
 
 }  // namespace
@@ -581,8 +681,9 @@ extern "C" int lb2d_temporal_diffusion_step(
 // physics: 0 pressure-driven flow (a, b = inlet, outlet rho), 1 velocity
 // inlet with the zero-gradient outlet, 2 with the velocity outlet (a, b =
 // u_w, u_e), 3 diffusion, 4 noisy Fisher (a, b = u, v; g, dg, key, step0 as
-// lb2d_temporal_diffusion_step). 1 <= k_steps <= min(8, hk). Launches on
-// `stream` and returns the launch's CUDA error code.
+// lb2d_temporal_diffusion_step). 1 <= k_steps <= min(8, hk): the row sweep
+// (sweep_max_k<1>()) for physics 0, 3, 4, the tiles (kTileMaxK) for 1, 2.
+// Launches on `stream` and returns the launch's CUDA error code.
 extern "C" int lb2d_halo_step(const float* f, const float* top,
                               const float* bot, const float* left,
                               const float* right, const int* mask,
@@ -592,8 +693,10 @@ extern "C" int lb2d_halo_step(const float* f, const float* top,
                               float a, float b, float g, float dg,
                               unsigned key0, unsigned key1,
                               unsigned long long step0, void* stream) {
-  if (H < 1 || W < 1 || hk < 1 || k_steps < 1 || k_steps > kTileMaxK ||
-      k_steps > hk || (left == nullptr) != (right == nullptr) ||
+  const bool tiles = physics == kVelocityOpen || physics == kVelocityPair;
+  if (H < 1 || W < 1 || hk < 1 || k_steps < 1 ||
+      k_steps > (tiles ? kTileMaxK : sweep_max_k<1>()) || k_steps > hk ||
+      (left == nullptr) != (right == nullptr) ||
       (left == nullptr && W != nx) || y0 < 0 || y0 + H > ny || x0 < 0 ||
       x0 + W > nx || (physics == kVelocityOpen && nx < 2))
     return (int)cudaErrorInvalidValue;
@@ -606,17 +709,17 @@ extern "C" int lb2d_halo_step(const float* f, const float* top,
       return (int)halo_dispatch<kFlow>(src, mask, f_out, d, k_steps, prm,
                                        incompressible, s);
     case kVelocityOpen:
-      return (int)halo_dispatch<kVelocityOpen>(src, mask, f_out, d, k_steps,
-                                               prm, incompressible, s);
+      return (int)halo_velocity_dispatch<false>(src, mask, f_out, d, k_steps,
+                                                prm, incompressible, s);
     case kVelocityPair:
-      return (int)halo_dispatch<kVelocityPair>(src, mask, f_out, d, k_steps,
+      return (int)halo_velocity_dispatch<true>(src, mask, f_out, d, k_steps,
                                                prm, incompressible, s);
     case kDiffusion:
-      return (int)halo_launch<kDiffusion, false, false>(
-          src, nullptr, f_out, d, k_steps, prm, s);
+      return (int)halo_launch<kDiffusion, false, false>(src, nullptr, f_out,
+                                                        d, k_steps, prm, s);
     case kNoisyFisher:
-      return (int)halo_launch<kNoisyFisher, false, false>(
-          src, nullptr, f_out, d, k_steps, prm, s);
+      return (int)halo_launch<kNoisyFisher, false, false>(src, nullptr, f_out,
+                                                          d, k_steps, prm, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -27,6 +27,7 @@ from .ops.fused_coupled import (
     coupled_step_halo_reference,
 )
 from .ops.fused_halo import (
+    HALO_SWEEP_PHYSICS,
     Halo,
     cut_region,
     temporal_halo_step,
@@ -42,7 +43,8 @@ from .ops.fused_mc import (
     mc_step_halo_reference,
 )
 
-__all__ = ["HALO_CASES", "HALO_MESHES", "halo_case_state", "halo_case_ks",
+__all__ = ["HALO_CASES", "HALO_MESHES", "SMALL_HALO_CUTS",
+           "halo_case_state", "halo_case_ks",
            "shard_cuts", "compare_halo_case", "halo_tolerance",
            "compare_mc_halo", "compare_coupled_halo"]
 
@@ -75,6 +77,10 @@ HALO_CASES = {
         cutoff=0.01, seed=2**40 + 7), 3, False),
 }
 HALO_MESHES = ((2, 2), (4, 1), (1, 4))
+# small ragged grids and their cuts: shards narrower than one strip, a few
+# rows high, x wrapping within the shard (2x1)
+SMALL_HALO_CUTS = (((37, 53), (2, 1)), ((37, 53), (1, 3)), ((30, 47), (2, 2)),
+                   ((30, 47), (3, 3)))
 
 
 def halo_tolerance(physics: str) -> float:
@@ -82,15 +88,20 @@ def halo_tolerance(physics: str) -> float:
 
 
 def halo_case_ks(case: str):
-    """The steps per sweep to check: 1, 2, 3 and the K of the physics'
-    sharded path (K9's ``HALO_TEMPORAL_K``, the multifield models' own
-    ``FISHER_TEMPORAL_K`` and ``EXPANSION_TEMPORAL_K``)."""
+    """The steps per sweep to check: every K up to K9's limit for the
+    physics that run K2's row sweep (flow, diffusion, noisy Fisher); 1, 2,
+    3 and the K of the physics' sharded path for the others (K9's
+    ``HALO_TEMPORAL_K``, the multifield models' own ``FISHER_TEMPORAL_K``
+    and ``EXPANSION_TEMPORAL_K``)."""
     from .models.multifield import EXPANSION_TEMPORAL_K, FISHER_TEMPORAL_K
-    from .ops.fused_halo import HALO_TEMPORAL_K
+    from .ops.fused_halo import HALO_TEMPORAL_K, halo_max_k
 
+    physics = HALO_CASES[case][0]
+    if physics in HALO_SWEEP_PHYSICS:
+        return list(range(1, halo_max_k(physics) + 1))
     default = dict(HALO_TEMPORAL_K, multifield_fisher=FISHER_TEMPORAL_K,
                    multifield_expansion=EXPANSION_TEMPORAL_K)
-    return sorted({1, 2, 3, default[HALO_CASES[case][0]]})
+    return sorted({1, 2, 3, default[physics]})
 
 
 def halo_case_state(case: str, ny: int, nx: int, device):

@@ -24,13 +24,15 @@ rows or 128 lanes, which are TPU DMA alignment; any shard shape works.
 
 On CUDA tensors the wrapper launches K9 (``csrc/temporal_step.cu`` and
 ``csrc/multifield_step.cu``), counted in ``temporal_halo_step.launches``.
-Its multifield physics run K4's row sweep, templated on the region's
-source, through a halo source (``csrc/region_source.cuh``); its other
-physics run a loop of 32 x 32 tiles with a K-cell halo of their own (K2's
-loop before K2 became a row sweep), on that source and through K2's
-per-cell updates, at most ``HALO_MAX_K`` steps per launch, by default
-``HALO_TEMPORAL_K`` (``PERF.md`` section 6). On CPU tensors it runs the
-plain twin, :func:`temporal_halo_step_reference`.
+K9 is K2's and K4's row sweep (``csrc/row_sweep.cuh``, mirrored by
+:mod:`~lb2d_tpu_torch.ops.sweep`), templated on the region's source and
+run on a halo source (``csrc/region_source.cuh``): a block sweeps a strip
+of the shard's columns down a segment of its rows, reading each input row
+of the halo-extended region once and writing the shard's rows, at most
+:func:`halo_max_k` steps per launch (8), by default ``HALO_TEMPORAL_K``.
+The velocity inlet keeps K2's loop of 32 x 32 tiles with a K-cell halo
+(``HALO_MAX_K`` steps), as K2's velocity physics do. On CPU tensors the
+wrapper runs the plain twin, :func:`temporal_halo_step_reference`.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import sweep
 from .boundary import GridCoords
 from .fused import (
     _check_k,
@@ -60,15 +63,20 @@ from .fused import (
 from .random import population_normals_at
 
 __all__ = ["Halo", "HALO_PHYSICS", "HALO_MAX_K", "HALO_TEMPORAL_K",
+           "HALO_SWEEP_PHYSICS",
            "supports_temporal_halo", "halo_max_k", "cut_region",
            "check_pieces", "temporal_halo_step",
            "temporal_halo_step_reference"]
 
-HALO_MAX_K = 8  # K9's tiles keep an inner edge of 16 cells
-# steps per launch of K9's tile physics: the tile loop's fastest K on an
-# H100 (PERF.md, section 6: 3 for flow and diffusion, 2 for noisy Fisher)
-HALO_TEMPORAL_K = {"flow": 3, "velocity_inlet": 3, "diffusion": 3,
-                   "noisy_fisher": 2}
+HALO_MAX_K = 8  # K9's velocity tiles keep an inner edge of 16 cells
+# steps per launch of the sharded models: the unsharded models' K
+# (TEMPORAL_K, DIFFUSION_TEMPORAL_K, NOISY_TEMPORAL_K), which K9's K sweep
+# at the main paths' shards also picks on an H100 (K = 7 and 8 tie for
+# diffusion; PERF.md, section 6); the velocity inlet's tiles keep 3
+HALO_TEMPORAL_K = {"flow": 4, "velocity_inlet": 3, "diffusion": 8,
+                   "noisy_fisher": 4}
+# the physics on K2's row sweep (multifield: K4's; velocity_inlet: tiles)
+HALO_SWEEP_PHYSICS = ("flow", "diffusion", "noisy_fisher")
 
 # each physics and the keyword arguments of its step
 _ARGS = {
@@ -146,10 +154,12 @@ class Halo(NamedTuple):
 
 
 def halo_max_k(physics: str, num_fields: int = 1) -> int:
-    """The most steps of one K9 launch: its tiles' limit, or K4's for
-    ``num_fields`` fields."""
+    """The most steps of one K9 launch: the row sweep's limit (K4's for
+    ``num_fields`` fields), or the velocity tiles'."""
     if physics.startswith("multifield"):
         return multifield_max_k(num_fields)
+    if physics in HALO_SWEEP_PHYSICS:
+        return sweep.max_k(1)
     return HALO_MAX_K
 
 

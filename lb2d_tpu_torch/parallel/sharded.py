@@ -65,9 +65,9 @@ from ..ops.fused_coupled import (
     coupled_step_halo_reference,
 )
 from ..ops.fused_halo import (
-    HALO_MAX_K,
     HALO_TEMPORAL_K,
     cut_region,
+    halo_max_k,
     supports_temporal_halo,
     temporal_halo_step,
     temporal_halo_step_reference,
@@ -214,7 +214,7 @@ def make_sharded_temporal_step(*, mesh: Mesh, ny: int, nx: int, omega,
     ``HALO_TEMPORAL_K["flow"]``) capped by the shard's edge."""
     H, W = _shard_shape(mesh, ny, nx)
     K = _steps_per_sweep(k_steps or HALO_TEMPORAL_K["flow"], mesh, H, W,
-                         HALO_MAX_K)
+                         halo_max_k("flow"))
     masks = _region_masks(mesh, obstacle_mask, H, W, K)
     kw = _flow_kwargs(omega, inlet_rho, outlet_rho, equilibrium)
 
@@ -447,7 +447,7 @@ class ShardedDiffusion(_ShardedModel):
         H, W = _shard_shape(self.mesh, self.ny, self.nx)
         K = self.steps_per_call = _steps_per_sweep(
             k_steps or HALO_TEMPORAL_K[self.physics], self.mesh, H, W,
-            HALO_MAX_K)
+            halo_max_k(self.physics))
         kw = self.step_kwargs = base.step_kwargs()
         kw.pop("noisy", None)
 

@@ -39,6 +39,7 @@ from lb2d_tpu_torch.core import D2Q9, D2Q25
 from lb2d_tpu_torch.halo_cases import (
     HALO_CASES,
     HALO_MESHES,
+    SMALL_HALO_CUTS,
     compare_coupled_halo,
     compare_halo_case,
     compare_mc_halo,
@@ -91,7 +92,10 @@ from lb2d_tpu_torch.ops.fused_coupled import (
     coupled_step,
     coupled_step_reference,
 )
-from lb2d_tpu_torch.ops.fused_halo import temporal_halo_step
+from lb2d_tpu_torch.ops.fused_halo import (
+    HALO_SWEEP_PHYSICS,
+    temporal_halo_step,
+)
 from lb2d_tpu_torch.ops.fused_coupled import coupled_step_halo
 from lb2d_tpu_torch.ops.fused_mc import (
     mc_density,
@@ -787,7 +791,8 @@ def test_config5_kernel_matches_eager(cuda, stale):
 @pytest.mark.parametrize("case", list(HALO_CASES))
 def test_halo_kernel_matches_twin(cuda, case, mesh):
     """K9 on each shard of a 254x382 random state (shards of unequal edges,
-    with and without x strips) at K = 1, 2, 3 and the physics' K, from a
+    with and without x strips) at every K up to 8 for the physics of K2's
+    row sweep, at K = 1, 2, 3 and the physics' K for the others, from a
     global step whose sweep crosses the noise counter's high word."""
     physics = HALO_CASES[case][0]
     f, mask = halo_case_state(case, 254, 382, cuda)
@@ -801,6 +806,27 @@ def test_halo_kernel_matches_twin(cuda, case, mesh):
         halo_case_ks(case)) * len(cuts)
 
 
+SWEEP_CASES = [c for c, v in HALO_CASES.items()
+               if v[0] in HALO_SWEEP_PHYSICS]
+
+
+@pytest.mark.parametrize("grid,cut", SMALL_HALO_CUTS, ids=[
+    f"{g[0]}x{g[1]}-{c[0]}x{c[1]}" for g, c in SMALL_HALO_CUTS])
+@pytest.mark.parametrize("case", SWEEP_CASES)
+def test_halo_sweep_small_shards(cuda, case, grid, cut):
+    """K9's row sweep on small ragged shards (narrower than one strip, a
+    few rows high, x wrapping within the shard in the 2x1 cut) at every K
+    that the shards take, against the plain twin."""
+    physics = HALO_CASES[case][0]
+    ny, nx = grid
+    f, mask = halo_case_state(case, ny, nx, cuda)
+    cuts = shard_cuts(ny, nx, *cut)
+    edge = min(min(H, W) if cut[1] > 1 else H for _, _, H, W in cuts)
+    for k in [k for k in halo_case_ks(case) if k <= edge]:
+        d = compare_halo_case(case, f, mask, cuts, k, step0=2**32 - 3)
+        assert d <= halo_tolerance(physics), (k, d)
+
+
 PIPE_64x132 = dict(N=63, pipe_length=1.5 * 130.5 / 63, diameter=1.5,
                    rho=10.0, viscosity=5.0, pressure_grad=-100.0)
 
@@ -810,8 +836,8 @@ PIPE_64x132 = dict(N=63, pipe_length=1.5 * 130.5 / 63, diameter=1.5,
                          ids=[f"{my}x{mx}" for my, mx in HALO_MESHES])
 def test_sharded_pipe_flow_matches_unsharded_kernel(cuda, mesh, obstacle):
     """ShardedPipeFlow (four shards on one card, ``auto``: K9) against
-    PipeFlow through K2, from the same bits, over 10 steps: three sweeps
-    and a remainder sweep of one step."""
+    PipeFlow through K2, from the same bits, over 10 steps: two sweeps of
+    HALO_TEMPORAL_K["flow"] = 4 and a remainder sweep of two steps."""
     kw = dict(PIPE_64x132)
     if obstacle:
         m = np.zeros((64, 132), np.int32)
@@ -820,13 +846,13 @@ def test_sharded_pipe_flow_matches_unsharded_kernel(cuda, mesh, obstacle):
     single = PipeFlow(device=cuda, backend="temporal", **kw)
     sh = ShardedPipeFlow(mesh=make_mesh(devices=[cuda] * 4, shape=mesh),
                          **kw)
-    assert sh.backend == "temporal" and sh.steps_per_call == 3
+    assert sh.backend == "temporal" and sh.steps_per_call == 4
     assert np.array_equal(sh.state_numpy(), single.state_numpy())
     before = temporal_halo_step.launches
     single.run(10)
     sh.run(10)
     torch.cuda.synchronize()
-    assert temporal_halo_step.launches == before + 4 * 4
+    assert temporal_halo_step.launches == before + 4 * 3
     d = float(np.abs(sh.state_numpy() - single.state_numpy()).max())
     assert d <= TOL, d
 

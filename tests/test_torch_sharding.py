@@ -124,11 +124,11 @@ def test_sharded_with_obstacle(jax_pipe, backend):
 
 
 def test_remainder_and_split_runs(jax_pipe):
-    """run(11) is three sweeps of 3 and one of 2; run(4); run(7) is the
-    same sweeps' steps in another cut."""
+    """run(11) is two sweeps of 4 and one of 3; run(4); run(7) is the
+    same steps in another cut (one sweep of 4, one of 3)."""
     a = ShardedPipeFlow(mesh=_mesh((4, 2)), backend="temporal", **PIPE_16x32)
     b = ShardedPipeFlow(mesh=_mesh((4, 2)), backend="temporal", **PIPE_16x32)
-    assert a.steps_per_call == 3
+    assert a.steps_per_call == 4  # HALO_TEMPORAL_K["flow"]
     a.run(11)
     b.run(4)
     b.run(7)
@@ -162,7 +162,7 @@ def test_kernel_path_takes_every_shard():
     assert (tiny.backend, tiny.steps_per_call) == ("temporal", 2)
     narrow = ShardedPipeFlow(mesh=_mesh((2, 4)), backend="temporal",
                              obstacle_mask=_obstacle(), **PIPE_16x32)
-    assert (narrow.backend, narrow.steps_per_call) == ("temporal", 3)
+    assert (narrow.backend, narrow.steps_per_call) == ("temporal", 4)
     assert supports_temporal_halo(2, 8, 2) and not supports_temporal_halo(
         2, 8, 3)
     assert supports_temporal_halo(64, 2, 8, x_sharded=False)
@@ -178,7 +178,7 @@ def test_one_shard_mesh():
     auto = ShardedPipeFlow(mesh=_mesh((1, 1)), **kw)
     k9 = ShardedPipeFlow(mesh=_mesh((1, 1)), backend="temporal", **kw)
     assert (auto.backend, auto.steps_per_call) == ("eager", 1)
-    assert (k9.backend, k9.steps_per_call) == ("temporal", 3)
+    assert (k9.backend, k9.steps_per_call) == ("temporal", 4)
     for sim in (single, auto, k9):
         sim.run(7)
     assert torch.equal(auto.state[0], single.state)
@@ -207,15 +207,15 @@ def test_sharded_diffusion_matches_jax_and_unsharded(shape):
     ref = ReactionAdvectionDiffusion(**DIFFUSION_128)
     step = ref._make_xla_step()
     fref = ref.state
-    for _ in range(7):
+    for _ in range(11):
         fref = step(fref)
     single = torch_models.ReactionAdvectionDiffusion(device="cpu",
                                                      **DIFFUSION_128)
     sh = ShardedDiffusion(torch_models.ReactionAdvectionDiffusion(
         device="cpu", **DIFFUSION_128), mesh=_mesh(shape))
-    assert sh.steps_per_call == 3
-    single.run(7)
-    sh.run(7)  # two sweeps and one of 1
+    assert sh.steps_per_call == 8  # HALO_TEMPORAL_K["diffusion"]
+    single.run(11)
+    sh.run(11)  # one sweep of 8 and one of 3
     np.testing.assert_allclose(sh.state_numpy(), np.asarray(fref),
                                atol=1e-6, rtol=1e-5)
     assert np.array_equal(sh.state_numpy(), single.state_numpy())
@@ -230,10 +230,10 @@ def test_sharded_stochastic_diffusion_equals_unsharded(shape):
                                                                **kw)
     sh = ShardedDiffusion(torch_models.ReactionAdvectionDiffusionStochastic(
         device="cpu", **kw), mesh=_mesh(shape))
-    assert sh.noisy and sh.steps_per_call == 2
+    assert sh.noisy and sh.steps_per_call == 4  # HALO_TEMPORAL_K
     single.run(7)
-    sh.run(3)
-    sh.run(4)
+    sh.run(3)  # one sweep of 3
+    sh.run(4)  # one of 4
     assert sh.steps_taken == 7
     assert np.array_equal(sh.state_numpy(), single.state_numpy())
     rho = sh.get_fields()["rho"]

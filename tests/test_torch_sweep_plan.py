@@ -1,4 +1,5 @@
-"""K2's and K4's row sweep on the CPU: its schedule, emulated in plain torch.
+"""K2's, K4's and K9's row sweep on the CPU: its schedule, emulated in plain
+torch.
 
 The kernels (``lb2d_tpu_torch/csrc/temporal_step.cu``,
 ``multifield_step.cu``, on ``row_sweep.cuh``) run only on the card. What
@@ -29,6 +30,15 @@ column and direction (and its mask from the right cell), at every K and
 at all four grids for strips of 128 and 64 columns, at K = 1 and 8 at
 254x382 for strips of 32. And the budget: shared memory and blocks per SM
 for each F and K against the 227 KB a block may have; the plan's cut.
+
+K9 is the same sweep on one shard: it reads its rows through the shard's
+halo-extended region (``Halo.extended()``), every cell with its global
+coordinates, and writes only the shard's rows. Shards cut 2x1, 1x3 and 2x2
+from 37x53 and 30x47 grids (ragged, narrower than one strip, x wrapping
+within the shard in the 2x1 cuts) go through the emulation with
+identities at every K (and a 40x301 cut whose shards take two strips) and
+with the flow, diffusion and noisy Fisher plain updates at K = 1, 4, 8,
+against K9's plain twin and the plain whole-grid steps.
 """
 
 import numpy as np
@@ -37,6 +47,7 @@ import torch
 
 from lb2d_tpu_torch.core import D2Q9
 from lb2d_tpu_torch.ops import sweep
+from lb2d_tpu_torch.halo_cases import shard_cuts
 from lb2d_tpu_torch.ops.boundary import GridCoords
 from lb2d_tpu_torch.ops.fused import (
     MAX_MULTIFIELD_FIELDS,
@@ -50,6 +61,11 @@ from lb2d_tpu_torch.ops.fused import (
     noisy_fisher_step_reference,
     pipe_run_reference,
     pipe_step_reference,
+)
+from lb2d_tpu_torch.ops.fused_halo import (
+    Halo,
+    cut_region,
+    temporal_halo_step_reference,
 )
 from lb2d_tpu_torch.ops.random import (
     normals_reference,
@@ -96,7 +112,7 @@ def _rows(t, first, lagged):
     return rows, slots
 
 
-def emulate(f0, k, slots, update, mask=None):
+def emulate(f0, k, slots, update, mask=None, shard=None):
     """``k`` steps of ``f0 [9, P, ny, nx]`` by the row sweep's schedule.
     ``update(pulled [9, P, B, C], gy [B], gx [B, C], stage [B], solid [B, C]
     or None, valid [B, C])`` computes one level's cells of B rows (stage is
@@ -104,20 +120,35 @@ def emulate(f0, k, slots, update, mask=None):
     columns of the widest region (no block touches the columns past its
     region) and a blank column each side, where a pull from outside the
     region lands. A float ``f0`` starts every slot as NaN, an integer one
-    as -1."""
+    as -1.
+
+    With ``shard = (y0, x0, ny, nx, hk)`` the sweep is K9's on one shard
+    (the domain ``[H, W]`` at global row ``y0`` and column ``x0`` of an
+    ``ny x nx`` grid): ``f0 [9, P, H + 2 hk, W + 2 hk]`` is its
+    halo-extended region (``Halo.extended()``) and ``mask`` the region's
+    mask. Domain cell (y, x) loads from region cell (y + hk, x + hk), which
+    must lie inside the region (a strip reads at most k cells past the
+    shard); the update gets the cells' global coordinates, and the result
+    is the shard's rows ``[9, P, H, W]``."""
     _, P, ny, nx = f0.shape
+    y_off = x_off = hk = 0
+    if shard is not None:
+        y_off, x_off, ny, nx, hk = shard
+        assert k <= hk
+    rows_d, cols_d = f0.shape[2] - 2 * hk, f0.shape[3] - 2 * hk
     D = sweep.PREFETCH
-    pl = sweep.plan(ny, nx, k, P, slots)
+    pl = sweep.plan(rows_d, cols_d, k, P, slots)
     strip = torch.arange(pl.strips).repeat_interleave(pl.segments)
     seg = torch.arange(pl.segments).repeat(pl.strips)
     xs, ys = strip * pl.wo, seg * pl.seg
-    width = torch.clamp(nx - xs, max=pl.wo) + 2 * k   # region columns
-    rows = torch.clamp(ny - ys, max=pl.seg)           # rows written
+    width = torch.clamp(cols_d - xs, max=pl.wo) + 2 * k  # region columns
+    rows = torch.clamp(rows_d - ys, max=pl.seg)          # rows written
     inputs = rows + 2 * k
     n, W = len(xs), int(width.max())
     assert W <= sweep.strip_width(P)
     cols = torch.arange(W)
-    gx = (xs[:, None] - k + cols) % nx                # [n, W]
+    lx = xs[:, None] - k + cols                       # domain columns [n, W]
+    gx = (x_off + lx) % nx                            # global columns
     inside = cols < width[:, None]
     blank = float("nan") if f0.is_floating_point() else -1
     ring_in = torch.full((n, sweep.level_rows(True), P, W + 2), blank,
@@ -128,32 +159,45 @@ def emulate(f0, k, slots, update, mask=None):
     tags = np.full((k - 1, n, 3, 4), -1)
     mask_rows = 2 * k + D + 1
     mring = torch.full((n, mask_rows, W), -1, dtype=torch.int8)
-    out = torch.full_like(f0, blank)
-    written = torch.zeros(ny, nx, dtype=torch.int64)
+    out = torch.full((9, P, rows_d, cols_d), blank, dtype=f0.dtype)
+    written = torch.zeros(rows_d, cols_d, dtype=torch.int64)
     # the pull of direction j at column c reads ring column c - cx_j
     pull_cols = (cols[None, :] - torch.tensor(CX)[:, None] + 1).view(
         9, 1, W)
     groups = torch.tensor(sweep.GROUP)
 
-    def load(t):  # the input row of phase t, for the items that have one
+    def source(t):
+        """The items that load at phase t, and the cells of f0 (and mask)
+        their input row's columns come from."""
         act = t < inputs
+        y = ys - k + t                                # domain rows [n]
+        if shard is None:  # K2: the grid, wrapped
+            return act, y % ny, lx % nx
+        r, c = y + hk, lx + hk
+        used = act[:, None] & inside
+        assert ((r[:, None] >= 0) & (r[:, None] < f0.shape[2]) & (c >= 0)
+                & (c < f0.shape[3]))[used].all(), t
+        return act, r.clamp(0, f0.shape[2] - 1), c.clamp(0, f0.shape[3] - 1)
+
+    def load(t):  # the input row of phase t, for the items that have one
+        act, r, c = source(t)
         if not act.any():
             return None
-        r = (ys - k + t) % ny
-        vals = f0[:, :, r[:, None], gx].permute(2, 0, 1, 3)  # [n, 9, P, W]
+        vals = f0[:, :, r[:, None], c].permute(2, 0, 1, 3)  # [n, 9, P, W]
         row, slot = _rows(t, True, False)
         sel = (act[:, None] & inside)[:, None, None, :]
         ring_in[:, row, :, 1:-1] = torch.where(sel, vals,
                                                ring_in[:, row, :, 1:-1])
         tag_in[np.nonzero(act.numpy())[0][:, None], groups.numpy(), slot] = t
-        return r
+        return r, c
 
-    def put_mask(t, r):
-        if mask is None or r is None:
+    def put_mask(t, rc):
+        if mask is None or rc is None:
             return
+        r, c = rc
         act = (t < inputs)[:, None] & inside
         m = t % mask_rows
-        mring[:, m] = torch.where(act, mask[r[:, None], gx].to(torch.int8),
+        mring[:, m] = torch.where(act, mask[r[:, None], c].to(torch.int8),
                                   mring[:, m])
 
     def pulled(ring, tag, first, t, act):
@@ -180,8 +224,8 @@ def emulate(f0, k, slots, update, mask=None):
             lev, item = active.nonzero(as_tuple=True)
             batch = torch.cat(parts)[lev, item].transpose(0, 1)  # [9, B, P, W]
             batch = batch.transpose(1, 2)                 # [9, P, B, W]
-            y = ys[item] - k + t - 2 * (lev + 1)
-            gy = y % ny
+            y = ys[item] - k + t - 2 * (lev + 1)      # domain rows
+            gy = (y_off + y) % ny
             solid = None
             if mask is not None:
                 m = mring[item, (t - 2 * (lev + 1)) % mask_rows]
@@ -207,7 +251,7 @@ def emulate(f0, k, slots, update, mask=None):
                      groups.numpy(), slot] = t
             b = last.nonzero(as_tuple=True)[0]
             bb, cc = valid[b].nonzero(as_tuple=True)
-            yy, xx = y[b][bb], gx[item[b]][bb, cc]
+            yy, xx = y[b][bb], lx[item[b]][bb, cc]
             out[:, :, yy, xx] = new[:, :, b[bb], cc]
             written.index_put_((yy, xx), torch.ones_like(yy), accumulate=True)
         put_mask(t + D, r_next)
@@ -221,9 +265,13 @@ def _coords(gy, gx, ny, nx):
     return GridCoords(gy[:, None], gx, ny, nx)
 
 
+FLOW_KW = dict(omega=1.7, inlet_rho=1.003, outlet_rho=0.997)
+DIFFUSION_KW = dict(omega=1.6, u_lb=0.02, v_lb=-0.03, lb_G=0.02)
+NOISE_SEED, NOISE_DG = 11, 0.05
+
+
 def _flow_case(incompressible, obstacle):
-    kw = dict(omega=1.7, inlet_rho=1.003, outlet_rho=0.997,
-              incompressible=incompressible)
+    kw = dict(FLOW_KW, incompressible=incompressible)
 
     def update(ny, nx):
         def fn(p, gy, gx, stage, solid, valid):
@@ -237,8 +285,8 @@ def _flow_case(incompressible, obstacle):
 
 
 def _diffusion_case(noisy):
-    kw = dict(omega=1.6, u_lb=0.02, v_lb=-0.03, lb_G=0.02)
-    seed, dg = 11, 0.05
+    kw = DIFFUSION_KW
+    seed, dg = NOISE_SEED, NOISE_DG
 
     def update(ny, nx):
         if not noisy:
@@ -457,3 +505,98 @@ def test_plan(rows, cols, k, P, slots, want):
     assert pl.wo <= sweep.strip_width(P) - 2 * k
     assert (pl.strips - 1) * pl.wo < cols <= pl.strips * pl.wo
     assert (pl.segments - 1) * pl.seg < rows <= pl.segments * pl.seg
+
+
+# -- K9: the sweep on one shard of a grid, from its halo ---------------------
+
+# grids with ragged cuts, every shard narrower than one strip of 128 columns
+# (40x301 cut 2x2: two strips per shard); x wraps within the shard when it
+# spans the grid's width (cuts 2x1)
+HALO_GRIDS = ((37, 53), (30, 47))
+HALO_CUTS = ((2, 1), (1, 3), (2, 2))
+HALO_KS = (1, 4, 8)
+HALO_SLOTS = 6  # a few segments per shard: each has 2K warm-up rows
+HALO_FLOW_TOL = 5e-7  # the plain steps' flow on the region against the
+# grid's: the same per-cell operations, held below the parity bar
+
+
+def _halo_physics(case):
+    """K9's physics and its arguments for a case of CASES."""
+    if case.startswith("flow"):
+        return "flow", dict(FLOW_KW, incompressible="incompressible" in case)
+    if case == "diffusion":
+        return "diffusion", DIFFUSION_KW
+    return "noisy_fisher", dict(DIFFUSION_KW, lb_Dg=NOISE_DG, seed=NOISE_SEED)
+
+
+def _shards(f, mask, ny, nx, cut, k):
+    """Each shard of the ``cut`` of ``f [9, ny, nx]``: its place, its
+    ``k``-cell halo and its region's mask (or None)."""
+    for y0, x0, H, W in shard_cuts(ny, nx, *cut):
+        region = None if mask is None else cut_region(mask, y0, x0, H, W, k)
+        yield (y0, x0, H, W), Halo.cut(f, y0, x0, H, W, k), region
+
+
+def _emulate_shard(halo, k, fn, region, slots=HALO_SLOTS):
+    ext = halo.extended()
+    return emulate(ext.view(9, -1, *ext.shape[1:]), k, slots, fn, region,
+                   shard=(halo.y0, halo.x0, halo.ny, halo.nx, halo.width))
+
+
+HALO_GRID_CUTS = [(g, c) for g in HALO_GRIDS for c in HALO_CUTS]
+
+
+@pytest.mark.parametrize("grid,cut", HALO_GRID_CUTS + [((40, 301), (2, 2))],
+                         ids=lambda v: f"{v[0]}x{v[1]}")
+def test_halo_sweep_schedule(grid, cut):
+    """K9's sweep at every K: each kept cell of a shard pulls each
+    direction from the right cell of level s - 1 (global coordinates,
+    through the halo-extended region) and its mask, no strip reads past
+    the region, and the shard's cells are written once each."""
+    ny, nx = grid
+    Y = torch.arange(ny)[:, None]
+    X = torch.arange(nx)[None, :]
+    J = torch.arange(9)[:, None, None]
+    mask = torch.tensor((np.random.RandomState(1).rand(ny, nx) < 0.3
+                         ).astype(np.int32))
+    f0 = _code(0, J, 0, Y, X, 1, ny, nx).expand(9, ny, nx)
+    fn = _provenance(1, ny, nx, mask)
+    for k in range(1, sweep.max_k(1) + 1):
+        want = _code(k, J, 0, Y, X, 1, ny, nx).expand(9, ny, nx)
+        for (y0, x0, H, W), halo, region in _shards(f0, mask, ny, nx, cut, k):
+            got = _emulate_shard(halo, k, fn, region)
+            assert torch.equal(got[:, 0], want[:, y0:y0 + H, x0:x0 + W]), (
+                grid, cut, k, y0, x0)
+
+
+HALO_RUNS = [(case, g, c) for case in list(CASES)[:6] for g, c in
+             HALO_GRID_CUTS]
+
+
+@pytest.mark.parametrize("case,grid,cut", HALO_RUNS, ids=[
+    f"{case}-{g[0]}x{g[1]}-{c[0]}x{c[1]}" for case, g, c in HALO_RUNS])
+def test_halo_sweep_equals_twin_and_plain_steps(case, grid, cut):
+    """The emulated K9 sweep on each shard, at K = 1, 4 and 8, equals K9's
+    plain twin (``temporal_halo_step_reference``) and K plain steps of the
+    whole grid: flow within HALO_FLOW_TOL, diffusion and noisy Fisher bit
+    for bit."""
+    P, update, plain, obstacle = CASES[case]
+    physics, kw = _halo_physics(case)
+    ny, nx = grid
+    f0, mask = _state(case, P, ny, nx)
+    mask = mask if obstacle else None
+    fn = update(ny, nx)
+    want = {0: f0}
+    for k in range(1, max(HALO_KS) + 1):
+        want[k] = plain(want[k - 1], mask, STEP0 + k - 1)
+    tol = HALO_FLOW_TOL if physics == "flow" else 0.0
+    for k in HALO_KS:
+        for (y0, x0, H, W), halo, region in _shards(f0[:, 0], mask, ny, nx,
+                                                    cut, k):
+            got = _emulate_shard(halo, k, fn, region)[:, 0]
+            twin = temporal_halo_step_reference(halo, k, physics, mask=region,
+                                                step0=STEP0, **kw)
+            whole = want[k][:, 0, y0:y0 + H, x0:x0 + W]
+            for ref in (twin, whole):
+                d = float((got - ref).abs().max())
+                assert d <= tol, (case, grid, cut, k, y0, x0, d)

@@ -13,11 +13,10 @@ checkout's own models (``TEMPORAL_K``, ``DIFFUSION_TEMPORAL_K``,
 that each checkout's main path is timed as it runs: K2 flow 4096^2, K2
 velocity inlet 401^2, K2 diffusion and noisy Fisher 2048^2, K4 fisher
 2048^2 with F = 2 and K4 expansion 1024^2 with F = 3, K5 on a band of 4K
-rows of that Expansion; where the checkout has K9, K9 flow on the first
-2048 x 8192 shard of an 8192^2 grid (K = 3, the sharded main path's) and
-K9 noisy Fisher on a 1024^2 shard of a 2048^2 grid (K = 2), from random
-states, and K9's multifield physics on the first shard of each
-multifield model cut 2 x 2, at the model's K; K6 ``mc_density`` and
+rows of that Expansion; where the checkout has K9, K9 at the shards of
+the ``k9`` mode below at the checkout's ``HALO_TEMPORAL_K``, and K9's
+multifield physics on the first shard of each multifield model cut 2 x 2,
+at the model's K; K6 ``mc_density`` and
 ``mc_step`` on the 8192^2 porous two-fluid Shan-Chen runner of BASELINE
 config 5 with its hooks (the Shan-Chen interaction and the screened
 force's ext planes) and K7 per physics at the coupled models' shapes
@@ -39,7 +38,21 @@ the stochastic Fisher wave 2048^2 ``run(2000)``,
 ``run(2048)``; ``ksweep``, K2's and K4's ms per step at every K up to
 the checkout's limit, at the same shapes (copies of the checkout whose
 constants were changed, ``kCols`` and the like, timed in turns this way
-compare designs).
+compare designs); ``k9``, K9's flow, diffusion and noisy Fisher physics at
+the sharded main paths' shards (flow: the first 2048 x 8192 shard of a
+random 8192^2 state, the 4 x 1 cut; diffusion and noisy Fisher: the first
+1024^2 shard of the 2048^2 models' states, the 2 x 2 cut) at the
+checkout's ``HALO_TEMPORAL_K`` and per step at every K from 1 to 8, K2,
+K4 and K5 as in the default mode as the control, and the MLUPS
+of ``ShardedPipeFlow`` 8192^2 on 4 x 1 shards of one card beside the
+unsharded ``PipeFlow`` (``run(100, timed=True)``, median of three after a
+warm run); ``graph``, the kernels' own device time where a launch is
+short enough for the host's launch rate to show in the events' time: K9 at
+its 2 x 2 shards (and the velocity inlet's 100 x 401 shard), K7 per
+physics at the coupled models' shapes and K7h at the shards the sharded
+coupled models run, each by CUDA-graph replay (20 launches captured in one
+graph, the graph replayed 20 times between two events, five times) beside
+the same launches timed by events.
 """
 
 import json
@@ -120,34 +133,237 @@ def main():
         out.update(_k_sweeps())
         print(json.dumps(out), flush=True)
         return
+    if sys.argv[2:] == ["k9"]:
+        out.update(_k9_times())
+        print(json.dumps(out), flush=True)
+        return
+    if sys.argv[2:] == ["graph"]:
+        out.update(_graph_times())
+        print(json.dumps(out), flush=True)
+        return
     out.update(_k2_k4_times())
     if sys.argv[2:] == ["sweep"]:
         out.update(_sweep_mlups())
         print(json.dumps(out), flush=True)
         return
     try:
-        from lb2d_tpu_torch.ops.fused_halo import Halo, temporal_halo_step
+        from lb2d_tpu_torch.ops.fused_halo import (
+            HALO_TEMPORAL_K,
+            temporal_halo_step,
+        )
     except ImportError:  # a checkout from before K9
-        Halo = None
-    if Halo is not None:
-        for name, n, H, k, physics, kw in (
-                ("flow", 8192, 2048, 3, "flow",
-                 dict(omega=1.3, inlet_rho=1.003, outlet_rho=1.0,
-                      incompressible=False)),
-                ("noisy_fisher", 2048, 1024, 2, "noisy_fisher",
-                 dict(omega=1.7, u_lb=0.01, v_lb=-0.02, lb_G=0.01,
-                      lb_Dg=0.05, seed=3))):
-            g = torch.Generator(device="cuda").manual_seed(0)
-            f = (1 + 0.01 * torch.randn((9, n, n), device="cuda",
-                                        generator=g)) / 9
-            halo = Halo.cut(f, 0, 0, H, n if name == "flow" else H, k)
-            del f
+        HALO_TEMPORAL_K = None
+    if HALO_TEMPORAL_K is not None:
+        for physics, (cut, kw) in _k9_shards().items():
+            k = HALO_TEMPORAL_K[physics]
+            halo = cut(k)
             outb = torch.empty_like(halo.f)
-            out[f"K9 {name} {H}x{halo.f.shape[2]} shard K={k}"] = _median_ms(
-                lambda: temporal_halo_step(halo, outb, k, physics, **kw))
+            out[f"K9 {physics} {halo.f.shape[1]}x{halo.f.shape[2]} shard"] = (
+                _entry(_median_ms(lambda: temporal_halo_step(
+                    halo, outb, k, physics, **kw)), k))
+            del halo, outb
         out.update(_k9_multifield_times())
     out.update(_k6_k7_times())
     print(json.dumps(out), flush=True)
+
+
+def _graph_ms(launch, per_graph=20, replays=20, rounds=5):
+    """Device ms per launch by CUDA-graph replay: ``per_graph`` launches
+    captured in one graph (after a warm launch outside the capture), the
+    graph replayed ``replays`` times between two events; median of
+    ``rounds``."""
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            launch()
+    graph.replay()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / (replays * per_graph))
+    return sorted(times)[rounds // 2]
+
+
+SHARDED_8192 = dict(diameter=1.0, rho=1.0, viscosity=0.1,
+                    pressure_grad=-0.01, pipe_length=(8192 - 1.5) / 8191,
+                    N=8191)
+K9_FLOW = dict(omega=1.3, inlet_rho=1.003, outlet_rho=1.0,
+               incompressible=False)
+
+
+def _k9_shards():
+    """K9's flow, diffusion and noisy Fisher physics at the sharded main
+    paths' first shards: physics -> (halo cutter ``cut(k)``, arguments)."""
+    from lb2d_tpu_torch.ops.fused_halo import Halo
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    f = (1 + 0.01 * torch.randn((9, 8192, 8192), device="cuda",
+                                generator=g)) / 9
+    shards = {"flow": (lambda k, f=f: Halo.cut(f, 0, 0, 2048, 8192, k),
+                       K9_FLOW)}
+    for name, cls, cfg in (("diffusion", AdvectionDiffusion, ADVECTION),
+                           ("noisy_fisher",
+                            ReactionAdvectionDiffusionStochastic,
+                            STOCHASTIC)):
+        sim = cls(device="cuda", **cfg)
+        kw = sim.step_kwargs()
+        kw.pop("noisy", None)
+        state = sim.state
+        H, W = sim.ny // 2, sim.nx // 2
+        shards[name] = (lambda k, s=state, H=H, W=W: Halo.cut(s, 0, 0, H, W,
+                                                              k), kw)
+    return shards
+
+
+def _k9_times():
+    """K9's row-sweep physics at the main paths' shards (the checkout's
+    HALO_TEMPORAL_K, and per step at every K), K2, K4 and K5 as the
+    control, and ShardedPipeFlow 8192^2 4 x 1 beside PipeFlow (MLUPS)."""
+    from lb2d_tpu_torch.ops.fused_halo import (
+        HALO_TEMPORAL_K,
+        temporal_halo_step,
+    )
+    from lb2d_tpu_torch.parallel import ShardedPipeFlow, make_mesh
+
+    out = _k2_k4_times()
+    for physics, (cut, kw) in _k9_shards().items():
+        k = HALO_TEMPORAL_K[physics]
+        halo = cut(k)
+        H, W = halo.f.shape[1:]
+        outb = torch.empty_like(halo.f)
+        out[f"K9 {physics} {H}x{W} shard"] = _entry(_median_ms(
+            lambda: temporal_halo_step(halo, outb, k, physics, **kw)), k)
+        by_k = {}
+        for kk in range(1, 9):
+            halo = cut(kk)
+            by_k[kk] = _median_ms(
+                lambda: temporal_halo_step(halo, outb, kk, physics, **kw),
+                reps=30, rounds=3) / kk
+        out[f"K9 {physics} {H}x{W} shard per step by K"] = by_k
+        del halo, outb
+        torch.cuda.empty_cache()
+
+    def median_mlups(sim, n=100):
+        sim.run(n)  # warm
+        runs = []
+        for _ in range(3):
+            sim.run(n, timed=True)
+            runs.append(sim.last_mlups)
+        return sorted(runs)[1]
+
+    sh = ShardedPipeFlow(mesh=make_mesh(devices=["cuda"] * 4, shape=(4, 1)),
+                         **SHARDED_8192)
+    out["MLUPS ShardedPipeFlow 8192^2 4x1"] = median_mlups(sh)
+    out["ShardedPipeFlow K"] = sh.steps_per_call
+    del sh
+    torch.cuda.empty_cache()
+    out["MLUPS PipeFlow 8192^2"] = median_mlups(PipeFlow(device="cuda",
+                                                         **SHARDED_8192))
+    return out
+
+
+def _graph_times():
+    """K9 at its 2 x 2 shards, K7 and K7h: ms per launch by CUDA events
+    around host launches and by CUDA-graph replay."""
+    from lb2d_tpu_torch.ops.fused_coupled import (
+        coupled_density,
+        coupled_params,
+        coupled_step,
+        coupled_step_halo,
+    )
+    from lb2d_tpu_torch.ops.fused_halo import (
+        HALO_TEMPORAL_K,
+        Halo,
+        temporal_halo_step,
+    )
+
+    out = {}
+
+    def both(label, launch):
+        out[label] = {"events_ms": _median_ms(launch),
+                      "graph_ms": _graph_ms(launch)}
+
+    shards = _k9_shards()
+    del shards["flow"]
+    ks = _models_k()
+    for name, (cut, kw) in shards.items():
+        k = HALO_TEMPORAL_K[name]
+        halo = cut(k)
+        outb = torch.empty_like(halo.f)
+        both(f"K9 {name} {halo.f.shape[1]}^2 shard K={k}",
+             lambda: temporal_halo_step(halo, outb, k, name, **kw))
+    for name, cls, cfg in (("fisher", FisherExpansion, FISHER),
+                           ("expansion", Expansion, EXPANSION)):
+        sim = cls(device="cuda", **cfg)
+        kw = sim.step_kwargs()
+        physics = "multifield_" + kw.pop("physics")
+        F, k = sim.num_fields, ks[name]
+        H, W = sim.ny // 2, sim.nx // 2
+        halo = Halo.cut(sim.state.reshape(9 * F, sim.ny, sim.nx), 0, 0, H, W,
+                        k)
+        outb = torch.empty_like(halo.f)
+        both(f"K9 {physics} {H}^2 shard F={F} K={k}",
+             lambda: temporal_halo_step(halo, outb, k, physics, **kw))
+    from lb2d_tpu_torch.models import PipeFlowVelocityInlet
+
+    sim = PipeFlowVelocityInlet(device="cuda")
+    k = HALO_TEMPORAL_K["velocity_inlet"]
+    halo = Halo.cut(sim.state, 0, 0, sim.ny // 4, sim.nx, k)
+    outb = torch.empty_like(halo.f)
+    kw = dict(omega=sim.omega, u_w=sim.u_w, u_e=sim.u_e, outlet=sim.outlet,
+              incompressible=False)
+    both(f"K9 velocity_inlet {sim.ny // 4}x{sim.nx} shard K={k}",
+         lambda: temporal_halo_step(halo, outb, k, "velocity_inlet", **kw))
+    for model, mesh in _coupled_models(1024):
+        cfg = model.coupled_config()
+        f = model._fields4(model.state)
+        rho = coupled_density(f, torch.empty((cfg.fields, model.ny,
+                                              model.nx), device="cuda"))
+        ext = (model._velocity.planes(rho[0]) if model._velocity is not None
+               else None)
+        prm = coupled_params(cfg)
+        both(f"K7 {cfg.physics} {model.ny}^2", _ping_pong(
+            f, lambda a, b: coupled_step(a, b, rho, ext, cfg, prm)))
+        H, W = model.ny // mesh[0], model.nx // mesh[1]
+        halo = Halo.cut(f.reshape(9 * cfg.fields, model.ny, model.nx), 0, 0,
+                        H, W, 1)
+        outb = torch.empty_like(halo.f)
+        both(f"K7h {cfg.physics} {H}x{W} shard",
+             lambda: coupled_step_halo(halo, outb, rho, ext, cfg, prm))
+    return out
+
+
+def _coupled_models(n):
+    """The coupled models at ``n``^2 (the surfactant waves at ``n / 2`` when
+    ``n`` is 1024, as ``chip_smoke.py`` runs them), each with the mesh its
+    sharded run takes (rocket yeast 4 x 1, the others 2 x 2)."""
+    from lb2d_tpu_torch.models import (
+        ClumpySurfactantNutrientWave,
+        RocketYeast,
+        RocketYeastForcesOnly,
+        ScreenedFisherWave,
+        SurfactantNutrientWave,
+    )
+
+    coupled = dict(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=n)
+    waves = dict(coupled, N=n // 2 if n == 1024 else n)
+    rocket = dict(Lx=1.0, Ly=1.0, R0=0.2, epsilon=0.05, Gc=2.0, N=n,
+                  G_chen=-0.1)
+    return ((ScreenedFisherWave(device="cuda", **coupled), (2, 2)),
+            (SurfactantNutrientWave(device="cuda", **waves), (2, 2)),
+            (ClumpySurfactantNutrientWave(device="cuda", rho_o=1.0,
+                                          G_chen=-5.0, **waves), (2, 2)),
+            (RocketYeast(device="cuda", **rocket), (4, 1)),
+            (RocketYeastForcesOnly(device="cuda", c_o=0.25, alpha=2.0,
+                                   **rocket), (2, 2)))
 
 
 def _models_k():
@@ -433,13 +649,6 @@ def _path_mlups():
 def _k7_times(n):
     """K7 per physics on ``n``^2 models' states (the surfactant waves at
     ``n / 2`` when ``n`` is 1024, as ``chip_smoke.py`` runs them)."""
-    from lb2d_tpu_torch.models import (
-        ClumpySurfactantNutrientWave,
-        RocketYeast,
-        RocketYeastForcesOnly,
-        ScreenedFisherWave,
-        SurfactantNutrientWave,
-    )
     from lb2d_tpu_torch.ops.fused_coupled import (
         coupled_density,
         coupled_params,
@@ -447,17 +656,7 @@ def _k7_times(n):
     )
 
     out = {}
-    coupled = dict(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=n)
-    waves = dict(coupled, N=n // 2 if n == 1024 else n)
-    rocket = dict(Lx=1.0, Ly=1.0, R0=0.2, epsilon=0.05, Gc=2.0, N=n,
-                  G_chen=-0.1)
-    for model in (ScreenedFisherWave(device="cuda", **coupled),
-                  SurfactantNutrientWave(device="cuda", **waves),
-                  ClumpySurfactantNutrientWave(
-                      device="cuda", rho_o=1.0, G_chen=-5.0, **waves),
-                  RocketYeast(device="cuda", **rocket),
-                  RocketYeastForcesOnly(device="cuda", c_o=0.25, alpha=2.0,
-                                        **rocket)):
+    for model, _ in _coupled_models(n):
         cfg = model.coupled_config()
         f = model._fields4(model.state)
         rho = coupled_density(f, torch.empty((cfg.fields, model.ny,
