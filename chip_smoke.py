@@ -239,7 +239,10 @@ SMALL_STEPS = 20000  # 32x256: one K3 launch
 INLET_STEPS = 1000   # 401x401 velocity inlet: 334 K2 launches, or one K3
 DIFFUSION_STEPS = 2000  # 2048^2: run_all.py's step count
 RESIDENT_DIFFUSION_STEPS = 20000  # 256^2 and 512^2: one K3 launch each
-RESIDENT_CHECK_STEPS = (8, 9)  # both parities of the K3 buffer swap
+RESIDENT_CHECK_STEPS = (8, 9)  # both parities of K3's exchange slots
+# K3's ragged cuts: 4 bands in one cluster; 18 uneven bands through
+# scratch; rows too wide for bands, 128 strips of columns through scratch
+K3_RAGGED = ((31, 61), (133, 67), (16, 4096))
 FISHER_STEPS = 1000     # 2048^2 FisherExpansion
 EXPANSION_STEPS = 2048  # 1024^2 Expansion, profile_r4.py's step count
 BAND_LAUNCHES = 100     # K5 on the Expansion's seam band
@@ -470,6 +473,14 @@ def kernel_phase(main, small, cyl, inlet):
                 worst["K3"] = max(worst["K3"], _checked(
                     f"K3 vs plain 32x256 {tag}, {n} steps",
                     compare_k3(tiny, obstacle or None, n)))
+                for ny, nx in K3_RAGGED:
+                    f0, kw = _flow_inputs(ny, nx, eq == "incompressible",
+                                          obstacle)
+                    f = f0.clone()
+                    resident_pipe_run(f, torch.empty_like(f), n, **kw)
+                    worst["K3"] = max(worst["K3"], _checked(
+                        f"K3 vs plain {ny}x{nx} random {tag}, {n} steps",
+                        _max_diff(f, pipe_run_reference(f0, n, **kw))))
     n = f"{main.ny}x{main.nx} compressible"
     worst["K1"] = max(worst["K1"], _checked(
         f"K1 vs plain {n}, 4 steps", compare_k1(main, None)))
@@ -719,8 +730,14 @@ def compare_k3_diffusion(kw, f0, n):
     return _max_diff(f, diffusion_run_reference(f0, n, step0=STEP0, **kw))
 
 
-def compare_k3_velocity(sim, obstacle, outlet, incompressible, n):
-    f0, kw = _inputs(sim, obstacle)
+def compare_k3_velocity(sim, obstacle, outlet, incompressible, n,
+                        shape=None):
+    """K3's velocity inlet against its plain steps on ``sim``'s state, or
+    on a random state of ``shape`` with ``sim``'s constants."""
+    if shape is None:
+        f0, kw = _inputs(sim, obstacle)
+    else:
+        f0, kw = _flow_inputs(*shape, incompressible, obstacle)
     kw = dict(omega=sim.omega, u_w=sim.u_w, u_e=sim.u_e, outlet=outlet,
               incompressible=incompressible, mask=kw["mask"])
     f = f0.clone()
@@ -769,23 +786,29 @@ def diffusion_kernel_phase(adv, sto, wave, rad, inlet):
                     dict(kw, **_noise_of(sto, key)), rand, k), tol=0.0))
     for key, sim in (("K3d", rad), ("K3n", wave)):
         kw = sim.step_kwargs()
-        rand = _random_state(sim.ny, sim.nx)
+        noisy_kw = dict(kw, **_noise_of(sto, key))
         for n in RESIDENT_CHECK_STEPS:
+            # bit for bit, as K2: the update rounds every operation alone
             check(key, f"{key} vs plain {sim.ny}x{sim.nx} model state, n={n}",
-                  compare_k3_diffusion(kw, sim.state, n))
-            check(key, f"{key} vs plain {sim.ny}x{sim.nx} random rho, n={n}",
-                  compare_k3_diffusion(dict(kw, **_noise_of(sto, key)), rand,
-                                       n))
+                  compare_k3_diffusion(kw, sim.state, n), 0.0)
+            for ny, nx in ((sim.ny, sim.nx),) + K3_RAGGED:
+                check(key, f"{key} vs plain {ny}x{nx} random rho, n={n}",
+                      compare_k3_diffusion(noisy_kw, _random_state(ny, nx),
+                                           n), 0.0)
     for outlet in ("zero_gradient", "velocity"):
         for incompressible in (False, True):
             for obstacle in (False, True):
                 for n in RESIDENT_CHECK_STEPS:
-                    check("K3v", f"K3 velocity inlet vs plain "
-                          f"{inlet.ny}x{inlet.nx} outlet={outlet} "
-                          f"incompressible={incompressible} "
-                          f"obstacle={obstacle}, n={n}",
-                          compare_k3_velocity(inlet, obstacle or None, outlet,
-                                              incompressible, n))
+                    for shape in (None,) + K3_RAGGED:
+                        at = (f"{inlet.ny}x{inlet.nx}" if shape is None
+                              else f"{shape[0]}x{shape[1]} random")
+                        check("K3v", f"K3 velocity inlet vs plain {at} "
+                              f"outlet={outlet} "
+                              f"incompressible={incompressible} "
+                              f"obstacle={obstacle}, n={n}",
+                              compare_k3_velocity(inlet, obstacle or None,
+                                                  outlet, incompressible, n,
+                                                  shape))
     for step in (0, STEP0 + 4):
         check("P1", f"P1 vs plain {sto.ny}x{sto.nx} step {step} (words "
               "equal)", compare_normals(sto.rng_seed, step, sto.ny, sto.nx),

@@ -11,6 +11,17 @@ imports ``jax`` or anything of ``lb2d_tpu``; ``core`` holds its own copies
 of the JAX package's numpy-only lattice and unit modules.
 """
 
-from .core import D2Q9, FlowUnits, Lattice
+from .core import (
+    D2Q9,
+    D2Q25,
+    DiffusionUnits,
+    FlowUnits,
+    Lattice,
+    diffusive_scaling,
+    omega_from_lb_visc,
+)
 
-__all__ = ["D2Q9", "Lattice", "FlowUnits"]
+__version__ = "0.1.0"
+
+__all__ = ["D2Q9", "D2Q25", "Lattice", "FlowUnits", "DiffusionUnits",
+           "diffusive_scaling", "omega_from_lb_visc"]

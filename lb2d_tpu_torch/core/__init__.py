@@ -5,6 +5,12 @@ modules of ``lb2d_tpu.core``; the port imports nothing of the JAX package.
 """
 
 from .lattice import D2Q9, D2Q25, Lattice
-from .nondim import FlowUnits
+from .nondim import (
+    DiffusionUnits,
+    FlowUnits,
+    diffusive_scaling,
+    omega_from_lb_visc,
+)
 
-__all__ = ["D2Q9", "D2Q25", "Lattice", "FlowUnits"]
+__all__ = ["D2Q9", "D2Q25", "Lattice", "FlowUnits", "DiffusionUnits",
+           "diffusive_scaling", "omega_from_lb_visc"]

@@ -12,8 +12,11 @@ Backends, each a hand-written CUDA kernel of :mod:`lb2d_tpu_torch.ops.fused`
 on a CUDA device, at any ``ny x nx``:
 
 * ``"resident"`` (K3, :func:`~lb2d_tpu_torch.ops.fused.resident_diffusion_run`):
-  the whole ``run(n)`` in one launch. ``"auto"`` picks it on CUDA for grids
-  of up to ``RESIDENT_MAX_CELLS`` cells.
+  the whole ``run(n)`` in one launch, the grid held in shared memory (up
+  to about 790^2 cells, 16 x 4096 among the wide ones). ``"auto"`` picks
+  it on CUDA for grids of up to ``RESIDENT_MAX_CELLS`` cells
+  (``RESIDENT_MAX_CELLS_DIFFUSION`` without noise: there K2 wins at
+  724^2).
 * ``"temporal"`` (K2,
   :func:`~lb2d_tpu_torch.ops.fused.temporal_diffusion_step`): ``temporal_k``
   steps per launch and one shorter launch for the rest of ``run(n)``.
@@ -48,6 +51,7 @@ from ..ops.equilibrium import feq_linear
 from ..ops.fused import (
     diffusion_run_reference,
     resident_diffusion_run,
+    resident_scratch,
     supports_resident,
     temporal_diffusion_step,
 )
@@ -134,7 +138,8 @@ class PeriodicScalarModel(LBModel):
                              f"{self.dtype}; pass backend='eager' to run the "
                              "plain PyTorch step on the card")
         if backend == "auto":
-            return ("resident" if supports_resident(self.ny, self.nx)
+            physics = "noisy_fisher" if self.noisy else "diffusion"
+            return ("resident" if supports_resident(self.ny, self.nx, physics)
                     else "temporal")
         return backend
 
@@ -161,13 +166,15 @@ class PeriodicScalarModel(LBModel):
                                                **kw)
         else:
             _build.load_library()  # build now, outside any timed region
-            spare = [torch.empty_like(self.state)]
             if self.backend == "resident":
+                scratch = resident_scratch(self.state)
+
                 def run_n(f, n):  # K3, in place
                     return resident_diffusion_run(
-                        f, spare[0], n, step0=self.steps_taken, **kw)
+                        f, scratch, n, step0=self.steps_taken, **kw)
             else:
                 k_max = self.temporal_k
+                spare = [torch.empty_like(self.state)]
 
                 def run_n(f, n):  # K2 over two buffers
                     step = self.steps_taken

@@ -9,6 +9,7 @@ import torch
 from ..core import D2Q9
 from ..ops import _build
 from ..ops.fused import (
+    resident_scratch,
     resident_velocity_run,
     temporal_velocity_step,
     velocity_step_reference,
@@ -125,13 +126,15 @@ class PipeFlowVelocityInlet(LatticePipeFlow):
         kw = self._velocity_kwargs(
             None if self.obstacle_mask is None
             else self.obstacle_mask.to(torch.int32).contiguous())
-        spare = [torch.empty_like(self.state)]
         if self.backend == "resident":
+            scratch = resident_scratch(self.state)
+
             def run_resident(f, n):  # K3, in place
-                return resident_velocity_run(f, spare[0], n, **kw)
+                return resident_velocity_run(f, scratch, n, **kw)
 
             self._run_n = run_resident
             return lambda f: run_resident(f, 1)
+        spare = [torch.empty_like(self.state)]
 
         def step(f, k=1):
             out = temporal_velocity_step(f, spare[0], k, **kw)

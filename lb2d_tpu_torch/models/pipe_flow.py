@@ -7,9 +7,11 @@ Backends, each a hand-written CUDA kernel of :mod:`lb2d_tpu_torch.ops.fused`
 on a CUDA device, ping-ponging between two buffers, any ``ny x nx``:
 
 * ``"resident"`` (K3, :func:`~lb2d_tpu_torch.ops.fused.resident_pipe_run`):
-  the whole ``run(n)`` in one launch. ``"auto"`` picks it on CUDA for grids
-  of up to ``RESIDENT_MAX_CELLS`` cells, where the host's launch per step
-  would set the pace.
+  the whole ``run(n)`` in one launch, the grid held in shared memory (up
+  to about 790^2 cells, 16 x 4096 among the wide ones; a grid it cannot
+  hold raises when the backend is built). ``"auto"``
+  picks it on CUDA for grids of up to ``RESIDENT_MAX_CELLS`` cells, where
+  the host's launch per step would set the pace.
 * ``"temporal"`` (K2, :func:`~lb2d_tpu_torch.ops.fused.temporal_pipe_step`):
   ``TEMPORAL_K`` steps per pass over ``f``, the remainder of ``run(n)`` by
   K1. ``"auto"`` picks it on CUDA for larger grids.
@@ -35,6 +37,7 @@ from ..ops.fused import (
     pipe_step,
     pipe_step_reference,
     resident_pipe_run,
+    resident_scratch,
     supports_resident,
     temporal_pipe_step,
 )
@@ -212,13 +215,22 @@ class PipeFlow(LBModel):
         return lambda f: pipe_step_reference(f, mask=mask, **kw)
 
     def _make_kernel_step(self):
-        """The kernel backends over two buffers: each launch writes into the
-        buffer the previous one read, so ``run`` allocates nothing. Sets the
-        run hooks of :class:`LBModel` that the backend needs."""
+        """The kernel backends: K1 and K2 over two buffers, each launch
+        writing into the buffer the previous one read, K3 in place with its
+        exchange buffer, so ``run`` allocates nothing. Sets the run hooks of
+        :class:`LBModel` that the backend needs."""
         _build.load_library()  # build now, outside any timed region
         kw = self._step_kwargs()
         mask = (None if self.obstacle_mask is None
                 else self.obstacle_mask.to(torch.int32).contiguous())
+        if self.backend == "resident":
+            scratch = resident_scratch(self.state)
+
+            def run_n(f, n):  # K3, in place
+                return resident_pipe_run(f, scratch, n, mask=mask, **kw)
+
+            self._run_n = run_n
+            return lambda f: run_n(f, 1)
         spare = [torch.empty_like(self.state)]
 
         def one(f):  # K1
@@ -228,23 +240,16 @@ class PipeFlow(LBModel):
 
         if self.backend == "kernel":
             return one
-        if self.backend == "temporal":
-            k = TEMPORAL_K
+        k = TEMPORAL_K
 
-            def step_k(f):  # K2
-                out = temporal_pipe_step(f, spare[0], k, mask=mask, **kw)
-                spare[0] = f
-                return out
+        def step_k(f):  # K2
+            out = temporal_pipe_step(f, spare[0], k, mask=mask, **kw)
+            spare[0] = f
+            return out
 
-            self.steps_per_call = k
-            self._single_step = one
-            return step_k
-
-        def run_n(f, n):  # K3, in place
-            return resident_pipe_run(f, spare[0], n, mask=mask, **kw)
-
-        self._run_n = run_n
-        return lambda f: run_n(f, 1)
+        self.steps_per_call = k
+        self._single_step = one
+        return step_k
 
     def device_field(self, name):
         """One 2-D field (``"rho"``, ``"u"`` or ``"v"``) as a device tensor

@@ -139,16 +139,17 @@ _ENTRY_POINTS = {
     # step0, stream
     "lb2d_temporal_diffusion_step": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
                                      _I, _U, _U, _ULL, _P],
-    # f, scratch, mask, ny, nx, n, omega, rho in/out, incomp., stream
-    "lb2d_resident_run": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P],
-    # f, scratch, mask, ny, nx, n, omega, u_w, u_e, velocity outlet,
-    # incompressible, stream
-    "lb2d_resident_velocity_run": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I,
-                                   _P],
-    # f, scratch, ny, nx, n, omega, u, v, G, Dg, noisy, key0, key1, step0,
-    # stream
-    "lb2d_resident_diffusion_run": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
-                                    _I, _U, _U, _ULL, _P],
+    # f, scratch, scratch floats, mask, ny, nx, n, strip, bands,
+    # cluster, omega, rho in/out, incomp., stream
+    "lb2d_resident_run": [_P, _P, _LL, _P] + [_I] * 6 + [_F, _F, _F, _I, _P],
+    # f, scratch, scratch floats, mask, ny, nx, n, strip, bands, cluster,
+    # omega, u_w, u_e, velocity outlet, incompressible, stream
+    "lb2d_resident_velocity_run": [_P, _P, _LL, _P] + [_I] * 6
+                                  + [_F, _F, _F, _I, _I, _P],
+    # f, scratch, scratch floats, ny, nx, n, strip, bands, cluster, omega, u,
+    # v, G, Dg, noisy, key0, key1, step0, stream
+    "lb2d_resident_diffusion_run": [_P, _P, _LL] + [_I] * 6 + [_F] * 5
+                                   + [_I, _U, _U, _ULL, _P],
     # f_in, f_out, ny, nx, fields, k_steps, expansion, params, stream
     "lb2d_temporal_multifield_step": [_P, _P, _I, _I, _I, _I, _I,
                                       MultifieldParams, _P],

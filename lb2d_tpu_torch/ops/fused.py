@@ -15,7 +15,10 @@ port of a Pallas kernel of ``lb2d_tpu.ops.fused``:
   with a K-cell halo, the first K2's loop, which is faster than the row
   sweep at the inlet's 401^2.
 * :func:`resident_pipe_run` (``csrc/resident_run.cu``, K3): ``n`` steps in
-  one launch; ports ``make_resident_pipe_step`` (``physics="flow"``).
+  one launch, the grid held in the shared memory of persistent blocks, one
+  band of rows each, which exchange halo rows with their two neighbours
+  alone (:mod:`~lb2d_tpu_torch.ops.resident_plan`); ports
+  ``make_resident_pipe_step`` (``physics="flow"``).
   :func:`resident_velocity_run` launches it with the velocity-inlet BCs
   (``physics="velocity_inlet"``).
 
@@ -74,6 +77,7 @@ from .boundary import (
 )
 from .collide import bgk
 from .equilibrium import feq_incompressible, feq_linear, feq_quadratic
+from . import resident_plan
 from .random import (
     normals_reference,
     philox_key,
@@ -93,19 +97,77 @@ __all__ = ["pipe_step", "pipe_step_reference", "pipe_run_reference",
            "expansion_step_reference", "multifield_run_reference",
            "expansion_band_reference", "temporal_multifield_step",
            "expansion_band_step", "multifield_max_k", "band_max_k",
-           "MAX_TEMPORAL_K", "MAX_MULTIFIELD_FIELDS", "RESIDENT_MAX_CELLS"]
+           "MAX_TEMPORAL_K", "MAX_MULTIFIELD_FIELDS", "RESIDENT_MAX_CELLS",
+           "RESIDENT_MAX_CELLS_DIFFUSION", "resident_scratch"]
 
 MAX_TEMPORAL_K = _sweep_max_k(1)  # K2's rings fit one block's shared memory
-# K3 keeps f and its scratch buffer (72 B/cell together) in the 50 MB L2;
-# on an H100 it beats K2 up to 724^2 and loses at 1024^2
+# K3 holds the grid in shared memory up to about 790^2 (resident_plan). On
+# an H100 80GB HBM3 at 700 W, ms per 1000 steps through the models (K3 /
+# K2, tools/time_tile_kernels.py k3; PERF.md): K3 wins at every size from
+# 32x256 to 724^2, and at 16x4096, for flow (724^2: 14.9 / 17.1), noisy
+# Fisher (12.8 / 14.6) and the velocity inlet (13.0 / 18.6); for diffusion
+# up to 512^2 (4.4 / 4.9), and K2 takes 724^2 (7.0-7.6 / 6.9-7.1)
 RESIDENT_MAX_CELLS = 1 << 19
+RESIDENT_MAX_CELLS_DIFFUSION = 1 << 18
 MAX_MULTIFIELD_FIELDS = 8  # K4 and K5 hold rings of 9F planes of a strip
 
 
-def supports_resident(ny: int, nx: int) -> bool:
-    """Whether the one-launch run (K3) is the fast path for this grid: both
-    buffers fit in L2."""
-    return ny * nx <= RESIDENT_MAX_CELLS
+def supports_resident(ny: int, nx: int, physics: str = "flow") -> bool:
+    """Whether the one-launch run (K3) is the fast path for this grid and
+    physics (``"flow"``, ``"velocity_inlet"``, ``"diffusion"`` or
+    ``"noisy_fisher"``): K3 holds it
+    (:func:`~lb2d_tpu_torch.ops.resident_plan.plan` on this card) and it
+    has at most ``RESIDENT_MAX_CELLS`` cells, ``RESIDENT_MAX_CELLS_DIFFUSION``
+    for ``"diffusion"``, where K2 runs 8 steps a launch."""
+    most = (RESIDENT_MAX_CELLS_DIFFUSION if physics == "diffusion"
+            else RESIDENT_MAX_CELLS)
+    return (ny * nx <= most
+            and resident_plan.plan(ny, nx, sms=_sm_count(None)) is not None)
+
+
+def _sm_count(device) -> int:
+    """The SMs of ``device`` (the current CUDA device for None), or the
+    H100's where there is no CUDA device."""
+    if not torch.cuda.is_available():
+        return resident_plan.H100_SMS
+    return torch.cuda.get_device_properties(
+        device or torch.cuda.current_device()).multi_processor_count
+
+
+def resident_scratch(f: torch.Tensor) -> torch.Tensor:
+    """The exchange buffer of K3's run on ``f`` (``[9, ny, nx]`` on CUDA):
+    the floats of scratch its plan needs (none where every edge stays in
+    one cluster). Raises where K3 cannot hold the grid."""
+    return torch.empty(_resident_plan(f).exchange, dtype=torch.float32,
+                       device=f.device)
+
+
+def _resident_plan(f: torch.Tensor, scratch: torch.Tensor | None = None
+                   ) -> resident_plan.ResidentPlan:
+    """K3's plan for ``f``; raises where K3 cannot hold the grid, or where
+    ``scratch`` is given and smaller than the plan's exchange."""
+    _, ny, nx = f.shape
+    p = resident_plan.plan(ny, nx, sms=_sm_count(f.device))
+    if p is None:
+        raise ValueError(f"K3 cannot hold a {ny}x{nx} grid in shared memory "
+                         "(resident_plan.plan); run it with K2")
+    if scratch is not None and scratch.numel() < p.exchange:
+        raise ValueError(f"scratch holds {scratch.numel()} floats; K3's "
+                         f"exchange on a {ny}x{nx} grid needs {p.exchange} "
+                         "(resident_scratch)")
+    return p
+
+
+def _check_resident(f: torch.Tensor, scratch: torch.Tensor, mask):
+    """``f`` and ``mask`` as :func:`_check` takes them; ``scratch`` a
+    contiguous float32 tensor on ``f``'s device, not ``f``."""
+    _check_state("f", f)
+    _check_mask(f, mask)
+    if (scratch.dtype != torch.float32 or scratch.device != f.device
+            or not scratch.is_contiguous()):
+        raise ValueError("scratch must be contiguous float32 on f's device")
+    if scratch.numel() and scratch.data_ptr() == f.data_ptr():
+        raise ValueError("scratch must be a distinct tensor")
 
 
 def pipe_step_reference(f: torch.Tensor, omega, inlet_rho, outlet_rho, *,
@@ -367,14 +429,16 @@ temporal_velocity_step.launches = 0
 def resident_pipe_run(f: torch.Tensor, scratch: torch.Tensor, n: int, omega,
                       inlet_rho, outlet_rho, *, incompressible: bool,
                       mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Advance ``f`` by ``n`` steps in place and return it; ``scratch`` is a
-    second buffer of ``f``'s shape whose contents are overwritten.
+    """Advance ``f`` by ``n`` steps in place and return it; ``scratch`` is
+    float32 on ``f``'s device, K3's exchange buffer, whose contents are
+    overwritten: on CUDA at least :func:`resident_scratch`'s floats (a
+    grid in one cluster needs none), unused on the CPU.
 
     On CUDA tensors this is one launch of K3 for any ``n >= 1`` (counted in
     ``resident_pipe_run.launches``); on CPU tensors it runs
     :func:`pipe_run_reference`. ``n == 0`` launches nothing.
     """
-    _check(f, scratch, mask)
+    _check_resident(f, scratch, mask)
     n = _check_n(n)
     if f.device.type == "cpu":
         f.copy_(pipe_run_reference(f, n, omega, inlet_rho, outlet_rho,
@@ -382,8 +446,9 @@ def resident_pipe_run(f: torch.Tensor, scratch: torch.Tensor, n: int, omega,
         return f
     if n == 0:
         return f
-    _, ny, nx = f.shape
-    _launch("lb2d_resident_run", f, scratch, mask, ny, nx, n, float(omega),
+    p = _resident_plan(f, scratch)
+    _launch("lb2d_resident_run", f, scratch, scratch.numel(), mask, p.ny,
+            p.nx, n, int(p.strip), p.bands, p.cluster, float(omega),
             float(inlet_rho), float(outlet_rho), int(bool(incompressible)))
     resident_pipe_run.launches += 1
     return f
@@ -404,7 +469,7 @@ def resident_velocity_run(f: torch.Tensor, scratch: torch.Tensor, n: int,
     ``n >= 1`` (counted in ``resident_velocity_run.launches``); on CPU
     tensors it runs :func:`velocity_step_reference` ``n`` times.
     """
-    _check(f, scratch, mask)
+    _check_resident(f, scratch, mask)
     _check_outlet(outlet)
     n = _check_n(n)
     if f.device.type == "cpu":
@@ -417,9 +482,10 @@ def resident_velocity_run(f: torch.Tensor, scratch: torch.Tensor, n: int,
         return f
     if n == 0:
         return f
-    _, ny, nx = f.shape
-    _launch("lb2d_resident_velocity_run", f, scratch, mask, ny, nx, n,
-            float(omega), float(u_w), float(u_e), int(outlet == "velocity"),
+    p = _resident_plan(f, scratch)
+    _launch("lb2d_resident_velocity_run", f, scratch, scratch.numel(), mask,
+            p.ny, p.nx, n, int(p.strip), p.bands, p.cluster, float(omega),
+            float(u_w), float(u_e), int(outlet == "velocity"),
             int(bool(incompressible)))
     resident_velocity_run.launches += 1
     return f
@@ -473,7 +539,7 @@ def resident_diffusion_run(f: torch.Tensor, scratch: torch.Tensor, n: int,
     ``resident_diffusion_run.launches``); on CPU tensors it runs
     :func:`diffusion_run_reference`. ``n == 0`` launches nothing.
     """
-    _check(f, scratch, None)
+    _check_resident(f, scratch, None)
     n = _check_n(n)
     step0 = _check_step0(step0, n)
     if f.device.type == "cpu":
@@ -482,8 +548,9 @@ def resident_diffusion_run(f: torch.Tensor, scratch: torch.Tensor, n: int,
         return f
     if n == 0:
         return f
-    _, ny, nx = f.shape
-    _launch("lb2d_resident_diffusion_run", f, scratch, ny, nx, n,
+    p = _resident_plan(f, scratch)
+    _launch("lb2d_resident_diffusion_run", f, scratch, scratch.numel(), p.ny,
+            p.nx, n, int(p.strip), p.bands, p.cluster,
             *_diffusion_args(omega, u_lb, v_lb, lb_G, lb_Dg, noisy, seed,
                              step0))
     resident_diffusion_run.launches += 1
@@ -883,20 +950,28 @@ def _check_outlet(outlet):
 
 def _check(f_in, f_out, mask):
     for name, t in (("f_in", f_in), ("f_out", f_out)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.dim() != 3 or t.shape[0] != 9:
-            raise ValueError(f"{name} must be [9, ny, nx], got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        _check_state(name, t)
     if f_out.shape != f_in.shape or f_out.device != f_in.device:
         raise ValueError("f_out must match f_in in shape and device")
     if f_out.data_ptr() == f_in.data_ptr():
         raise ValueError("f_out must be a distinct tensor (the step is out "
                          "of place)")
+    _check_mask(f_in, mask)
+
+
+def _check_state(name, t):
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dim() != 3 or t.shape[0] != 9:
+        raise ValueError(f"{name} must be [9, ny, nx], got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_mask(f, mask):
     if mask is not None:
-        if mask.dtype != torch.int32 or tuple(mask.shape) != tuple(f_in.shape[1:]):
-            raise ValueError(f"mask must be int32 {tuple(f_in.shape[1:])}, got "
+        if mask.dtype != torch.int32 or tuple(mask.shape) != tuple(f.shape[1:]):
+            raise ValueError(f"mask must be int32 {tuple(f.shape[1:])}, got "
                              f"{mask.dtype} {tuple(mask.shape)}")
-        if mask.device != f_in.device or not mask.is_contiguous():
+        if mask.device != f.device or not mask.is_contiguous():
             raise ValueError("mask must be contiguous on f_in's device")

@@ -20,7 +20,8 @@ version at 1e-5 of max |g| (two FFTs in float32, the kernel's sums in
 another order), at any grid; its 1-D pass to ``torch.fft.fft`` at 1e-6 of
 the scale. K7, the coupled families' step, is held to its plain steps at
 1e-6 after 5 steps (FMA contraction), and BASELINE config 5 through K6 +
-K8 to the eager runner. K9, the step of one shard from its halos, is held
+K8 to the eager runner. K3, the one-launch run, holds its diffusion family to the plain steps bit
+for bit on every cut. K9, the step of one shard from its halos, is held
 to its plain twin at 1e-6 for the flow physics and at 0 for the diffusion
 and multifield physics, on shards of an unaligned grid, and the sharded
 models to the unsharded K2 / K4 runs (1e-6 for flow, 0 for the rest).
@@ -78,6 +79,7 @@ from lb2d_tpu_torch.ops.fused import (
     pipe_step_reference,
     resident_diffusion_run,
     resident_pipe_run,
+    resident_scratch,
     resident_velocity_run,
     temporal_diffusion_step,
     temporal_multifield_step,
@@ -92,6 +94,7 @@ from lb2d_tpu_torch.ops.fused_coupled import (
     coupled_step,
     coupled_step_reference,
 )
+from lb2d_tpu_torch.ops import resident_plan
 from lb2d_tpu_torch.ops.fused_halo import (
     HALO_SWEEP_PHYSICS,
     temporal_halo_step,
@@ -219,9 +222,17 @@ def test_temporal_velocity_kernel_matches_reference(cuda, equilibrium,
     assert d <= TOL, d
 
 
-@pytest.mark.parametrize("shape", [(32, 256), (31, 61), (5, 7)],
-                         ids=["32x256", "31x61", "5x7"])
-@pytest.mark.parametrize("n", [1, 8, 9])
+# K3's cuts (ops/resident_plan.py): 32x256 one cluster of 16 bands, 31x61
+# one of 4, 5x7 one band that is its own neighbour, 133x67 18 uneven bands
+# through scratch, 724^2 the largest grid auto sends to K3 (132 bands)
+K3_SHAPES = [(32, 256), (31, 61), (5, 7), (133, 67)]
+K3_IDS = [f"{ny}x{nx}" for ny, nx in K3_SHAPES]
+K3_NS = [1, 2, 8, 9]
+
+
+@pytest.mark.parametrize("shape", K3_SHAPES + [(724, 724)],
+                         ids=K3_IDS + ["724x724"])
+@pytest.mark.parametrize("n", K3_NS)
 @pytest.mark.parametrize("equilibrium,obstacle", VARIANTS, ids=IDS)
 def test_resident_kernel_matches_reference(cuda, equilibrium, obstacle, n,
                                            shape):
@@ -300,11 +311,12 @@ def test_temporal_diffusion_kernel_matches_reference(cuda, physics, k,
     assert torch.equal(out, want), float((out - want).abs().max())
 
 
-@pytest.mark.parametrize("shape", [(256, 256), (31, 61)],
-                         ids=["256x256", "31x61"])
-@pytest.mark.parametrize("n", [8, 9])
+@pytest.mark.parametrize("shape", K3_SHAPES + [(256, 256), (724, 724)],
+                         ids=K3_IDS + ["256x256", "724x724"])
+@pytest.mark.parametrize("n", K3_NS)
 @pytest.mark.parametrize("physics", list(PHYSICS))
 def test_resident_diffusion_kernel_matches_reference(cuda, physics, n, shape):
+    """Bit for bit: the diffusion update rounds each operation alone."""
     f = _diffusion_inputs(cuda, shape)
     kw = dict(DIFFUSION, **PHYSICS[physics])
     g = f.clone()
@@ -313,13 +325,11 @@ def test_resident_diffusion_kernel_matches_reference(cuda, physics, n, shape):
     want = diffusion_run_reference(f, n, **kw)
     torch.cuda.synchronize()
     assert resident_diffusion_run.launches == before + 1
-    d = float((g - want).abs().max())
-    assert d <= TOL, d
+    assert torch.equal(g, want), float((g - want).abs().max())
 
 
-@pytest.mark.parametrize("shape", [(32, 256), (31, 61)],
-                         ids=["32x256", "31x61"])
-@pytest.mark.parametrize("n", [8, 9])
+@pytest.mark.parametrize("shape", K3_SHAPES, ids=K3_IDS)
+@pytest.mark.parametrize("n", K3_NS)
 @pytest.mark.parametrize("outlet", ["zero_gradient", "velocity"])
 @pytest.mark.parametrize("equilibrium,obstacle", VARIANTS, ids=IDS)
 def test_resident_velocity_kernel_matches_reference(cuda, equilibrium,
@@ -338,6 +348,97 @@ def test_resident_velocity_kernel_matches_reference(cuda, equilibrium,
     assert resident_velocity_run.launches == before + 1
     d = float((g - want).abs().max())
     assert d <= TOL, d
+
+
+@pytest.mark.parametrize("layout,cluster", [
+    ("rows", 1), ("rows", 9), ("columns", None), ("columns", 1)],
+    ids=["rows-scratch", "rows-clusters", "columns", "columns-scratch"])
+@pytest.mark.parametrize("shape", K3_SHAPES, ids=K3_IDS)
+@pytest.mark.parametrize("physics", ["flow", "velocity_inlet", "diffusion",
+                                     "noisy_fisher"])
+def test_resident_kernel_other_plans(cuda, monkeypatch, physics, shape,
+                                     layout, cluster):
+    """K3's other plans, 9 steps: no clusters (every edge through
+    scratch), clusters of the largest divisor of the bands up to 9 (31x61
+    and 32x256 in clusters of 4 and 8, 133x67's 18 bands in two of 9
+    with scratch between them), and strips of columns (the layout of rows
+    too wide, here on small grids: one strip of 5x7, 133x67's 67 columns
+    in 18 strips through scratch) as the plan cuts them or with no
+    clusters."""
+    def other(ny, nx, sms=resident_plan.H100_SMS):
+        p = resident_plan.cut(ny, nx, layout == "columns", sms)
+        c = (p.cluster if cluster is None else
+             max(c for c in range(1, min(cluster, p.bands) + 1)
+                 if p.bands % c == 0))
+        return p._replace(
+            cluster=c, smem=resident_plan.smem_bytes(p.rows, p.length,
+                                                     p.bands, c),
+            exchange=(resident_plan.exchange_floats(p.bands, p.length)
+                      if p.bands > c else 0))
+
+    monkeypatch.setattr(resident_plan, "plan", other)
+    _check_resident(cuda, physics, shape, 9)
+
+
+def _check_resident(device, physics, shape, n):
+    """K3 against its plain steps on ``shape``, ``n`` steps: the diffusion
+    family bit for bit, noise on; flow and the zero-gradient inlet with
+    the incompressible equilibrium and an obstacle."""
+    if physics in PHYSICS:
+        f = _diffusion_inputs(device, shape)
+        kw = dict(DIFFUSION, **PHYSICS[physics])
+        g = f.clone()
+        resident_diffusion_run(g, resident_scratch(g), n, **kw)
+        want = diffusion_run_reference(f, n, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(g, want), float((g - want).abs().max())
+        return
+    f, kw = _inputs(device, shape, "incompressible", True)
+    g = f.clone()
+    if physics == "flow":
+        resident_pipe_run(g, resident_scratch(g), n, **kw)
+        want = pipe_run_reference(f, n, **kw)
+    else:
+        kw = dict(kw, outlet="zero_gradient", u_w=0.05, u_e=0.04)
+        del kw["inlet_rho"], kw["outlet_rho"]
+        resident_velocity_run(g, resident_scratch(g), n, **kw)
+        want = f
+        for _ in range(n):
+            want = velocity_step_reference(want, **kw)
+    torch.cuda.synchronize()
+    d = float((g - want).abs().max())
+    assert d <= TOL, d
+
+
+# rows wider than a block's 2048 cells: the plan's strips of columns (128
+# strips through scratch at 16x4096, 21 uneven ones at 5x2053)
+K3_WIDE = [(16, 4096), (5, 2053)]
+
+
+@pytest.mark.parametrize("n", [1, 8, 9])
+@pytest.mark.parametrize("shape", K3_WIDE,
+                         ids=[f"{ny}x{nx}" for ny, nx in K3_WIDE])
+@pytest.mark.parametrize("physics", ["flow", "velocity_inlet", "diffusion",
+                                     "noisy_fisher"])
+def test_resident_kernel_wide_rows(cuda, physics, shape, n):
+    assert resident_plan.plan(*shape).strip
+    _check_resident(cuda, physics, shape, n)
+
+
+def test_resident_scratch_is_the_plans_exchange(cuda):
+    """The wrappers take the exchange buffer at the plan's size, and raise
+    on a smaller one or a grid that no cut holds (1024^2's state is more
+    than the card's shared memory)."""
+    f = _diffusion_inputs(cuda, (133, 67))
+    p = resident_plan.plan(133, 67)
+    assert resident_scratch(f).numel() == p.exchange > 0
+    assert resident_scratch(_diffusion_inputs(cuda, (32, 256))).numel() == 0
+    with pytest.raises(ValueError, match="exchange"):
+        resident_diffusion_run(f, torch.empty(p.exchange - 1, device=cuda), 2,
+                               **DIFFUSION)
+    big = torch.zeros((9, 1024, 1024), device=cuda)
+    with pytest.raises(ValueError, match="cannot hold"):
+        resident_diffusion_run(big, torch.empty_like(big), 2, **DIFFUSION)
 
 
 @pytest.mark.parametrize("step", [0, 5, 2**32 + 1])

@@ -52,7 +52,19 @@ its 2 x 2 shards (and the velocity inlet's 100 x 401 shard), K7 per
 physics at the coupled models' shapes and K7h at the shards the sharded
 coupled models run, each by CUDA-graph replay (20 launches captured in one
 graph, the graph replayed 20 times between two events, five times) beside
-the same launches timed by events.
+the same launches timed by events; ``k3``, K3 per physics at its main
+path's shape (ms per 1000-step launch, CUDA events, median of three runs
+of five launches): ``PipeFlow`` 32 x 256, ``NoisyAdvectedFisherWave``
+256^2, ``ReactionAdvectionDiffusion`` 512^2 and ``PipeFlowVelocityInlet``
+401^2 on the models' states; then the size sweep, each physics at 32 x
+256, 128^2, 256^2, 362^2, 401^2, 512^2, 724^2 and 16 x 4096 through the model's
+``run(1000, timed=True)`` with ``backend="resident"`` (K3) and
+``"temporal"`` (K2 at the model's K), as ms per 1000 steps (median of
+three after a warm ``run(100)``; the diffusion models make only square
+grids, so at 32 x 256 and 16 x 4096 the two wrappers run the same 1000
+steps between CUDA events); and the control:
+K1 at 4096^2, K2, K4 and K5 as in the default mode, and K9 ``flow`` at the
+2048 x 8192 shard.
 """
 
 import json
@@ -141,6 +153,10 @@ def main():
         out.update(_graph_times())
         print(json.dumps(out), flush=True)
         return
+    if sys.argv[2:] == ["k3"]:
+        out.update(_k3_times())
+        print(json.dumps(out), flush=True)
+        return
     out.update(_k2_k4_times())
     if sys.argv[2:] == ["sweep"]:
         out.update(_sweep_mlups())
@@ -165,6 +181,160 @@ def main():
         out.update(_k9_multifield_times())
     out.update(_k6_k7_times())
     print(json.dumps(out), flush=True)
+
+
+K3_SWEEP = ((32, 256), (128, 128), (256, 256), (362, 362), (401, 401),
+            (512, 512), (724, 724), (16, 4096))
+K3_STEPS = 1000
+POISEUILLE = dict(diameter=1.5, rho=10.0, viscosity=5.0,
+                  pressure_grad=-100.0)  # chip_smoke.py's 32 x 256
+REACTION = dict(g=5.0, z=0.1, D=0.01, vx=1.0, vy=0.5, vc=1.0)
+NOISY_WAVE = dict(z=0.1, D=1.0, g=50.0, Nc=10.0)
+
+
+def _k3_model(physics, ny, nx, backend):
+    """The model of ``physics`` on an ``ny x nx`` grid (None where the
+    model makes no such grid)."""
+    from lb2d_tpu_torch.models import (
+        NoisyAdvectedFisherWave,
+        PipeFlowVelocityInlet,
+        ReactionAdvectionDiffusion,
+    )
+
+    if physics == "flow":
+        N = ny - 1
+        return PipeFlow(device="cuda", backend=backend, N=N,
+                        pipe_length=1.5 * (nx - 1.5) / N, **POISEUILLE)
+    if physics == "velocity_inlet":
+        return PipeFlowVelocityInlet(device="cuda", backend=backend,
+                                     lx=nx - 1, ly=ny - 1)
+    if ny != nx:
+        return None
+    cls, cfg = ((ReactionAdvectionDiffusion, REACTION)
+                if physics == "diffusion"
+                else (NoisyAdvectedFisherWave, NOISY_WAVE))
+    return cls(device="cuda", backend=backend, N=ny - 2, Lx=0.101, Ly=0.101,
+               **cfg)
+
+
+def _k3_launch(physics, sim):
+    """One 1000-step K3 launch on a copy of ``sim``'s state."""
+    from lb2d_tpu_torch.ops.fused import (
+        resident_diffusion_run,
+        resident_pipe_run,
+        resident_velocity_run,
+    )
+
+    from lb2d_tpu_torch.ops import fused
+
+    f = sim.state.clone()
+    # the exchange buffer at the plan's size; a parent's K3 takes a second
+    # state
+    scratch = getattr(fused, "resident_scratch", torch.empty_like)(f)
+    if physics == "flow":
+        kw = dict(omega=sim.omega, inlet_rho=sim.inlet_rho,
+                  outlet_rho=sim.outlet_rho, incompressible=False)
+        return lambda: resident_pipe_run(f, scratch, K3_STEPS, **kw)
+    if physics == "velocity_inlet":
+        kw = dict(omega=sim.omega, u_w=sim.u_w, u_e=sim.u_e,
+                  outlet=sim.outlet, incompressible=False)
+        return lambda: resident_velocity_run(f, scratch, K3_STEPS, **kw)
+    kw = sim.step_kwargs()
+    return lambda: resident_diffusion_run(f, scratch, K3_STEPS, **kw)
+
+
+def _k3_times():
+    """K3 at the main paths' shapes, the size sweep of K3 against K2
+    through the models, and the control (K1, K2, K4, K5, K9 flow)."""
+    from lb2d_tpu_torch.ops import fused
+    from lb2d_tpu_torch.ops.fused import (
+        pipe_step,
+        resident_diffusion_run,
+        temporal_diffusion_step,
+    )
+
+    out = {}
+    main = {"flow": (32, 256), "noisy_fisher": (256, 256),
+            "diffusion": (512, 512), "velocity_inlet": (401, 401)}
+    for physics, (ny, nx) in main.items():
+        sim = _k3_model(physics, ny, nx, "auto")
+        out[f"K3 {physics} {ny}x{nx} ms per launch of {K3_STEPS}"] = (
+            _median_ms(_k3_launch(physics, sim), reps=5, rounds=3))
+        del sim
+
+    def run_ms(sim):
+        sim.run(100)  # warm
+        runs = []
+        for _ in range(3):
+            sim.run(K3_STEPS, timed=True)
+            runs.append(sim.ny * sim.nx * K3_STEPS
+                        / (sim.last_mlups * 1e6) * 1e3)
+        return sorted(runs)[1]
+
+    ks = _models_k()
+    sweep = {}
+    for physics in main:
+        for ny, nx in K3_SWEEP:
+            row = {}
+            for backend in ("resident", "temporal"):
+                try:
+                    sim = _k3_model(physics, ny, nx, backend)
+                    if sim is not None:
+                        row[backend] = run_ms(sim)
+                        del sim
+                except ValueError as err:  # a grid this checkout's K3
+                    row[backend] = str(err)  # cannot hold
+            if not row:  # the diffusion family at 32 x 256: the wrappers
+                g = torch.Generator(device="cuda").manual_seed(0)
+                rho = 0.1 + 0.8 * torch.rand((ny, nx), device="cuda",
+                                             generator=g)
+                w = torch.tensor([4 / 9] + [1 / 9] * 4 + [1 / 36] * 4,
+                                 device="cuda")[:, None, None]
+                f = (w * rho).contiguous()
+                spare = torch.empty_like(f)
+                kw = dict(omega=1.6, u_lb=0.0029, v_lb=-0.0017, lb_G=0.0025)
+                if physics == "noisy_fisher":
+                    kw.update(lb_Dg=0.05, noisy=True, seed=7)
+                k = ks[physics]
+                bufs = [f.clone(), spare]
+
+                def temporal():
+                    for _ in range(K3_STEPS // k):
+                        temporal_diffusion_step(bufs[0], bufs[1], k, **kw)
+                        bufs.reverse()
+                try:
+                    scratch = getattr(fused, "resident_scratch",
+                                      torch.empty_like)(f)
+                    row["resident"] = _median_ms(
+                        lambda: resident_diffusion_run(f, scratch, K3_STEPS,
+                                                       **kw),
+                        reps=3, rounds=3)
+                except ValueError as err:
+                    row["resident"] = str(err)
+                row["temporal"] = _median_ms(temporal, reps=3, rounds=3)
+                row["by"] = "wrappers, CUDA events"
+            sweep[f"{ny}x{nx}"] = row
+            torch.cuda.empty_cache()
+        out[f"sweep {physics} ms per {K3_STEPS} steps"] = sweep
+        sweep = {}
+    sim = PipeFlow(device="cuda", **FLOW)
+    kw = dict(omega=sim.omega, inlet_rho=sim.inlet_rho,
+              outlet_rho=sim.outlet_rho, incompressible=False)
+    out["K1 flow 4096^2"] = _median_ms(_ping_pong(
+        sim.state, lambda a, b: pipe_step(a, b, **kw)))
+    del sim
+    out.update(_k2_k4_times())
+    from lb2d_tpu_torch.ops.fused_halo import (
+        HALO_TEMPORAL_K,
+        temporal_halo_step,
+    )
+    cut, kw = _k9_shards()["flow"]
+    k = HALO_TEMPORAL_K["flow"]
+    halo = cut(k)
+    outb = torch.empty_like(halo.f)
+    out["K9 flow 2048x8192 shard"] = _entry(_median_ms(
+        lambda: temporal_halo_step(halo, outb, k, "flow", **kw)), k)
+    return out
 
 
 def _graph_ms(launch, per_graph=20, replays=20, rounds=5):
