@@ -68,9 +68,10 @@ and consumption, rocket yeast's surfactant production),
 sweeps K2's steps per launch for the flow and the diffusion physics and
 K4's for the multifield physics (K = 1..8), holds K2 and K4 (the row
 sweeps) to their plain steps at every K and on grids narrower than a strip
-or shorter than the card's segments, and prints the measured numbers. Every phase raises on
-failure; the last line is the JSON result and is printed only when all
-phases passed. Uses no JAX.
+or shorter than the card's segments (K2's velocity inlet in its small
+grids' tiles and on its row sweep, and on the sweep on every grid), and
+prints the measured numbers. Every phase raises on failure; the last line
+is the JSON result and is printed only when all phases passed. Uses no JAX.
 """
 
 from __future__ import annotations
@@ -123,8 +124,8 @@ from lb2d_tpu_torch.models.multifield import (
     EXPANSION_TEMPORAL_K,
     FISHER_TEMPORAL_K,
 )
-from lb2d_tpu_torch.models.pipe_flow import TEMPORAL_K
-from lb2d_tpu_torch.ops import _build
+from lb2d_tpu_torch.models.pipe_flow import TEMPORAL_K, VELOCITY_TEMPORAL_K
+from lb2d_tpu_torch.ops import _build, fused
 from lb2d_tpu_torch.ops.fused import (
     MAX_MULTIFIELD_FIELDS,
     MAX_TEMPORAL_K,
@@ -234,9 +235,10 @@ KERNEL_TOL = 1e-6   # ~30 ulp at |f| <= 0.45: nvcc's FMA contraction; the
 # noisy kernels too: their Philox bits are exact, their normals a few ulp off
 NORMALS_TOL = 5e-6  # |eta| < 6: the card's logf/cosf against torch's
 BYTES_PER_CELL = 72  # 9 float32 reads + 9 writes per cell-step
-MAIN_STEPS = 1000    # 4096^2: 333 K2 launches of 3 steps and 1 K1 step
+MAIN_STEPS = 1000    # 4096^2: 250 K2 launches of TEMPORAL_K = 4 steps
 SMALL_STEPS = 20000  # 32x256: one K3 launch
-INLET_STEPS = 1000   # 401x401 velocity inlet: 334 K2 launches, or one K3
+INLET_STEPS = 1000   # 401x401 velocity inlet: 250 K2 launches of
+# VELOCITY_TEMPORAL_K = 4 steps, or one K3
 DIFFUSION_STEPS = 2000  # 2048^2: run_all.py's step count
 RESIDENT_DIFFUSION_STEPS = 20000  # 256^2 and 512^2: one K3 launch each
 RESIDENT_CHECK_STEPS = (8, 9)  # both parities of K3's exchange slots
@@ -331,6 +333,20 @@ def _events_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def _graph_ms(fn, per_graph=20, replays=20):
+    """Device time of one ``fn`` by CUDA-graph replay: ``per_graph`` calls
+    captured in one graph (after a warm call outside it), the graph
+    replayed ``replays`` times between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    return _events_ms(graph.replay, replays) / per_graph
+
+
 def _disk(ny, nx):
     Y, X = np.mgrid[:ny, :nx]
     return ((X - nx / 3) ** 2 + (Y - ny / 2) ** 2 <= (ny / 6) ** 2
@@ -388,8 +404,7 @@ def _velocity_run(f, k, kw):
     return f
 
 
-def compare_k2_velocity(sim, obstacle, outlet, incompressible,
-                        k=TEMPORAL_K):
+def compare_k2_velocity(sim, obstacle, outlet, incompressible, k):
     """K2 with the velocity BCs against ``k`` plain velocity-inlet steps."""
     f0, kw = _inputs(sim, obstacle)
     kw = dict(omega=sim.omega, u_w=sim.u_w, u_e=sim.u_e, outlet=outlet,
@@ -494,21 +509,43 @@ def kernel_phase(main, small, cyl, inlet):
         worst["K3"] = max(worst["K3"], _checked(
             f"K3 vs plain {small.ny}x{small.nx} model state, {n} steps",
             compare_k3(small, None, n)))
+    # as the wrapper picks (tiles up to VELOCITY_TILE_MAX_CELLS cells, the
+    # sweep above), then the sweep on every grid
+    worst["K2v"] = _k2_velocity_checks(inlet, "tiles or the sweep")
+    tiles_max = fused.VELOCITY_TILE_MAX_CELLS
+    fused.VELOCITY_TILE_MAX_CELLS = 0
+    try:
+        worst["K2v"] = max(worst["K2v"], _k2_velocity_checks(
+            inlet, "the sweep"))
+    finally:
+        fused.VELOCITY_TILE_MAX_CELLS = tiles_max
+    return worst
+
+
+# K2's velocity inlet also on a grid above VELOCITY_TILE_MAX_CELLS
+INLET_SHAPES = K2_SHAPES + ((1031, 1100),)
+
+
+def _k2_velocity_checks(inlet, loop):
+    """K2's velocity inlet against its plain steps at every K, with both
+    outlets, both equilibria, with and without the obstacle, on the inlet's
+    state and at INLET_SHAPES; returns the largest max |df|."""
+    worst = 0.0
     for outlet in ("zero_gradient", "velocity"):
         for incompressible in (False, True):
             for obstacle in (False, True):
                 tag = (f"outlet={outlet} incompressible={incompressible} "
-                       f"obstacle={obstacle}")
-                worst["K2v"] = max(worst["K2v"], _checked_ks(
+                       f"obstacle={obstacle}, {loop}")
+                worst = max(worst, _checked_ks(
                     f"K2 velocity inlet vs plain {inlet.ny}x{inlet.nx} {tag}",
                     lambda k: compare_k2_velocity(
                         inlet, obstacle or None, outlet, incompressible, k)))
-                for ny, nx in K2_SHAPES:
+                for ny, nx in INLET_SHAPES:
                     f0, kw = _flow_inputs(ny, nx, incompressible, obstacle)
                     kw = dict(omega=inlet.omega, u_w=inlet.u_w,
                               u_e=inlet.u_e, outlet=outlet,
                               incompressible=incompressible, mask=kw["mask"])
-                    worst["K2v"] = max(worst["K2v"], _checked_ks(
+                    worst = max(worst, _checked_ks(
                         f"K2 velocity inlet vs plain {ny}x{nx} random {tag}",
                         lambda k: _max_diff(temporal_velocity_step(
                             f0, torch.empty_like(f0), k, **kw),
@@ -568,20 +605,27 @@ def timing_phase(main, small, inlet):
     kw = dict(omega=inlet.omega, u_w=inlet.u_w, u_e=inlet.u_e,
               outlet=inlet.outlet, incompressible=False)
     bufs = [inlet.state.clone(), torch.empty_like(inlet.state)]
+    k_inlet = VELOCITY_TEMPORAL_K
 
     def k2v():
-        temporal_velocity_step(bufs[0], bufs[1], TEMPORAL_K, **kw)
+        temporal_velocity_step(bufs[0], bufs[1], k_inlet, **kw)
         bufs.reverse()
 
     def plain_inlet():
-        for _ in range(TEMPORAL_K):
+        for _ in range(k_inlet):
             bufs[0] = velocity_step_reference(bufs[0], **kw)
 
     k2v()
     times["K2v"] = _events_ms(k2v, 200)
+    # the kernel's own time: a launch at 401^2 is about as short as the
+    # host's launch, so events around host launches also time the host
+    graph_ms = _graph_ms(k2v)
+    print(f"K2v at {inlet.ny}x{inlet.nx}: {graph_ms:.4f} ms per launch of "
+          f"{k_inlet} steps by CUDA-graph replay, "
+          f"{times['K2v']:.4f} by CUDA events", flush=True)
     plain_inlet()
     times["plain K2v"] = _events_ms(plain_inlet, 10)
-    steps = {"K1": 1, "K2": TEMPORAL_K, "K3": n, "K2v": TEMPORAL_K}
+    steps = {"K1": 1, "K2": TEMPORAL_K, "K3": n, "K2v": k_inlet}
     for k in ("K1", "K2", "K3", "K2v"):
         sim = {"K3": small, "K2v": inlet}.get(k, main)
         shape = f"{sim.ny}x{sim.nx}"
@@ -630,7 +674,7 @@ def main_path_phase(main, small, inlet, card, times, copy_bw):
     it."""
     main.run(2 * TEMPORAL_K + 1)  # warm every kernel this path launches
     small.run(10)
-    inlet.run(TEMPORAL_K + 1)
+    inlet.run(VELOCITY_TEMPORAL_K + 1)
 
     def drive():
         main.run(1)  # one step short of a K2 launch: K1
@@ -640,7 +684,7 @@ def main_path_phase(main, small, inlet, card, times, copy_bw):
 
     expected = {"K1": 1 + MAIN_STEPS % TEMPORAL_K,
                 "K2": MAIN_STEPS // TEMPORAL_K, "K3": 1,
-                "K2v": -(-INLET_STEPS // TEMPORAL_K)}
+                "K2v": -(-INLET_STEPS // VELOCITY_TEMPORAL_K)}
     counts = _window("main path (flow)", drive, expected)
     launches = {k: counts[k] for k in expected}
     for sim in (main, small, inlet):
@@ -2846,7 +2890,7 @@ def main():
     for physics, info in k9.items():
         bound_ms, bound_by = _bound(info["bytes"], info["ops"])
         src = ("multifield_step.cu" if physics.startswith("multifield")
-               else "temporal_step.cu")
+               else "halo_step.cu")
         rows.append({
             "name": f"K9 {physics}", "route": "cuda",
             "source": f"lb2d_tpu_torch/csrc/{src}",

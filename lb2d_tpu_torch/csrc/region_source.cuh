@@ -1,19 +1,18 @@
-// Where the row sweeps of K2, K4 and K9 and K9's velocity tiles read a
-// block's cells from: the whole periodic grid (GridSource: K2 in
-// temporal_step.cu, K4 and K5 in multifield_step.cu), or one shard of a
-// domain-decomposed grid with its neighbours' halos (HaloSource: K9, which
-// replaces lb2d_tpu/ops/fused_halo.py:make_temporal_halo_step, in
-// temporal_step.cu and multifield_step.cu). Both sweeps take the source as
-// a template parameter, so K9's flow, diffusion and noisy Fisher physics
-// run K2's sweep and its multifield physics K4's; its velocity physics run
-// K2's 32 x 32 tiles on this source (temporal_step.cu says why). Every
-// cell goes through the same per-cell updates as K2 and K4, so K9 agrees
-// with them bit for bit.
+// Where the row sweeps of K2, K4 and K9 read a block's cells from: the
+// whole periodic grid (GridSource: K2 in temporal_step.cu, K4 and K5 in
+// multifield_step.cu), or one shard of a domain-decomposed grid with its
+// neighbours' halos (HaloSource: K9, which replaces
+// lb2d_tpu/ops/fused_halo.py:make_temporal_halo_step, in halo_step.cu and
+// multifield_step.cu). Both sweeps take the source as a template
+// parameter, so K9's flow, velocity inlet, diffusion and noisy Fisher
+// physics run K2's sweep (temporal_sweep.cuh) and its multifield physics
+// K4's. Every cell goes through the same per-cell updates as K2 and K4, so
+// K9 agrees with them bit for bit.
 //
 // A block reads domain cells (y, x), unwrapped: a sweep up to K cells
-// outside the written domain on each side, and, on the ragged last tiles
-// of K9's velocity tiles, further out. Each cell's BCs and noise use its
-// global coordinates, wrap(y0 + y, ny) and wrap(x0 + x, nx) (Domain).
+// outside the written domain on each side, and K5's ragged last tiles
+// further out. Each cell's BCs and noise use its global coordinates,
+// wrap(y0 + y, ny) and wrap(x0 + x, nx) (Domain).
 
 #pragma once
 
@@ -48,18 +47,15 @@ struct GridSource {
     plane = (size_t)rows * cols;
     return f + (size_t)wrap(y, rows) * cols + wrap(x, cols);
   }
-  __device__ __forceinline__ bool solid(const int* mask, int y, int x) const {
-    return __ldg(mask + (size_t)wrap(y, rows) * cols + wrap(x, cols)) != 0;
-  }
 };
 
 // One shard f[P][H][W] with the hk rows above and below it, top and bot
 // [P][hk][W], and, unless x wraps within the shard (left == right == null),
 // the hk columns beside its y-extended rows, left and right [P][H + 2hk][hk]
 // (corners included). The obstacle mask covers the region
-// [H + 2hk][W + 2hk]. Region cells past the halo (the ragged last blocks)
-// read its outermost row or column: they feed only cells no block stores,
-// since a stored cell after K <= hk steps depends on cells within K of it.
+// [H + 2hk][W + 2hk]. A region cell past the halo reads its outermost row
+// or column: it feeds only cells no block stores, since a stored cell after
+// K <= hk steps depends on cells within K of it.
 struct HaloSource {
   const float *f, *top, *bot, *left, *right;
   int H, W, hk;
@@ -71,9 +67,6 @@ struct HaloSource {
   __device__ __forceinline__ const float* at(int y, int x,
                                              size_t& plane) const {
     return at_placed(y, place_x(x), plane);
-  }
-  __device__ __forceinline__ bool solid(const int* mask, int y, int x) const {
-    return solid_placed(mask, y, place_x(x));
   }
   // the same for a column placed once (place_x), as a sweep reads it row
   // after row

@@ -1,4 +1,4 @@
-// The row sweep of K2 and K9 (temporal_step.cu) and K4 (multifield_step.cu,
+// The row sweep of K2 and K9 (temporal_sweep.cuh) and K4 (multifield_step.cu,
 // K9's multifield physics too): its shared-memory rings, the cut of a grid
 // or a shard into work items, and the asynchronous row loads.
 // lb2d_tpu_torch/ops/sweep.py mirrors every formula here (the CPU tests

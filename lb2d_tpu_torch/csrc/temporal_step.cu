@@ -1,321 +1,17 @@
-// K D2Q9 lattice-Boltzmann steps per pass over f, for Hopper (sm_90a): K2.
-//
-// Replaces lb2d_tpu/ops/fused.py:make_temporal_pipe_step with each of its
-// physics: "flow" (the pressure-driven pipe flow, with or without an
-// obstacle), "velocity_inlet" (the velocity inlet with the zero-gradient
-// outlet, periodic in y; here also with the velocity outlet and an
-// obstacle, as the model's plain step allows), and the fully periodic
-// "diffusion" and "noisy_fisher" of the advection-diffusion family. The
-// TPU kernel sweeps 16-row chunks in order and keeps K-1 VMEM rings of
-// intermediate steps; what is kept is the idea: read f once and write it
-// once for K steps, so HBM traffic per step falls from 72 B/cell to 72/K.
-//
-// Design: the row sweep of row_sweep.cuh (flow, diffusion, noisy Fisher;
-// the velocity physics keep the first K2's tile loop, velocity_tile_kernel
-// below says why). A block takes a work item, a
-// strip of at most 128 columns (its stored columns and a K-column halo on
-// each side, wrapped in x) and a segment of rows, and sweeps the segment
-// one row per phase: the input row of the next phase arrives by cp.async
-// while level s = 1..K computes row ys - K + t - 2 s from level s - 1's
-// ring of rows in shared memory; level K writes straight to f_out, and one
-// barrier per phase orders it all. Each input row is read once, only the x
-// halo (2K columns per strip) is computed again, and the y halo is K
-// warm-up rows at each end of a segment. The segments are as long as one
-// wave of resident blocks allows (row_sweep.cuh: sweep_plan). The obstacle
-// mask streams through its own ring of byte rows. Each cell uses
-// cell_update, velocity_cell_update or diffusion_cell_update (pipe_cell.cuh)
-// with its wrapped global coordinates, so the BCs and the mask apply
-// exactly as in K single steps, and the y-periodic families need no seam
-// patch (the TPU kernel's chunks do not wrap in y, so lb2d_tpu's models
-// recompute the seam rows with plain steps). The noise of a cell at stage s
-// is the Philox normal of (its global index, step0 + s - 1) (philox.cuh):
-// a halo cell computed twice draws the same normal in both strips, so K2
-// at any K follows K single plain steps with noise on.
-//
-// Bound: per cell and step, 72/K B of HBM (f read and written once per
-// launch) against the card's 3.35 TB/s, and the update's arithmetic,
-// computed 128 / (128 - 2K) times over for the x halo. The flow update is
-// instruction-bound (its IEEE divisions, the BC branches): a thread takes
-// two columns 64 apart of its level, so their pulls, arithmetic and stores
-// overlap, and the flow update shares the quotients of opposite directions
-// (collide<.., kPaired>, the same bits); the diffusion family forms its
-// (1 + c.u / cs2) once per launch. Each thread's input planes are
-// constants of an unrolled copy per load lane. Shared memory per block,
-// (27 K + 9) rows of 128 floats (row_sweep.cuh), sets the blocks per SM: 4
-// up to K = 3, 3 up to K = 5, 2 up to K = 8; K <= 8, as K = 9-16 (one
-// block per SM) ran 1.8-2x slower per step. On an H100 80GB HBM3 at 700 W
-// (PERF.md, section 6, PR 9): 4096^2 flow 0.27 ms per step at K = 4, 2048^2
-// diffusion 0.035 at K = 8 and noisy Fisher 0.075 at K = 4, against 0.35,
-// 0.086 and 0.122 for the tile loop below.
-//
-// The first K2 (PRs 1-8) ran 32 x 32 tiles with a K-cell halo, three
-// blocks per SM and a block-wide barrier per step: at K = 3 it read 1.51x
-// the cells it wrote and computed 1.16x the updates it kept, and larger K
-// lost more to the halo than it saved in bytes.
-//
-// K9 (lb2d_halo_step) is the same sweep on one shard of a domain-decomposed
-// grid: it replaces lb2d_tpu/ops/fused_halo.py:make_temporal_halo_step for
-// the physics above. The sweep's body (sweep_steps) takes the region's
-// source as a template parameter and runs under two kernels: K2's
-// (temporal_step_kernel) reads the periodic grid (GridSource, its row
-// index kept wrapped from phase to phase), K9's (halo_sweep_kernel) a
-// shard and its halos (region_source.cuh's HaloSource: the shard, the
-// K-row halos from its y-neighbours and, on 2-D meshes, the K-column strips
-// from its x-neighbours), each thread's column placed once per sweep. One
-// kernel for both ran K2 2% slower per step. K9 writes the shard's rows,
-// and every cell keeps its global coordinates, so the BCs, the mask and
-// the noise are those of K2 on the whole grid, through the same per-cell
-// updates. A strip reads at most K cells past the shard, inside its halo.
-// Bound as K2's, plus the halo's bytes (2K rows and, on 2-D meshes, 2K
-// columns per shard). On an H100 80GB HBM3 at 700 W (PERF.md, section 6):
-// a 2048 x 8192 flow shard 0.308 ms per step at K = 4 (1.18x K2's time per
-// cell: its 69 strips take 5 segments of 410 rows, 345 of 396 resident
-// blocks), 1024^2 diffusion and noisy Fisher shards 0.012 at K = 8 and
-// 0.025 at K = 4, against 0.413, 0.025 and 0.043 in 32 x 32 tiles. K9's
-// velocity physics keep those tiles (halo_step_kernel, velocity_tile_kernel
-// on a halo source), as K2's do; templated on the source, the tile loop
-// had cost K2 7.6-22%, reading its source once per cell.
+// K2: K D2Q9 lattice-Boltzmann steps per pass over f, for Hopper (sm_90a),
+// with each physics of lb2d_tpu/ops/fused.py:make_temporal_pipe_step: the
+// pressure-driven flow, the velocity inlet (either outlet, an optional
+// obstacle) and the periodic diffusion and noisy Fisher. Every physics runs
+// the row sweep of temporal_sweep.cuh on the whole periodic grid (that
+// header says how, what bounds it and what it measured); K9, the same
+// sweep on a shard, is halo_step.cu. On small grids the velocity inlet
+// runs the first K2's 32 x 32 tiles instead (velocity_tile_kernel below),
+// which the wrapper picks by the grid's cells
+// (lb2d_tpu_torch/ops/fused.py: VELOCITY_TILE_MAX_CELLS).
 
-#include <type_traits>
-
-#include "pipe_cell.cuh"
-#include "region_source.cuh"
-#include "row_sweep.cuh"
+#include "temporal_sweep.cuh"
 
 namespace {
-
-// physics, a template parameter of the kernels
-constexpr int kFlow = 0;          // pressure inlet/outlet, walls (a, b = rho)
-constexpr int kVelocityOpen = 1;  // velocity inlet, open outlet (a, b = u)
-constexpr int kVelocityPair = 2;  // velocity inlet and outlet (a, b = u)
-constexpr int kDiffusion = 3;     // periodic, linear feq, growth (a, b = u, v)
-constexpr int kNoisyFisher = 4;   // kDiffusion + Philox noise and clip
-
-// K2 and K9: K steps of the domain d, whose region comes from src
-// (region_source.cuh), into f_out[9][d.rows][d.cols], one work item (strip
-// blockIdx.x, segment blockIdx.y of `plan`) per block. K2's source is the
-// whole periodic grid (GridSource, d the grid itself): it reads row `row`
-// of f_in at its wrapped column, the row kept wrapped from phase to phase.
-// K9's is one shard and its halos (HaloSource): a thread places its column
-// in the region once and reads row y of it through src.at_placed, and a
-// strip reads no further than K cells past the shard, inside the halo.
-// Every cell's BCs, mask and noise use its global coordinates wrap(d.y0 +
-// y, d.ny), wrap(d.x0 + x, d.nx). A thread computes kCols columns, kSpan
-// apart, of every kLanes-th level: two independent cells that share their
-// rows, so one thread overlaps them.
-constexpr int kCols = 2;
-constexpr int kMinBlocks = 3;  // __launch_bounds__: 85 registers a thread
-
-template <int kPhys, bool kIncomp, bool kObstacle, class Src>
-__device__ __forceinline__ void sweep_steps(const Src& src,
-                                            const int* __restrict__ mask,
-                                            float* __restrict__ f_out,
-                                            const Domain& d, int K,
-                                            const SweepPlan& plan,
-                                            const StepParams& prm) {
-  constexpr bool kGrid = std::is_same<Src, GridSource>::value;
-  constexpr int W = strip_width<1>();
-  constexpr int kSpan = W / kCols;
-  constexpr int kLanes = kSweepThreads / kSpan;  // levels side by side
-  constexpr int kLoadLanes = kSweepThreads / W;  // threads per input column
-  constexpr int kLoads = (9 + kLoadLanes - 1) / kLoadLanes;
-  constexpr int kLevel = sweep_level_rows(false) * W;
-  extern __shared__ float smem[];
-  float* const ring_in = smem;
-  float* const rings = smem + sweep_level_rows(true) * W;  // levels 1..K-1
-  unsigned char* const solid =
-      reinterpret_cast<unsigned char*>(smem + sweep_ring_floats<1>(K));
-  const int mask_rows = sweep_mask_rows(K);
-
-  const int xs = blockIdx.x * plan.wo, ys = blockIdx.y * plan.seg;
-  const int width = min(plan.wo, d.cols - xs) + 2 * K;  // region columns
-  const int rows = min(plan.seg, d.rows - ys);          // rows written
-  const int inputs = rows + 2 * K;                      // input rows
-  const int y0 = ys - K;  // domain row of the first input row
-  const size_t plane = (size_t)d.rows * d.cols;
-
-  // the loads: column cl (domain column xs - K + cl; K2 wraps it into the
-  // grid, K9 places it in the region once), planes lane_l, lane_l +
-  // kLoadLanes, ...
-  const int cl = threadIdx.x % W, lane_l = threadIdx.x / W;
-  int xl;
-  if constexpr (kGrid) {
-    xl = wrap(xs - K + cl, d.cols);
-  } else {
-    xl = src.place_x(xs - K + cl);
-  }
-  // the cells: columns c + i kSpan of levels lane + 1, lane + 1 + kLanes, ..
-  const int c = threadIdx.x % kSpan, lane = threadIdx.x / kSpan;
-  int gx[kCols];
-#pragma unroll
-  for (int i = 0; i < kCols; ++i)
-    gx[i] = wrap(d.x0 + xs - K + c + i * kSpan, d.nx);
-
-  // the input row of phase t (K2: wrapped grid row `row`) into group rows
-  // ld (and its mask cell, returned)
-  auto issue = [&](int t, int row, const int (&ld)[3]) {
-    bool sol = false;
-    if (cl < width && t < inputs) {
-      const float* p;
-      size_t stride;
-      if constexpr (kGrid) {
-        p = src.f + (size_t)row * d.cols + xl;
-        stride = plane;
-      } else {
-        p = src.at_placed(y0 + t, xl, stride);
-      }
-      // the thread's planes as constants: one unrolled copy per lane
-#pragma unroll
-      for (int l = 0; l < kLoadLanes; ++l) {
-        if (l != lane_l) continue;
-#pragma unroll
-        for (int i = 0; i < kLoads; ++i) {
-          const int q = l + i * kLoadLanes;
-          if (q < 9) cp_async4(ring_in + sweep_load_offset<1>(q, ld) + cl,
-                               p + q * stride);
-        }
-      }
-      if (kObstacle && lane_l == 0) {
-        if constexpr (kGrid) {
-          sol = __ldg(mask + (size_t)row * d.cols + xl) != 0;
-        } else {
-          sol = src.solid_placed(mask, y0 + t, xl);
-        }
-      }
-    }
-    cp_async_commit();
-    return sol;
-  };
-  auto put_mask = [&](int t, bool sol) {
-    if (kObstacle && lane_l == 0 && cl < width && t < inputs)
-      solid[(t % mask_rows) * W + cl] = sol;
-  };
-  auto next_row = [&](int r) { return r + 1 == d.ny ? 0 : r + 1; };
-  float coef[9];  // the diffusion family's (1 + c_j.u / cs2)
-  if (kPhys == kDiffusion || kPhys == kNoisyFisher)
-    feq_coefficients(prm.a, prm.b, coef);
-
-  // the global row of phase t's input row, and (K2) of the row issued at
-  // phase t
-  int row_t = wrap(d.y0 + y0, d.ny);
-  int row_next = row_t;
-#pragma unroll
-  for (int t = 0; t < kPrefetch; ++t) {
-    const SweepPhase<1> ph(t - kPrefetch);
-    put_mask(t, issue(t, row_next, ph.ld));
-    row_next = next_row(row_next);
-  }
-
-  for (int t = 0; t < rows + 3 * K; ++t) {
-    const SweepPhase<1> ph(t);
-    const bool sol_next = issue(t + kPrefetch, row_next, ph.ld);
-    const int t_mask = t % mask_rows;
-    for (int s = 1 + lane; s <= K; s += kLanes) {
-      if (t < 3 * s || t >= inputs + s) continue;
-      bool act[kCols], any = false;
-#pragma unroll
-      for (int i = 0; i < kCols; ++i) {
-        act[i] = c + i * kSpan >= s && c + i * kSpan < width - s;
-        any |= act[i];
-      }
-      if (!any) continue;
-      int gy = row_t - 2 * s;
-      if (gy < 0) gy = wrap(gy, d.ny);
-      const bool first = s == 1;
-      const float* in = first ? ring_in : rings + (s - 2) * kLevel;
-      const float* g0 = in + (first ? ph.rd_in[0] : ph.rd[0]);
-      const float* g1 = in + (first ? ph.rd_in[1] : ph.rd[1]);
-      const float* g2 = in + (first ? ph.rd_in[2] : ph.rd[2]);
-      int m = t_mask - 2 * s;
-      m += m < 0 ? mask_rows : 0;
-      float v[kCols][9], out[kCols][9];
-      bool sol[kCols];
-#pragma unroll
-      for (int i = 0; i < kCols; ++i) {
-        // an idle cell reads a kept column of its level and stores nothing
-        const int ci = act[i] ? c + i * kSpan : s;
-        const RingPull<1> pull = {g0 + ci, g1 + ci, g2 + ci};
-        pull(0, v[i]);
-        sol[i] = kObstacle && solid[m * W + ci];
-      }
-#pragma unroll
-      for (int i = 0; i < kCols; ++i) {
-        if constexpr (kPhys == kFlow) {
-          cell_update<kIncomp, kObstacle, true>(v[i], out[i], gy, gx[i], d.ny,
-                                                d.nx, sol[i], prm.omega,
-                                                prm.a, prm.b);
-        } else {
-          diffusion_cell_update<kPhys == kNoisyFisher>(
-              v[i], out[i], prm, (unsigned long long)gy * d.nx + gx[i],
-              prm.step0 + (s - 1), coef);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kCols; ++i) {
-        if (!act[i]) continue;
-        if (s == K) {  // domain row y0 + t - 2K, column xs - K + c + i kSpan
-          // (K2: the grid's gy, gx)
-          const int oy = kGrid ? gy : y0 + t - 2 * K;
-          const int ox = kGrid ? gx[i] : xs - K + c + i * kSpan;
-          const GlobalPut<1> put = {f_out + (size_t)oy * d.cols + ox, plane};
-#pragma unroll
-          for (int j = 0; j < 9; ++j) put(j, 0, out[i][j]);
-        } else {
-          float* o = rings + (s - 1) * kLevel + c + i * kSpan;
-          const RingPut<1> put = {o + ph.wr[0], o + ph.wr[1], o + ph.wr[2]};
-#pragma unroll
-          for (int j = 0; j < 9; ++j) put(j, 0, out[i][j]);
-        }
-      }
-    }
-    cp_async_wait<kPrefetch>();  // the row of phase t has landed
-    put_mask(t + kPrefetch, sol_next);
-    __syncthreads();
-    row_t = next_row(row_t);
-    row_next = next_row(row_next);
-  }
-}
-
-// K2: the grid's own kernel, its source and domain known to the compiler
-// (one kernel templated on the source ran K2 2% slower per step; PERF.md,
-// section 6)
-template <int kPhys, bool kIncomp, bool kObstacle>
-__global__ void __launch_bounds__(kSweepThreads, kMinBlocks)
-temporal_step_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
-                     const int* __restrict__ mask, int ny, int nx, int K,
-                     SweepPlan plan, StepParams prm) {
-  sweep_steps<kPhys, kIncomp, kObstacle>(GridSource{f_in, ny, nx}, mask,
-                                         f_out, Domain{ny, nx, 0, 0, ny, nx},
-                                         K, plan, prm);
-}
-
-// K9: one shard d from its halos
-template <int kPhys, bool kIncomp, bool kObstacle>
-__global__ void __launch_bounds__(kSweepThreads, kMinBlocks)
-halo_sweep_kernel(HaloSource src, const int* __restrict__ mask,
-                  float* __restrict__ f_out, Domain d, int K, SweepPlan plan,
-                  StepParams prm) {
-  sweep_steps<kPhys, kIncomp, kObstacle>(src, mask, f_out, d, K, plan, prm);
-}
-
-// Launch a sweep kernel, whose arguments are `head` then K, plan and prm,
-// on a rows x cols domain: the work items fill one wave of resident blocks
-// (`cache`: the kernel's occupancy per card and K).
-template <bool kObstacle, class Kernel, class... Head>
-cudaError_t launch_sweep(Kernel kernel, SweepSlots& cache, int rows, int cols,
-                         int K, const StepParams& prm, cudaStream_t stream,
-                         Head... head) {
-  if (K < 1 || K > sweep_max_k<1>()) return cudaErrorInvalidValue;
-  const int smem = sweep_smem<1>(K, kObstacle);
-  int slots = 0;
-  const cudaError_t err = cache.get(kernel, smem, K, slots);
-  if (err != cudaSuccess) return err;
-  const SweepPlan plan = sweep_plan(rows, cols, K, strip_width<1>(), slots);
-  if (plan.segments > 65535) return cudaErrorInvalidValue;
-  kernel<<<dim3(plan.strips, plan.segments), kSweepThreads, smem, stream>>>(
-      head..., K, plan, prm);
-  return cudaGetLastError();
-}
 
 template <int kPhys, bool kIncomp, bool kObstacle>
 cudaError_t launch(const float* f_in, float* f_out, const int* mask, int ny,
@@ -324,16 +20,6 @@ cudaError_t launch(const float* f_in, float* f_out, const int* mask, int ny,
   return launch_sweep<kObstacle>(
       temporal_step_kernel<kPhys, kIncomp, kObstacle>, cache, ny, nx, K, prm,
       stream, f_in, f_out, mask, ny, nx);
-}
-
-template <int kPhys, bool kIncomp, bool kObstacle>
-cudaError_t halo_launch(const HaloSource& src, const int* mask, float* f_out,
-                        const Domain& d, int K, const StepParams& prm,
-                        cudaStream_t stream) {
-  static SweepSlots cache;  // per instantiation
-  return launch_sweep<kObstacle>(
-      halo_sweep_kernel<kPhys, kIncomp, kObstacle>, cache, d.rows, d.cols, K,
-      prm, stream, src, mask, f_out, d);
 }
 
 template <int kPhys>
@@ -349,22 +35,17 @@ cudaError_t dispatch(const float* f_in, float* f_out, const int* mask, int ny,
               : launch<kPhys, false, false>(f_in, f_out, mask, ny, nx, K, prm, s);
 }
 
-template <int kPhys>
-cudaError_t halo_dispatch(const HaloSource& src, const int* mask,
-                          float* f_out, const Domain& d, int K,
-                          const StepParams& prm, int incompressible,
-                          cudaStream_t s) {
-  if (incompressible) {
-    return mask ? halo_launch<kPhys, true, true>(src, mask, f_out, d, K, prm, s)
-                : halo_launch<kPhys, true, false>(src, mask, f_out, d, K, prm, s);
-  }
-  return mask ? halo_launch<kPhys, false, true>(src, mask, f_out, d, K, prm, s)
-              : halo_launch<kPhys, false, false>(src, mask, f_out, d, K, prm, s);
-}
-
-
-// The tile loop of K2's and K9's velocity physics: a 32 x 32 region of
-// cells, halo included, in shared memory
+// The tile loop of K2's velocity inlet on small grids: a 32 x 32 region of
+// cells, halo included, in shared memory, each block writing the inner
+// (32 - 2K)^2 cells of its region after K steps with a block barrier
+// between them. At the inlet's 401^2 it beats every plan of the row sweep
+// tried on an H100 (PERF.md, section 6): 0.0063 and 0.0069 ms per step at
+// K = 3 and 4 by graph replay, against the sweep's best 0.0081 and 0.0088
+// (strips of 64 columns, segments of 6 rows, a plan since removed; on 128
+// columns 0.0096 and 0.0094). A sweep phase takes one level's update of
+// two cells a thread and a barrier, about 1.3 us on a lightly loaded SM,
+// and a segment needs its rows plus 3K phases in a row; a tile needs K
+// rounds of four independent cells a thread.
 constexpr int kTile = 32;
 constexpr int kThreads = 256;
 constexpr int kRowsPerPass = kThreads / kTile;  // 8
@@ -372,12 +53,6 @@ constexpr int kPasses = kTile / kRowsPerPass;   // 4 rows per thread
 constexpr int kPlane = kTile * kTile;           // cells per region plane
 constexpr int kTileMaxK = 8;                    // inner edge >= 16
 
-// K2's velocity physics: K steps of the grid in 32 x 32 tiles, each block
-// writing the inner (32 - 2K)^2 cells of its region (the first K2's loop,
-// which the velocity inlet keeps: at its 401^2 the row sweep's segments
-// are a few rows long and its 3K phases of pipeline fill cost more than
-// the tiles' halo, 0.0095 against 0.0072 ms per step at K = 4; PERF.md,
-// PR 9).
 template <bool kPair, bool kIncomp, bool kObstacle>
 __global__ void __launch_bounds__(kThreads, 3)
 velocity_tile_kernel(const float* __restrict__ f_in,
@@ -454,9 +129,9 @@ velocity_tile_kernel(const float* __restrict__ f_in,
 }
 
 template <bool kPair, bool kIncomp, bool kObstacle>
-cudaError_t velocity_launch(const float* f_in, float* f_out, const int* mask,
-                            int ny, int nx, int K, const StepParams& prm,
-                            cudaStream_t stream) {
+cudaError_t velocity_tile_launch(const float* f_in, float* f_out,
+                                 const int* mask, int ny, int nx, int K,
+                                 const StepParams& prm, cudaStream_t stream) {
   const int smem = 18 * kPlane * (int)sizeof(float) + (kObstacle ? kPlane : 0);
   // once per instantiation and card: the attribute is the card's
   static bool configured[kMaxDevices] = {};
@@ -479,143 +154,20 @@ cudaError_t velocity_launch(const float* f_in, float* f_out, const int* mask,
 }
 
 template <bool kPair>
-cudaError_t velocity_dispatch(const float* f_in, float* f_out,
-                              const int* mask, int ny, int nx, int K,
-                              const StepParams& prm, int incompressible,
-                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (incompressible) {
-    return mask ? velocity_launch<kPair, true, true>(f_in, f_out, mask, ny, nx,
-                                                     K, prm, s)
-                : velocity_launch<kPair, true, false>(f_in, f_out, mask, ny,
-                                                      nx, K, prm, s);
-  }
-  return mask ? velocity_launch<kPair, false, true>(f_in, f_out, mask, ny, nx,
-                                                    K, prm, s)
-              : velocity_launch<kPair, false, false>(f_in, f_out, mask, ny,
-                                                     nx, K, prm, s);
-}
-
-// K9's velocity physics: K steps of one shard, the domain d, whose region
-// comes from src, in 32 x 32 tiles (velocity_tile_kernel on a halo source);
-// the region's cells (y, x) are the shard's, unwrapped, their global
-// coordinates wrap(d.y0 + y, d.ny) and wrap(d.x0 + x, d.nx).
-template <bool kPair, bool kIncomp, bool kObstacle>
-__global__ void __launch_bounds__(kThreads, 3)
-halo_step_kernel(HaloSource src, const int* __restrict__ mask,
-                 float* __restrict__ f_out, Domain d, int K,
-                 StepParams prm) {
-  extern __shared__ float smem[];
-  float* cur = smem;
-  float* nxt = smem + 9 * kPlane;
-  unsigned char* solid = reinterpret_cast<unsigned char*>(smem + 18 * kPlane);
-
-  const int inner = kTile - 2 * K;
-  const int y0 = blockIdx.y * inner - K;  // shard row of region row 0
-  const int x0 = blockIdx.x * inner - K;
-  const int c = threadIdx.x % kTile;
-  const int r_first = threadIdx.x / kTile;
-  const int gx = wrap(d.x0 + x0 + c, d.nx);
-  const size_t plane = (size_t)d.rows * d.cols;
-
-  // the step-0 region
-#pragma unroll
-  for (int i = 0; i < kPasses; ++i) {
-    const int r = r_first + i * kRowsPerPass;
-    size_t stride;
-    const float* p = src.at(y0 + r, x0 + c, stride);
-#pragma unroll
-    for (int j = 0; j < 9; ++j) cur[j * kPlane + r * kTile + c] = __ldg(p + j * stride);
-    if (kObstacle) solid[r * kTile + c] = src.solid(mask, y0 + r, x0 + c);
-  }
-  __syncthreads();
-
-  for (int s = 1; s <= K; ++s) {
-    const bool last = s == K;
-#pragma unroll
-    for (int i = 0; i < kPasses; ++i) {
-      const int r = r_first + i * kRowsPerPass;
-      if (r < s || r >= kTile - s || c < s || c >= kTile - s) continue;
-      if (last && (y0 + r >= d.rows || x0 + c >= d.cols)) continue;  // ragged edge
-      const float* p = cur + r * kTile + c;
-      float v[9], out[9];
-      v[0] = p[0 * kPlane];
-      v[1] = p[1 * kPlane - 1];
-      v[2] = p[2 * kPlane - kTile];
-      v[3] = p[3 * kPlane + 1];
-      v[4] = p[4 * kPlane + kTile];
-      v[5] = p[5 * kPlane - kTile - 1];
-      v[6] = p[6 * kPlane - kTile + 1];
-      v[7] = p[7 * kPlane + kTile + 1];
-      v[8] = p[8 * kPlane + kTile - 1];
-      const bool sol = kObstacle && solid[r * kTile + c];
-      float up[3] = {0.0f, 0.0f, 0.0f};
-      if (!kPair && gx == d.nx - 1) {
-        up[0] = p[3 * kPlane];
-        up[1] = p[6 * kPlane - kTile];
-        up[2] = p[7 * kPlane + kTile];
-      }
-      velocity_cell_update<kPair, kIncomp, kObstacle>(v, up, out, gx, d.nx,
-                                                      sol, prm.omega, prm.a,
-                                                      prm.b);
-      if (last) {
-        const size_t g = (size_t)(y0 + r) * d.cols + (x0 + c);
-#pragma unroll
-        for (int j = 0; j < 9; ++j) f_out[j * plane + g] = out[j];
-      } else {
-#pragma unroll
-        for (int j = 0; j < 9; ++j) nxt[j * kPlane + r * kTile + c] = out[j];
-      }
-    }
-    if (!last) {
-      __syncthreads();  // step s complete before step s+1 reads it
-      float* t = cur;
-      cur = nxt;
-      nxt = t;
-    }
-  }
-}
-
-template <bool kPair, bool kIncomp, bool kObstacle>
-cudaError_t halo_velocity_launch(const HaloSource& src, const int* mask,
-                                 float* f_out, const Domain& d, int K,
-                                 const StepParams& prm, cudaStream_t stream) {
-  const int smem = 18 * kPlane * (int)sizeof(float) + (kObstacle ? kPlane : 0);
-  // once per instantiation and card: the attribute is the card's
-  static bool configured[kMaxDevices] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
-    return cudaErrorInvalidDevice;
-  if (!configured[dev]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        halo_step_kernel<kPair, kIncomp, kObstacle>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    configured[dev] = true;
-  }
-  const int inner = kTile - 2 * K;
-  const dim3 grid((d.cols + inner - 1) / inner, (d.rows + inner - 1) / inner);
-  if (grid.y > 65535) return cudaErrorInvalidValue;
-  halo_step_kernel<kPair, kIncomp, kObstacle>
-      <<<grid, kThreads, smem, stream>>>(src, mask, f_out, d, K, prm);
-  return cudaGetLastError();
-}
-
-template <bool kPair>
-cudaError_t halo_velocity_dispatch(const HaloSource& src, const int* mask,
-                                   float* f_out, const Domain& d, int K,
+cudaError_t velocity_tile_dispatch(const float* f_in, float* f_out,
+                                   const int* mask, int ny, int nx, int K,
                                    const StepParams& prm, int incompressible,
                                    cudaStream_t s) {
   if (incompressible) {
-    return mask ? halo_velocity_launch<kPair, true, true>(src, mask, f_out, d,
-                                                          K, prm, s)
-                : halo_velocity_launch<kPair, true, false>(src, mask, f_out, d,
-                                                           K, prm, s);
+    return mask ? velocity_tile_launch<kPair, true, true>(f_in, f_out, mask,
+                                                          ny, nx, K, prm, s)
+                : velocity_tile_launch<kPair, true, false>(f_in, f_out, mask,
+                                                           ny, nx, K, prm, s);
   }
-  return mask ? halo_velocity_launch<kPair, false, true>(src, mask, f_out, d,
-                                                         K, prm, s)
-              : halo_velocity_launch<kPair, false, false>(src, mask, f_out, d,
-                                                          K, prm, s);
+  return mask ? velocity_tile_launch<kPair, false, true>(f_in, f_out, mask,
+                                                         ny, nx, K, prm, s)
+              : velocity_tile_launch<kPair, false, false>(f_in, f_out, mask,
+                                                          ny, nx, K, prm, s);
 }
 
 }  // namespace
@@ -644,14 +196,33 @@ extern "C" int lb2d_temporal_velocity_step(const float* f_in, float* f_out,
                                            int k_steps, float omega, float u_w,
                                            float u_e, int velocity_outlet,
                                            int incompressible, void* stream) {
-  if (ny < 1 || nx < 2 || k_steps < 1 || k_steps > kTileMaxK)
+  if (ny < 1 || nx < 2 || k_steps < 1 || k_steps > sweep_max_k<1>())
     return (int)cudaErrorInvalidValue;
   const StepParams prm = {omega, u_w, u_e, 0.0f, 0.0f, 0u, 0u, 0ull};
   if (velocity_outlet)
-    return (int)velocity_dispatch<true>(f_in, f_out, mask, ny, nx, k_steps,
+    return (int)dispatch<kVelocityPair>(f_in, f_out, mask, ny, nx, k_steps,
                                         prm, incompressible, stream);
-  return (int)velocity_dispatch<false>(f_in, f_out, mask, ny, nx, k_steps,
-                                       prm, incompressible, stream);
+  return (int)dispatch<kVelocityOpen>(f_in, f_out, mask, ny, nx, k_steps, prm,
+                                      incompressible, stream);
+}
+
+// The same steps as lb2d_temporal_velocity_step in 32 x 32 tiles (the
+// small grids' loop); arguments and result as there.
+extern "C" int lb2d_temporal_velocity_tiles(const float* f_in, float* f_out,
+                                            const int* mask, int ny, int nx,
+                                            int k_steps, float omega,
+                                            float u_w, float u_e,
+                                            int velocity_outlet,
+                                            int incompressible, void* stream) {
+  if (ny < 1 || nx < 2 || k_steps < 1 || k_steps > kTileMaxK)
+    return (int)cudaErrorInvalidValue;
+  const StepParams prm = {omega, u_w, u_e, 0.0f, 0.0f, 0u, 0u, 0ull};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (velocity_outlet)
+    return (int)velocity_tile_dispatch<true>(f_in, f_out, mask, ny, nx,
+                                             k_steps, prm, incompressible, s);
+  return (int)velocity_tile_dispatch<false>(f_in, f_out, mask, ny, nx,
+                                            k_steps, prm, incompressible, s);
 }
 
 // k_steps steps of the periodic advection-diffusion family of f_in into
@@ -671,56 +242,4 @@ extern "C" int lb2d_temporal_diffusion_step(
                                                    nx, k_steps, prm, s);
   return (int)launch<kDiffusion, false, false>(f_in, f_out, nullptr, ny, nx,
                                                k_steps, prm, s);
-}
-
-// K9: k_steps steps of one shard f[9][H][W], global rows [y0, y0 + H) and
-// columns [x0, x0 + W) of an ny x nx grid, into f_out[9][H][W], from its
-// halos (region_source.cuh: HaloSource): top, bot [9][hk][W]; left, right
-// [9][H + 2hk][hk], or both NULL when W == nx (x wraps within the shard).
-// mask: the obstacle mask of the region [H + 2hk][W + 2hk], or NULL.
-// physics: 0 pressure-driven flow (a, b = inlet, outlet rho), 1 velocity
-// inlet with the zero-gradient outlet, 2 with the velocity outlet (a, b =
-// u_w, u_e), 3 diffusion, 4 noisy Fisher (a, b = u, v; g, dg, key, step0 as
-// lb2d_temporal_diffusion_step). 1 <= k_steps <= min(8, hk): the row sweep
-// (sweep_max_k<1>()) for physics 0, 3, 4, the tiles (kTileMaxK) for 1, 2.
-// Launches on `stream` and returns the launch's CUDA error code.
-extern "C" int lb2d_halo_step(const float* f, const float* top,
-                              const float* bot, const float* left,
-                              const float* right, const int* mask,
-                              float* f_out, int H, int W, int hk, int y0,
-                              int x0, int ny, int nx, int k_steps,
-                              int physics, int incompressible, float omega,
-                              float a, float b, float g, float dg,
-                              unsigned key0, unsigned key1,
-                              unsigned long long step0, void* stream) {
-  const bool tiles = physics == kVelocityOpen || physics == kVelocityPair;
-  if (H < 1 || W < 1 || hk < 1 || k_steps < 1 ||
-      k_steps > (tiles ? kTileMaxK : sweep_max_k<1>()) || k_steps > hk ||
-      (left == nullptr) != (right == nullptr) ||
-      (left == nullptr && W != nx) || y0 < 0 || y0 + H > ny || x0 < 0 ||
-      x0 + W > nx || (physics == kVelocityOpen && nx < 2))
-    return (int)cudaErrorInvalidValue;
-  const HaloSource src = {f, top, bot, left, right, H, W, hk};
-  const Domain d = {H, W, y0, x0, ny, nx};
-  const StepParams prm = {omega, a, b, g, dg, key0, key1, step0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (physics) {
-    case kFlow:
-      return (int)halo_dispatch<kFlow>(src, mask, f_out, d, k_steps, prm,
-                                       incompressible, s);
-    case kVelocityOpen:
-      return (int)halo_velocity_dispatch<false>(src, mask, f_out, d, k_steps,
-                                                prm, incompressible, s);
-    case kVelocityPair:
-      return (int)halo_velocity_dispatch<true>(src, mask, f_out, d, k_steps,
-                                               prm, incompressible, s);
-    case kDiffusion:
-      return (int)halo_launch<kDiffusion, false, false>(src, nullptr, f_out,
-                                                        d, k_steps, prm, s);
-    case kNoisyFisher:
-      return (int)halo_launch<kNoisyFisher, false, false>(src, nullptr, f_out,
-                                                          d, k_steps, prm, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }

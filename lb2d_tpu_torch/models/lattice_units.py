@@ -15,7 +15,7 @@ from ..ops.fused import (
     velocity_step_reference,
 )
 from ..ops.moments import hydro_compressible
-from .pipe_flow import TEMPORAL_K, PipeFlow
+from .pipe_flow import VELOCITY_TEMPORAL_K, PipeFlow
 
 __all__ = ["LatticePipeFlow", "LatticePipeFlowPeriodicBC",
            "PipeFlowVelocityInlet"]
@@ -74,11 +74,14 @@ class PipeFlowVelocityInlet(LatticePipeFlow):
     #20-21; uniform initial state rho = 1, u = u_w, v = 0.
 
     On CUDA ``"auto"`` runs K2 with the velocity BCs (``backend="temporal"``,
-    :func:`~lb2d_tpu_torch.ops.fused.temporal_velocity_step`), as the JAX
-    model runs ``make_temporal_pipe_step(physics="velocity_inlet")`` on a
-    TPU: ``TEMPORAL_K`` steps per launch, and one shorter launch for the
-    rest of ``run(n)``. ``backend="resident"``, asked for by name, runs all
-    of ``run(n)`` as one K3 launch with the same BCs
+    :func:`~lb2d_tpu_torch.ops.fused.temporal_velocity_step`: 32 x 32 tiles
+    up to 640^2, the row sweep above), as the JAX model runs
+    ``make_temporal_pipe_step(physics="velocity_inlet")`` on a TPU:
+    ``VELOCITY_TEMPORAL_K`` (4) steps per launch, on an H100 the fastest K
+    per step on the sweep and the steadiest end to end in the tiles (JAX
+    takes the largest of 8, 6, 4 that its chunks allow), and one shorter
+    launch for the rest of ``run(n)``. ``backend="resident"``, asked for by
+    name, runs all of ``run(n)`` as one K3 launch with the same BCs
     (:func:`~lb2d_tpu_torch.ops.fused.resident_velocity_run`).
     """
 
@@ -119,9 +122,9 @@ class PipeFlowVelocityInlet(LatticePipeFlow):
         return lambda f: velocity_step_reference(f, **kw)
 
     def _make_kernel_step(self):
-        """K2 over two buffers, ``run(n)`` as ``n // TEMPORAL_K`` launches
-        and one of ``n % TEMPORAL_K`` steps; or K3, ``run(n)`` as one
-        launch."""
+        """K2 over two buffers, ``run(n)`` as ``n // VELOCITY_TEMPORAL_K``
+        launches and one of ``n % VELOCITY_TEMPORAL_K`` steps; or K3,
+        ``run(n)`` as one launch."""
         _build.load_library()  # build now, outside any timed region
         kw = self._velocity_kwargs(
             None if self.obstacle_mask is None
@@ -143,7 +146,7 @@ class PipeFlowVelocityInlet(LatticePipeFlow):
 
         def run_n(f, n):
             while n > 0:
-                k = min(n, TEMPORAL_K)
+                k = min(n, VELOCITY_TEMPORAL_K)
                 f = step(f, k)
                 n -= k
             return f

@@ -45,9 +45,17 @@ from ..ops.moments import hydro_compressible, hydro_incompressible
 from .base import LBModel, plain_backend, resolve_device
 
 __all__ = ["PipeFlow", "PipeFlowCylinder", "PipeFlowObstacles", "disk_mask",
-           "TEMPORAL_K"]
+           "TEMPORAL_K", "VELOCITY_TEMPORAL_K"]
 
 TEMPORAL_K = 4  # steps per K2 pass: the fastest K at 4096^2 on an H100
+# steps per K2 pass of the velocity inlet (PipeFlowVelocityInlet): of K =
+# 3, 4, 6, 8 on an H100 (PERF.md, section 6) the fastest per step on its
+# row sweep (2048^2 and 4096^2) and the steadiest end to end in its tiles
+# (401^2 run(1000), MLUPS medians of six on two machines: K = 4
+# 22,251.3-22,418.4 on both; K = 3 23,647.8-23,822.7 on one, 17,966.8-
+# 18,712.2 on the other, where a 0.019 ms launch left the card waiting on
+# the host's launches)
+VELOCITY_TEMPORAL_K = 4
 _KERNEL_IDS = {"resident": "K3", "temporal": "K2", "kernel": "K1"}
 _NOT_PORTED = {
     "pipelined": "ported as backend='kernel' (ROADMAP.md queue 2, K1)",

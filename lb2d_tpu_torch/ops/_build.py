@@ -135,6 +135,9 @@ _ENTRY_POINTS = {
     # incompressible, stream
     "lb2d_temporal_velocity_step": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I,
                                     _P],
+    # the same, in 32 x 32 tiles (small grids)
+    "lb2d_temporal_velocity_tiles": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _I,
+                                     _I, _P],
     # f_in, f_out, ny, nx, k_steps, omega, u, v, G, Dg, noisy, key0, key1,
     # step0, stream
     "lb2d_temporal_diffusion_step": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _F,

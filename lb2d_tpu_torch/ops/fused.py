@@ -10,10 +10,10 @@ port of a Pallas kernel of ``lb2d_tpu.ops.fused``:
 * :func:`temporal_pipe_step` (``csrc/temporal_step.cu``, K2): ``k_steps``
   steps per pass over ``f``, a row sweep down strips of the grid
   (:mod:`~lb2d_tpu_torch.ops.sweep`); ports ``make_temporal_pipe_step``
-  (``physics="flow"``). :func:`temporal_velocity_step` launches K2 with
-  the velocity-inlet BCs (``physics="velocity_inlet"``) as 32 x 32 tiles
-  with a K-cell halo, the first K2's loop, which is faster than the row
-  sweep at the inlet's 401^2.
+  (``physics="flow"``). :func:`temporal_velocity_step` launches the same
+  sweep with the velocity-inlet BCs (``physics="velocity_inlet"``), and on
+  grids of at most ``VELOCITY_TILE_MAX_CELLS`` cells the first K2's loop of
+  32 x 32 tiles with a K-cell halo, which is faster there.
 * :func:`resident_pipe_run` (``csrc/resident_run.cu``, K3): ``n`` steps in
   one launch, the grid held in the shared memory of persistent blocks, one
   band of rows each, which exchange halo rows with their two neighbours
@@ -98,6 +98,7 @@ __all__ = ["pipe_step", "pipe_step_reference", "pipe_run_reference",
            "expansion_band_reference", "temporal_multifield_step",
            "expansion_band_step", "multifield_max_k", "band_max_k",
            "MAX_TEMPORAL_K", "MAX_MULTIFIELD_FIELDS", "RESIDENT_MAX_CELLS",
+           "VELOCITY_TILE_MAX_CELLS",
            "RESIDENT_MAX_CELLS_DIFFUSION", "resident_scratch"]
 
 MAX_TEMPORAL_K = _sweep_max_k(1)  # K2's rings fit one block's shared memory
@@ -109,6 +110,13 @@ MAX_TEMPORAL_K = _sweep_max_k(1)  # K2's rings fit one block's shared memory
 # up to 512^2 (4.4 / 4.9), and K2 takes 724^2 (7.0-7.6 / 6.9-7.1)
 RESIDENT_MAX_CELLS = 1 << 19
 RESIDENT_MAX_CELLS_DIFFUSION = 1 << 18
+# K2's velocity inlet runs 32 x 32 tiles up to this many cells and the row
+# sweep above. On an H100 (ms per launch, graph replay; PERF.md, section
+# 6) the tiles win up to 640^2 at K = 3 (512^2 0.0325 against the sweep's
+# 0.0330, 640^2 0.0385 against 0.0414) and at K = 4 tie there (0.0526,
+# 0.0520); from 724^2 the sweep wins at K = 4 (0.0603 against 0.0714;
+# 2048^2 0.3042 against 0.4808) and ties at K = 3 (0.0437, 0.0439)
+VELOCITY_TILE_MAX_CELLS = 640 * 640
 MAX_MULTIFIELD_FIELDS = 8  # K4 and K5 hold rings of 9F planes of a strip
 
 
@@ -401,8 +409,9 @@ def temporal_velocity_step(f_in: torch.Tensor, f_out: torch.Tensor,
     :func:`velocity_step_reference`, ``nx >= 2``.
 
     On CUDA tensors this launches K2 with the velocity BCs (counted in
-    ``temporal_velocity_step.launches``); on CPU tensors it runs
-    :func:`velocity_step_reference` ``k_steps`` times.
+    ``temporal_velocity_step.launches``): its 32 x 32 tiles on grids of at
+    most ``VELOCITY_TILE_MAX_CELLS`` cells, its row sweep above; on CPU
+    tensors it runs :func:`velocity_step_reference` ``k_steps`` times.
     """
     _check(f_in, f_out, mask)
     k_steps = _check_k(k_steps)
@@ -416,8 +425,11 @@ def temporal_velocity_step(f_in: torch.Tensor, f_out: torch.Tensor,
         f_out.copy_(f)
         return f_out
     _, ny, nx = f_in.shape
-    _launch("lb2d_temporal_velocity_step", f_in, f_out, mask, ny, nx, k_steps,
-            float(omega), float(u_w), float(u_e), int(outlet == "velocity"),
+    entry = ("lb2d_temporal_velocity_tiles"
+             if ny * nx <= VELOCITY_TILE_MAX_CELLS
+             else "lb2d_temporal_velocity_step")
+    _launch(entry, f_in, f_out, mask, ny, nx, k_steps, float(omega),
+            float(u_w), float(u_e), int(outlet == "velocity"),
             int(bool(incompressible)))
     temporal_velocity_step.launches += 1
     return f_out

@@ -22,16 +22,15 @@ wrap, and JAX's wall band patch (``lb2d_tpu/parallel/sharded.py:501-580``)
 has no counterpart. The halo is ``k_steps`` cells wide, not JAX's CH = 8/16
 rows or 128 lanes, which are TPU DMA alignment; any shard shape works.
 
-On CUDA tensors the wrapper launches K9 (``csrc/temporal_step.cu`` and
+On CUDA tensors the wrapper launches K9 (``csrc/halo_step.cu`` and
 ``csrc/multifield_step.cu``), counted in ``temporal_halo_step.launches``.
 K9 is K2's and K4's row sweep (``csrc/row_sweep.cuh``, mirrored by
 :mod:`~lb2d_tpu_torch.ops.sweep`), templated on the region's source and
 run on a halo source (``csrc/region_source.cuh``): a block sweeps a strip
 of the shard's columns down a segment of its rows, reading each input row
 of the halo-extended region once and writing the shard's rows, at most
-:func:`halo_max_k` steps per launch (8), by default ``HALO_TEMPORAL_K``.
-The velocity inlet keeps K2's loop of 32 x 32 tiles with a K-cell halo
-(``HALO_MAX_K`` steps), as K2's velocity physics do. On CPU tensors the
+:func:`halo_max_k` steps per launch (8), by default ``HALO_TEMPORAL_K``;
+every physics, the velocity inlet too, runs the sweep. On CPU tensors the
 wrapper runs the plain twin, :func:`temporal_halo_step_reference`.
 """
 
@@ -62,21 +61,22 @@ from .fused import (
 )
 from .random import population_normals_at
 
-__all__ = ["Halo", "HALO_PHYSICS", "HALO_MAX_K", "HALO_TEMPORAL_K",
+__all__ = ["Halo", "HALO_PHYSICS", "HALO_TEMPORAL_K",
            "HALO_SWEEP_PHYSICS",
            "supports_temporal_halo", "halo_max_k", "cut_region",
            "check_pieces", "temporal_halo_step",
            "temporal_halo_step_reference"]
 
-HALO_MAX_K = 8  # K9's velocity tiles keep an inner edge of 16 cells
 # steps per launch of the sharded models: the unsharded models' K
 # (TEMPORAL_K, DIFFUSION_TEMPORAL_K, NOISY_TEMPORAL_K), which K9's K sweep
 # at the main paths' shards also picks on an H100 (K = 7 and 8 tie for
-# diffusion; PERF.md, section 6); the velocity inlet's tiles keep 3
+# diffusion; PERF.md, section 6); the velocity inlet's 3, the fastest per
+# step at its 100 x 401 shard on the sweep (0.0059 ms by graph replay, K =
+# 4 0.0061, 6 0.0065, 8 0.0076)
 HALO_TEMPORAL_K = {"flow": 4, "velocity_inlet": 3, "diffusion": 8,
                    "noisy_fisher": 4}
-# the physics on K2's row sweep (multifield: K4's; velocity_inlet: tiles)
-HALO_SWEEP_PHYSICS = ("flow", "diffusion", "noisy_fisher")
+# the physics on K2's row sweep (the multifield ones run K4's)
+HALO_SWEEP_PHYSICS = ("flow", "velocity_inlet", "diffusion", "noisy_fisher")
 
 # each physics and the keyword arguments of its step
 _ARGS = {
@@ -155,17 +155,15 @@ class Halo(NamedTuple):
 
 def halo_max_k(physics: str, num_fields: int = 1) -> int:
     """The most steps of one K9 launch: the row sweep's limit (K4's for
-    ``num_fields`` fields), or the velocity tiles'."""
+    ``num_fields`` fields)."""
     if physics.startswith("multifield"):
         return multifield_max_k(num_fields)
-    if physics in HALO_SWEEP_PHYSICS:
-        return sweep.max_k(1)
-    return HALO_MAX_K
+    return sweep.max_k(1)
 
 
 def supports_temporal_halo(H: int, W: int, k_steps: int,
                            x_sharded: bool = True,
-                           max_k: int = HALO_MAX_K) -> bool:
+                           max_k: int = sweep.MAX_SWEEP_K) -> bool:
     """Whether K9 can take ``k_steps`` steps per sweep on ``H x W`` shards:
     ``1 <= k_steps <= min(H, W if x_sharded, max_k)`` (a halo of
     ``k_steps`` rows comes from one neighbour). JAX's TPU gates (lane

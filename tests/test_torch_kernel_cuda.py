@@ -94,7 +94,7 @@ from lb2d_tpu_torch.ops.fused_coupled import (
     coupled_step,
     coupled_step_reference,
 )
-from lb2d_tpu_torch.ops import resident_plan
+from lb2d_tpu_torch.ops import fused, resident_plan
 from lb2d_tpu_torch.ops.fused_halo import (
     HALO_SWEEP_PHYSICS,
     temporal_halo_step,
@@ -309,6 +309,30 @@ def test_temporal_diffusion_kernel_matches_reference(cuda, physics, k,
     torch.cuda.synchronize()
     assert temporal_diffusion_step.launches == before + 1
     assert torch.equal(out, want), float((out - want).abs().max())
+
+
+@pytest.mark.parametrize("shape", [(401, 401), (45, 33), (7, 300),
+                                   (130, 700)],
+                         ids=["401x401", "45x33", "7x300", "130x700"])
+@pytest.mark.parametrize("outlet", ["zero_gradient", "velocity"])
+def test_temporal_velocity_sweep_small_grids(cuda, outlet, shape,
+                                             monkeypatch):
+    """K2's velocity inlet on its row sweep where the wrapper would run the
+    tiles (VELOCITY_TILE_MAX_CELLS set to 0): incompressible, with the
+    obstacle, at every K against the plain steps; one strip (45x33) and
+    several, whose first halo wraps at x = 0 into the outlet's columns."""
+    monkeypatch.setattr(fused, "VELOCITY_TILE_MAX_CELLS", 0)
+    f, kw = _inputs(cuda, shape, "compressible", True)
+    kw = dict(omega=kw["omega"], mask=kw["mask"], u_w=0.05, u_e=0.04,
+              outlet=outlet, incompressible=True)
+    for k in K2_KS:
+        want = f
+        for _ in range(k):
+            want = velocity_step_reference(want, **kw)
+        out = temporal_velocity_step(f, torch.empty_like(f), k, **kw)
+        d = float((out - want).abs().max())
+        assert d <= TOL, (k, d)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("shape", K3_SHAPES + [(256, 256), (724, 724)],

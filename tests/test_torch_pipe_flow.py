@@ -261,8 +261,8 @@ def test_kernel_backend_wiring_matches_eager(backend, monkeypatch):
 @pytest.mark.parametrize("case", ["velocity-inlet-obstacle", "velocity-pair"])
 def test_velocity_kernel_wiring_matches_eager(case, monkeypatch):
     """The velocity inlet's K2 backend driven on the CPU, where the wrapper
-    runs its plain version: 7 steps are launches of TEMPORAL_K steps and one
-    launch of the rest."""
+    runs its plain version: 7 steps are launches of VELOCITY_TEMPORAL_K
+    steps and one launch of the rest."""
     from lb2d_tpu_torch.models import lattice_units, pipe_flow
     from lb2d_tpu_torch.ops import fused
 
@@ -285,7 +285,7 @@ def test_velocity_kernel_wiring_matches_eager(case, monkeypatch):
     eager.run(7)
     sim.run(7)
     assert torch.equal(sim.state, eager.state)
-    k = pipe_flow.TEMPORAL_K
+    k = pipe_flow.VELOCITY_TEMPORAL_K
     assert ks == [k] * (7 // k) + [7 % k] * (7 % k > 0)
 
 

@@ -18,18 +18,23 @@ rows: the pulled values, un-streamed (the inverse roll of each direction,
 so the step's own stream gives them back exactly), with the cells' global
 coordinates (``GridCoords``), their mask and their noise. So the emulated
 sweep must equal ``K`` plain steps bit for bit, for flow (compressible and
-incompressible, with and without an obstacle), diffusion, the noisy Fisher
-wave,
-FisherExpansion at F = 1, 2, 5, 8 and Expansion at F = 2, 5, 8: at every K
+incompressible, with and without an obstacle), the velocity inlet (both
+outlets and equilibria, with and without an obstacle; the zero-gradient
+outlet takes its cell's own column from the rings), diffusion, the noisy
+Fisher wave, FisherExpansion at F = 1, 2, 5, 8 and Expansion at F = 2, 5, 8: at every K
 from 1 to the kernels' maximum at 7x300, 45x33 and 64x64, and at K = 1 and
-the maximum at 254x382 (up to F = 2).
+the maximum at 254x382 (up to F = 2). At 7x300 and 254x382 K2's strips of
+128 columns are several, and the first strip's halo wraps at x = 0 into
+the outlet's columns.
 
 The schedule test runs the same emulation on identities instead of values:
-each kept cell checks that every pull comes from the right level, row,
-column and direction (and its mask from the right cell), at every K and
-at all four grids for strips of 128 and 64 columns, at K = 1 and 8 at
-254x382 for strips of 32. And the budget: shared memory and blocks per SM
-for each F and K against the 227 KB a block may have; the plan's cut.
+each kept cell checks that every pull, and its own column's directions 3,
+6 and 7, come from the right level, row, column and direction (and its
+mask from the right cell), at every K and at all four grids for strips of
+128 and 64 columns, at K = 1 and 8 at 254x382 for strips of 32. And the
+budget: shared memory and blocks per SM for each F and K against the 227 KB
+a block may have; the plan's cut, pinned at the main paths' grids and
+shards; and K2's block layout.
 
 K9 is the same sweep on one shard: it reads its rows through the shard's
 halo-extended region (``Halo.extended()``), every cell with its global
@@ -37,7 +42,8 @@ coordinates, and writes only the shard's rows. Shards cut 2x1, 1x3 and 2x2
 from 37x53 and 30x47 grids (ragged, narrower than one strip, x wrapping
 within the shard in the 2x1 cuts) go through the emulation with
 identities at every K (and a 40x301 cut whose shards take two strips) and
-with the flow, diffusion and noisy Fisher plain updates at K = 1, 4, 8,
+with the flow, velocity inlet, diffusion and noisy Fisher plain updates at
+K = 1, 4, 8,
 against K9's plain twin and the plain whole-grid steps.
 """
 
@@ -61,6 +67,7 @@ from lb2d_tpu_torch.ops.fused import (
     noisy_fisher_step_reference,
     pipe_run_reference,
     pipe_step_reference,
+    velocity_step_reference,
 )
 from lb2d_tpu_torch.ops.fused_halo import (
     Halo,
@@ -115,8 +122,11 @@ def _rows(t, first, lagged):
 def emulate(f0, k, slots, update, mask=None, shard=None):
     """``k`` steps of ``f0 [9, P, ny, nx]`` by the row sweep's schedule.
     ``update(pulled [9, P, B, C], gy [B], gx [B, C], stage [B], solid [B, C]
-    or None, valid [B, C])`` computes one level's cells of B rows (stage is
-    s - 1; ``valid``: the columns the level keeps). The rings hold the C
+    or None, valid [B, C], own [3, P, B, C])`` computes one level's cells of
+    B rows (stage is s - 1; ``valid``: the columns the level keeps; ``own``:
+    directions 3, 6, 7 of each cell's own column in the group rows its
+    pulls read, rows y, y - 1, y + 1, which the zero-gradient outlet
+    reads). The rings hold the C
     columns of the widest region (no block touches the columns past its
     region) and a blank column each side, where a pull from outside the
     region lands. A float ``f0`` starts every slot as NaN, an integer one
@@ -202,13 +212,15 @@ def emulate(f0, k, slots, update, mask=None, shard=None):
 
     def pulled(ring, tag, first, t, act):
         """The 9 pulls of every column from a level's group rows written at
-        phases t - 1, t - 2, t - 3 (rows y + 1, y, y - 1): [..., 9, P, W]."""
+        phases t - 1, t - 2, t - 3 (rows y + 1, y, y - 1), and directions
+        3, 6, 7 of the column itself: [..., 12, P, W]."""
         row, slot = _rows(t, first, True)
         held = tag[..., groups.numpy(), slot]         # [..., 9]
         assert (held[act] == t - 1 - groups.numpy()).all(), t
         picked = ring[..., row, :, :]                 # [..., 9, P, W + 2]
         idx = pull_cols.expand(picked.shape[:-1] + (W,))
-        return picked.gather(-1, idx)
+        own = picked[..., [3, 6, 7], :, 1:-1]
+        return torch.cat([picked.gather(-1, idx), own], dim=-3)
 
     for t in range(D):
         put_mask(t, load(t))
@@ -222,8 +234,8 @@ def emulate(f0, k, slots, update, mask=None, shard=None):
             if k > 1:
                 parts.append(pulled(rings, tags, False, t, an[1:]))
             lev, item = active.nonzero(as_tuple=True)
-            batch = torch.cat(parts)[lev, item].transpose(0, 1)  # [9, B, P, W]
-            batch = batch.transpose(1, 2)                 # [9, P, B, W]
+            batch = torch.cat(parts)[lev, item].transpose(0, 1)  # [12, B, P, W]
+            batch, own = batch.transpose(1, 2).split([9, 3])  # [9, P, B, W]
             y = ys[item] - k + t - 2 * (lev + 1)      # domain rows
             gy = (y_off + y) % ny
             solid = None
@@ -234,7 +246,7 @@ def emulate(f0, k, slots, update, mask=None, shard=None):
                 cols < (width[item] - lev - 1)[:, None])
             if mask is not None:
                 assert (m[valid] >= 0).all(), t
-            new = update(batch, gy, gx[item], lev, solid, valid)
+            new = update(batch, gy, gx[item], lev, solid, valid, own)
             kept = new.permute(2, 3, 0, 1)[valid]
             assert not (torch.isnan(kept) if kept.is_floating_point()
                         else kept < 0).any(), t
@@ -274,7 +286,7 @@ def _flow_case(incompressible, obstacle):
     kw = dict(FLOW_KW, incompressible=incompressible)
 
     def update(ny, nx):
-        def fn(p, gy, gx, stage, solid, valid):
+        def fn(p, gy, gx, stage, solid, valid, own):
             return pipe_step_reference(_unstream(p[:, 0]), mask=solid,
                                        at=_coords(gy, gx, ny, nx), **kw)[:, None]
         return fn
@@ -284,18 +296,36 @@ def _flow_case(incompressible, obstacle):
     return 1, update, plain, obstacle
 
 
+VELOCITY_KW = dict(omega=1.7, u_w=0.05, u_e=0.04)
+
+
+def _velocity_case(outlet, incompressible, obstacle):
+    kw = dict(VELOCITY_KW, outlet=outlet, incompressible=incompressible)
+
+    def update(ny, nx):
+        def fn(p, gy, gx, stage, solid, valid, own):
+            return velocity_step_reference(
+                _unstream(p[:, 0]), mask=solid, at=_coords(gy, gx, ny, nx),
+                **kw)[:, None]
+        return fn
+
+    def plain(f, mask, step):
+        return velocity_step_reference(f[:, 0], mask=mask, **kw)[:, None]
+    return 1, update, plain, obstacle
+
+
 def _diffusion_case(noisy):
     kw = DIFFUSION_KW
     seed, dg = NOISE_SEED, NOISE_DG
 
     def update(ny, nx):
         if not noisy:
-            return lambda p, gy, gx, stage, solid, valid: (
+            return lambda p, gy, gx, stage, solid, valid, own: (
                 diffusion_step_reference(_unstream(p[:, 0]), **kw)[:, None])
         eta = torch.stack([normals_reference(seed, STEP0 + s, ny, nx)
                            for s in range(MAX_TEMPORAL_K)])
 
-        def fn(p, gy, gx, stage, solid, valid):
+        def fn(p, gy, gx, stage, solid, valid, own):
             e = eta[stage[:, None], gy[:, None], gx]
             return noisy_fisher_step_reference(
                 _unstream(p[:, 0]), lb_Dg=dg, seed=seed, step=0, eta=e,
@@ -325,14 +355,15 @@ def _multifield_case(physics, F):
     def update(ny, nx):
         if physics == "fisher":
             args = (kw["omegas"], kw["lb_G"], kw["u_lb"], kw["v_lb"])
-            return lambda p, gy, gx, stage, solid, valid: fisher_step_reference(
-                _unstream(p), *args, at=_coords(gy, gx, ny, nx))
+            return lambda p, gy, gx, stage, solid, valid, own: (
+                fisher_step_reference(_unstream(p), *args,
+                                      at=_coords(gy, gx, ny, nx)))
         eta = torch.stack([population_normals_reference(
             seed, STEP0 + s, F - 1, ny, nx) for s in range(multifield_max_k(F))])
         args = (kw["omegas"], kw["omega_nutrient"], kw["lb_G"], kw["lb_Dg"],
                 kw["cutoff"], kw["u_lb"], kw["v_lb"])
 
-        def fn(p, gy, gx, stage, solid, valid):
+        def fn(p, gy, gx, stage, solid, valid, own):
             e = eta[stage[:, None], :, gy[:, None], gx].permute(2, 0, 1)
             return expansion_step_reference(_unstream(p), *args, seed=seed,
                                             step=0, eta=e)
@@ -344,6 +375,7 @@ def _multifield_case(physics, F):
     return F, update, plain, False
 
 
+# label: (planes, update, plain step, obstacle)
 CASES = {
     "flow": _flow_case(False, False),
     "flow obstacle": _flow_case(False, True),
@@ -351,6 +383,14 @@ CASES = {
     "flow incompressible obstacle": _flow_case(True, True),
     "diffusion": _diffusion_case(False),
     "noisy_fisher": _diffusion_case(True),
+    "velocity_inlet zero_gradient": _velocity_case(
+        "zero_gradient", False, False),
+    "velocity_inlet zero_gradient incompressible obstacle": _velocity_case(
+        "zero_gradient", True, True),
+    "velocity_inlet velocity obstacle": _velocity_case(
+        "velocity", False, True),
+    "velocity_inlet velocity incompressible": _velocity_case(
+        "velocity", True, False),
     **{f"fisher F={F}": _multifield_case("fisher", F) for F in (1, 2, 5, 8)},
     **{f"expansion F={F}": _multifield_case("expansion", F)
        for F in (2, 5, 8)},
@@ -362,7 +402,7 @@ def _state(case, P, ny, nx):
     equilibrium, and a random int32 obstacle mask (one cell in ten)."""
     rng = np.random.RandomState(3)
     w = np.asarray(D2Q9.w, np.float64)[:, None, None, None]
-    if case.startswith("flow"):
+    if case.startswith(("flow", "velocity")):
         rho = np.ones((1, ny, nx))
     elif case.startswith("expansion"):
         rho = rng.rand(P, ny, nx) * 0.5
@@ -390,23 +430,23 @@ def _provenance(P, ny, nx, mask):
     cx = torch.tensor(CX)[:, None, None, None]
     cy = torch.tensor(CY)[:, None, None, None]
 
-    def fn(pulled, gy, gx, stage, solid, valid):
+    def fn(pulled, gy, gx, stage, solid, valid, own):
         s = stage[None, None, :, None] + 1
         y, x = gy[None, None, :, None], gx[None, None]
         want = _code(s - 1, J, F, (y - cy) % ny, (x - cx) % nx, P, ny, nx)
         assert (pulled == want).permute(2, 3, 0, 1)[valid].all()
+        mine = [3, 6, 7]  # the cell's own column: rows y, y - 1, y + 1
+        want = _code(s - 1, J[mine], F, (y - cy[mine]) % ny, x, P, ny, nx)
+        assert (own == want).permute(2, 3, 0, 1)[valid].all()
         if mask is not None:
             assert (solid == (mask[gy[:, None], gx] != 0))[valid].all()
         return _code(s, J, F, y, x, P, ny, nx).expand(pulled.shape)
     return fn
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("planes", (1, 2, 4))  # strips of 128, 64, 32
-def test_sweep_schedule(planes, shape):
-    """At every K, every kept cell of level s pulls each direction from the
-    right row, column and slot of level s - 1 (and its mask row), and the
-    last level writes every cell of the grid once."""
+def _schedule(planes, shape, ks):
+    """Emulate the sweep on identities at each K of ``ks`` and check the
+    last level's rows."""
     ny, nx = shape
     Y = torch.arange(ny)[:, None]
     X = torch.arange(nx)[None, :]
@@ -415,14 +455,54 @@ def test_sweep_schedule(planes, shape):
     mask = torch.tensor((np.random.RandomState(1).rand(ny, nx) < 0.3
                          ).astype(np.int32)) if planes == 1 else None
     f0 = _code(0, J, F, Y, X, planes, ny, nx).expand(9, planes, ny, nx)
-    ks = range(1, sweep.max_k(planes) + 1)
-    if planes > 2 and shape == (254, 382):  # the strips of 32 columns
-        ks = (1, sweep.max_k(planes))      # cost the emulation the most
     for k in ks:
         got = emulate(f0, k, SLOTS[shape], _provenance(planes, ny, nx, mask),
                       mask)
         assert torch.equal(got, _code(k, J, F, Y, X, planes, ny, nx).expand(
             f0.shape)), (planes, shape, k)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("planes", (1, 2, 4))  # strips of 128, 64, 32
+def test_sweep_schedule(planes, shape):
+    """At every K, every kept cell of level s pulls each direction from the
+    right row, column and slot of level s - 1 (and its mask row), and the
+    last level writes every cell of the grid once."""
+    ks = range(1, sweep.max_k(planes) + 1)
+    if planes > 2 and shape == (254, 382):  # the strips of 32 columns
+        ks = (1, sweep.max_k(planes))      # cost the emulation the most
+    _schedule(planes, shape, ks)
+
+
+K2_COLS = 2  # temporal_sweep.cuh: kCols, the cells of a thread
+
+
+def test_temporal_block_layout():
+    """Each K2/K9 block (temporal_sweep.cuh): its threads' cells (columns c
+    and c + W / 2 of levels lane + 1, lane + 1 + lanes, ..., an idle cell
+    reading column s) cover every kept column of every level once, for
+    every region width and K; its load lanes cover the 9 planes of every
+    column once. And the zero-gradient outlet's own-column reads, written
+    out in sweep_steps as group rows 1, 2, 0 at offsets 2W, 2W, W:
+    directions 3, 6, 7 there."""
+    assert [(sweep.GROUP[j], sweep.SLOT[j]) for j in (3, 6, 7)] == [
+        (1, 2), (2, 2), (0, 1)]
+    threads, W = sweep.SWEEP_THREADS, sweep.strip_width(1)
+    span = W // K2_COLS
+    lanes, load_lanes = threads // span, threads // W
+    planes = sorted(l + i * load_lanes for l in range(load_lanes)
+                    for i in range(-(-9 // load_lanes))
+                    if l + i * load_lanes < 9)
+    assert planes == list(range(9))
+    for k in range(1, sweep.max_k(1) + 1):
+        for width in range(2 * k + 1, W + 1):
+            for s in range(1, k + 1):
+                lane = (s - 1) % lanes
+                cols = [t % span + i * span for t in range(threads)
+                        if t // span == lane for i in range(K2_COLS)
+                        if s <= t % span + i * span < width - s]
+                assert sorted(cols) == list(range(s, width - s)), (
+                    k, width, s)
 
 
 def _physics_ks(P, shape):
@@ -496,6 +576,19 @@ def test_max_k_and_budget():
     (45, 33, 3, 1, 264, (1, 33, 45, 1)),
     (100, 10, 1, 8, 5, (1, 10, 5, 20)),
     (3, 1000, 2, 1, 4, (9, 112, 1, 3)),
+    # K2 and K9 on an H100's 132 SMs (three blocks per SM up to K = 5, two
+    # from K = 6): the 401^2 inlet's sweep (with its tiles off) and its
+    # 100 x 401 shard (the grid cut 4 x 1), K2 flow 4096^2, diffusion and
+    # noisy Fisher 2048^2, K9's flow 2048 x 8192 and diffusion family
+    # 1024^2 shards
+    (401, 401, 4, 1, 396, (4, 101, 81, 5)),
+    (100, 401, 3, 1, 396, (4, 101, 50, 2)),
+    (4096, 4096, 4, 1, 396, (35, 118, 11, 373)),
+    (2048, 2048, 8, 1, 264, (19, 108, 13, 158)),
+    (2048, 2048, 4, 1, 396, (18, 114, 22, 94)),
+    (2048, 8192, 4, 1, 396, (69, 119, 5, 410)),
+    (1024, 1024, 8, 1, 264, (10, 103, 26, 40)),
+    (1024, 1024, 4, 1, 396, (9, 114, 43, 24)),
 ])
 def test_plan(rows, cols, k, P, slots, want):
     """Strips evened out to at most strip_width - 2K stored columns, one
@@ -524,6 +617,10 @@ def _halo_physics(case):
     """K9's physics and its arguments for a case of CASES."""
     if case.startswith("flow"):
         return "flow", dict(FLOW_KW, incompressible="incompressible" in case)
+    if case.startswith("velocity_inlet"):
+        outlet = case.split()[1]
+        return "velocity_inlet", dict(
+            VELOCITY_KW, outlet=outlet, incompressible="incompressible" in case)
     if case == "diffusion":
         return "diffusion", DIFFUSION_KW
     return "noisy_fisher", dict(DIFFUSION_KW, lb_Dg=NOISE_DG, seed=NOISE_SEED)
@@ -569,8 +666,9 @@ def test_halo_sweep_schedule(grid, cut):
                 grid, cut, k, y0, x0)
 
 
-HALO_RUNS = [(case, g, c) for case in list(CASES)[:6] for g, c in
-             HALO_GRID_CUTS]
+# K2's physics on K9's shards
+K2_CASES = [c for c in CASES if not c.startswith(("fisher", "expansion"))]
+HALO_RUNS = [(case, g, c) for case in K2_CASES for g, c in HALO_GRID_CUTS]
 
 
 @pytest.mark.parametrize("case,grid,cut", HALO_RUNS, ids=[
@@ -578,8 +676,8 @@ HALO_RUNS = [(case, g, c) for case in list(CASES)[:6] for g, c in
 def test_halo_sweep_equals_twin_and_plain_steps(case, grid, cut):
     """The emulated K9 sweep on each shard, at K = 1, 4 and 8, equals K9's
     plain twin (``temporal_halo_step_reference``) and K plain steps of the
-    whole grid: flow within HALO_FLOW_TOL, diffusion and noisy Fisher bit
-    for bit."""
+    whole grid: flow and the velocity inlet within HALO_FLOW_TOL, diffusion
+    and noisy Fisher bit for bit."""
     P, update, plain, obstacle = CASES[case]
     physics, kw = _halo_physics(case)
     ny, nx = grid
@@ -589,7 +687,7 @@ def test_halo_sweep_equals_twin_and_plain_steps(case, grid, cut):
     want = {0: f0}
     for k in range(1, max(HALO_KS) + 1):
         want[k] = plain(want[k - 1], mask, STEP0 + k - 1)
-    tol = HALO_FLOW_TOL if physics == "flow" else 0.0
+    tol = HALO_FLOW_TOL if physics in ("flow", "velocity_inlet") else 0.0
     for k in HALO_KS:
         for (y0, x0, H, W), halo, region in _shards(f0[:, 0], mask, ny, nx,
                                                     cut, k):

@@ -64,7 +64,19 @@ three after a warm ``run(100)``; the diffusion models make only square
 grids, so at 32 x 256 and 16 x 4096 the two wrappers run the same 1000
 steps between CUDA events); and the control:
 K1 at 4096^2, K2, K4 and K5 as in the default mode, and K9 ``flow`` at the
-2048 x 8192 shard.
+2048 x 8192 shard; ``inlet``, the velocity inlet, whichever loop the
+checkout runs for it (32 x 32 tiles, or the row sweep): K2 at 401^2, 2048^2
+and 4096^2 and K9 at the 100 x 401 shard (the 401^2 inlet cut 4 x 1), at K
+= 3, 4, 6 and 8, each by CUDA-graph replay (20 launches a graph) and by
+events around host launches; ``PipeFlowVelocityInlet`` 401^2
+``run(1000, timed=True)`` through ``backend="auto"`` at each K, one model
+whose K (the checkout's constant, set between runs) takes 3, 4, 6, 8 in
+turn, six rounds in rotating order after a warm run at each (MLUPS, every
+run); K2 at K = 3 and 4 on the grids from 512^2 to 1448^2 where the two
+loops cross over, by graph replay (in both loops where the checkout has
+both, ``VELOCITY_TILE_MAX_CELLS`` set for the run); and the control: K2
+flow 4096^2 and 2048^2, diffusion and noisy Fisher 2048^2 at the models' K
+and K9 flow at its 2048 x 8192 shard, by events and graph replay.
 """
 
 import json
@@ -155,6 +167,10 @@ def main():
         return
     if sys.argv[2:] == ["k3"]:
         out.update(_k3_times())
+        print(json.dumps(out), flush=True)
+        return
+    if sys.argv[2:] == ["inlet"]:
+        out.update(_inlet_times())
         print(json.dumps(out), flush=True)
         return
     out.update(_k2_k4_times())
@@ -508,6 +524,159 @@ def _graph_times():
         outb = torch.empty_like(halo.f)
         both(f"K7h {cfg.physics} {H}x{W} shard",
              lambda: coupled_step_halo(halo, outb, rho, ext, cfg, prm))
+    return out
+
+
+INLET_KS = (3, 4, 6, 8)
+INLET_STEPS = 1000
+INLET_ROUNDS = 6  # run(1000) at each K, in rotating order
+INLET_GRIDS = (401, 2048, 4096)
+# the grids between, where the velocity inlet's two loops cross over
+CROSSOVER_GRIDS = (512, 640, 724, 900, 1024, 1448)
+
+
+def _inlet_times():
+    """The velocity inlet's K2 and K9, whichever loop the checkout runs,
+    by CUDA-graph replay and by events, and the controls."""
+    import lb2d_tpu_torch.models.lattice_units as lattice_units
+    from lb2d_tpu_torch.models import PipeFlowVelocityInlet
+    from lb2d_tpu_torch.ops import fused
+    from lb2d_tpu_torch.ops.fused_halo import (
+        HALO_TEMPORAL_K,
+        Halo,
+        temporal_halo_step,
+    )
+
+    out = {}
+
+    def both(launch, k, replays=20):
+        graph = _graph_ms(launch, replays=replays)
+        return {"k": k, "graph_ms": graph, "graph_ms_per_step": graph / k,
+                "events_ms": _median_ms(launch)}
+
+    def state(n):
+        return PipeFlowVelocityInlet(device="cuda", lx=n - 1,
+                                     ly=n - 1).state
+
+    sim = PipeFlowVelocityInlet(device="cuda")
+    kw = dict(omega=sim.omega, u_w=sim.u_w, u_e=sim.u_e, outlet=sim.outlet,
+              incompressible=False)
+
+    def k2(f, k):
+        return _ping_pong(f, lambda a, b: fused.temporal_velocity_step(
+            a, b, k, **kw))
+
+    for n in INLET_GRIDS:
+        f = sim.state if n == 401 else state(n)
+        for k in INLET_KS:
+            out[f"K2 velocity {n}^2 K={k}"] = both(
+                k2(f, k), k, replays=20 if n < 2048 else 5)
+        del f
+        torch.cuda.empty_cache()
+    cut = {k: Halo.cut(sim.state, 0, 0, sim.ny // 4, sim.nx, k)
+           for k in INLET_KS}
+    outb = torch.empty_like(cut[3].f)
+    for k in INLET_KS:
+        out[f"K9 velocity {sim.ny // 4}x{sim.nx} shard K={k}"] = both(
+            lambda k=k: temporal_halo_step(cut[k], outb, k, "velocity_inlet",
+                                           **kw), k)
+    out["HALO_TEMPORAL_K velocity_inlet"] = HALO_TEMPORAL_K["velocity_inlet"]
+    # the model end to end through auto at each K (the checkout's constant
+    # for the inlet's steps per launch, set between runs), the K in
+    # rotating order so that host noise falls on each alike
+    put_k = _inlet_k_setter(lattice_units)
+    model_k = put_k(INLET_KS[0])
+    out["model K"] = model_k
+    model = PipeFlowVelocityInlet(device="cuda")
+    for k in INLET_KS:  # warm
+        put_k(k)
+        model.run(100)
+    runs = {k: [] for k in INLET_KS}
+    for r in range(INLET_ROUNDS):
+        for i in range(len(INLET_KS)):
+            k = INLET_KS[(r + i) % len(INLET_KS)]
+            put_k(k)
+            model.run(INLET_STEPS, timed=True)
+            runs[k].append(model.last_mlups)
+    put_k(model_k)
+    for k in INLET_KS:
+        out[f"MLUPS PipeFlowVelocityInlet 401^2 K={k}"] = {
+            "runs": runs[k], "median": sorted(runs[k])[len(runs[k]) // 2]}
+    # the crossover: K2 at the grids between, in whichever loop the
+    # checkout runs there, and (where the checkout has both) in each loop
+    tiles_max = getattr(fused, "VELOCITY_TILE_MAX_CELLS", None)
+    loops = {"": None} if tiles_max is None else {" tiles": 1 << 30,
+                                                  " sweep": 0}
+    for n in CROSSOVER_GRIDS:
+        f = state(n)
+        for label, cells in loops.items():
+            if cells is not None:
+                fused.VELOCITY_TILE_MAX_CELLS = cells
+            for k in (3, 4):
+                out[f"K2 velocity {n}^2{label} K={k}"] = _graph_ms(k2(f, k))
+        del f
+    if tiles_max is not None:
+        fused.VELOCITY_TILE_MAX_CELLS = tiles_max
+        out["VELOCITY_TILE_MAX_CELLS"] = tiles_max
+    out.update(_inlet_controls())
+    return out
+
+
+def _inlet_k_setter(lattice_units):
+    """A function that sets the velocity inlet model's steps per K2 launch
+    (the checkout's constant, ``VELOCITY_TEMPORAL_K`` or ``TEMPORAL_K``) and
+    returns the value it replaced; the model reads it at every ``run``."""
+    name = ("VELOCITY_TEMPORAL_K"
+            if hasattr(lattice_units, "VELOCITY_TEMPORAL_K") else "TEMPORAL_K")
+
+    def put(k):
+        old = getattr(lattice_units, name)
+        setattr(lattice_units, name, k)
+        return old
+    return put
+
+
+def _inlet_controls():
+    """K2 flow 4096^2 and 2048^2, diffusion and noisy Fisher 2048^2 at the
+    models' K, and K9 flow at its 2048 x 8192 shard, by events and graph
+    replay."""
+    from lb2d_tpu_torch.ops.fused_halo import (
+        HALO_TEMPORAL_K,
+        temporal_halo_step,
+    )
+
+    ks = _models_k()
+    out = {}
+
+    def both(label, launch, k):
+        out[label] = {"k": k, "events_ms": _median_ms(launch),
+                      "graph_ms": _graph_ms(launch)}
+
+    k = ks["flow"]
+    for n in (4096, 2048):  # the inlet's large grids against flow's
+        sim = PipeFlow(device="cuda", **dict(FLOW, N=n - 1))
+        kw = dict(omega=sim.omega, inlet_rho=sim.inlet_rho,
+                  outlet_rho=sim.outlet_rho, incompressible=False)
+        both(f"K2 flow {n}^2", _ping_pong(
+            sim.state, lambda a, b: temporal_pipe_step(a, b, k, **kw)), k)
+        del sim
+    for name, cls, cfg in (("diffusion", AdvectionDiffusion, ADVECTION),
+                           ("noisy_fisher",
+                            ReactionAdvectionDiffusionStochastic,
+                            STOCHASTIC)):
+        sim = cls(device="cuda", **cfg)
+        kw = sim.step_kwargs()
+        k = ks[name]
+        both(f"K2 {name} 2048^2", _ping_pong(
+            sim.state, lambda a, b: temporal_diffusion_step(a, b, k, **kw)),
+            k)
+        del sim
+    cut, kw = _k9_shards()["flow"]
+    k = HALO_TEMPORAL_K["flow"]
+    halo = cut(k)
+    outb = torch.empty_like(halo.f)
+    both("K9 flow 2048x8192 shard",
+         lambda: temporal_halo_step(halo, outb, k, "flow", **kw), k)
     return out
 
 
