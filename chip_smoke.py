@@ -57,7 +57,19 @@ set to 0 just before it and read just after:
   zero-gradient runner; ``ShardedCoupled`` over each coupled model at
   ``zoo_drive.py``'s sizes, K7h held to K7 and its twin, ``run(64)`` each
   in its own window; and P2 (``transpose``) at the probe's [4224, 8192],
-  equal to ``x.t().contiguous()`` and timed beside it.
+  equal to ``x.t().contiguous()`` and timed beside it;
+* the Poisson slice (plain torch ops, no hand kernel: each path must
+  launch none): ``PoissonSolver`` at 1024^2 for a fixed 2,000 iterations,
+  its blocks of ``check_every`` iterations replayed as CUDA graphs (a
+  replayed block held to the eager one on the card), at 48^2 against the
+  CPU and at 32^2 to its steady state; ``RepellingFisherWave`` at N = 128
+  (``examples/zoo_drive.py``'s) in its exact, gated and tracking modes,
+  20 timed outer steps each (MLUPS, inner iterations, host reads and
+  graph replays per outer step, gated and tracking against exact, the
+  tracking mode's replayed outer step against its eager step); and the
+  ``utils`` on the card: ``save_model`` / ``restore_model`` of its tuple
+  state, ``accumulated_sum(..., "f64")`` and one frame of
+  ``render_field`` with an explicit LUT.
 
 It checks the physics (Poiseuille profile through each flow backend,
 cylinder mass, Gaussian spreading, advection, mass, noise amplitude and
@@ -78,7 +90,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -108,8 +122,10 @@ from lb2d_tpu_torch.models import (
     PipeFlow,
     PipeFlowCylinder,
     PipeFlowVelocityInlet,
+    PoissonSolver,
     ReactionAdvectionDiffusion,
     ReactionAdvectionDiffusionStochastic,
+    RepellingFisherWave,
     RocketYeast,
     RocketYeastForcesOnly,
     ScreenedFisherWave,
@@ -203,6 +219,12 @@ from lb2d_tpu_torch.parallel.halo import (
     exchange_bands,
     exchange_halos,
     gather_bands,
+)
+from lb2d_tpu_torch.utils import (
+    accumulated_sum,
+    render_field,
+    restore_model,
+    save_model,
 )
 
 BENCH_PHYS = dict(diameter=1.0, rho=1.0, viscosity=0.1, pressure_grad=-0.01,
@@ -2650,6 +2672,190 @@ def transpose_phase(card):
                 shape=list(P2_SHAPE), bound_ms=bound_ms, bound_by=bound_by)
 
 
+# -- the Poisson slice: PoissonSolver, RepellingFisherWave, utils -----------
+
+POISSON_N = 1024           # PoissonSolver alone, examples/zoo_drive.py's
+POISSON_ITERS = 2000       # solver at 1024^2, a fixed count (tolerance 0)
+POISSON_SMALL = 48         # the card against the CPU, 300 fixed iterations
+POISSON_SMALL_ITERS = 300
+POISSON_SMALL_TOL = 1e-5   # of max|rho|: the card divides by a scalar as a
+# reciprocal product and sums in other orders
+GRAPH_TOL = 1e-7           # a replayed block against the eager one (equal)
+REPELLING = dict(Lx=1.0, Ly=1.0, E=2.0, R0=0.25, N=128, max_inner_iter=60)
+# examples/zoo_drive.py's RepellingFisherWave at N = 128 (its gated mode's
+# reuse_tolerance 2e-3); tracking at the budget of tests/test_waves.py
+REPELLING_MODES = {"exact": {}, "gated": dict(reuse_tolerance=2e-3),
+                   "tracking": dict(inner_per_step=4)}
+REPELLING_WARM = 2         # outer steps before the timed run (captures)
+REPELLING_STEPS = 20       # timed outer steps per mode
+REPELLING_DRIFT = 5e-3     # rho against exact, tests/test_waves.py's bound
+
+
+def _poisson_solver(n, **kw):
+    return PoissonSolver(nx=n, ny=n, sources=np.ones((n, n), np.float32),
+                         delta_t=4e-4 * (64 / n) ** 2, delta_x=2.0 / n, **kw)
+
+
+def _no_kernel_launches(label, drive):
+    """Drive a path of this slice with every kernel's launch count at 0;
+    it must launch none (plain torch ops and CUDA graphs of them)."""
+    torch.cuda.synchronize()
+    for wrapper in COUNTERS.values():
+        wrapper.launches = 0
+    drive()
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in COUNTERS.items() if w.launches}
+    if counts:
+        raise RuntimeError(f"{label} launched hand kernels: {counts}")
+
+
+def poisson_solver_phase(card):
+    """``PoissonSolver`` at 1024^2 for a fixed 2,000 iterations through
+    replayed blocks (a replayed block held to the eager one on the card),
+    and at 48^2 against the CPU; the uniform source's steady state at 32^2
+    (tests/test_poisson.py's residual bound) through the card's blocks."""
+    solver = _poisson_solver(POISSON_N, tolerance=0.0, device="cuda")
+    loop = solver._loop
+    solver.run(loop.check_every)  # captures the block's graph
+    replays0, reads0 = loop.replays, loop.reads
+    _no_kernel_launches("PoissonSolver", lambda: solver.run(POISSON_ITERS,
+                                                            timed=True))
+    blocks = POISSON_ITERS // loop.check_every
+    if (loop.replays - replays0, loop.reads - reads0) != (blocks, blocks):
+        raise RuntimeError(f"PoissonSolver: {loop.replays - replays0} "
+                           f"replays, {loop.reads - reads0} reads for "
+                           f"{blocks} blocks")
+    if (solver.num_iterations != POISSON_ITERS + loop.check_every
+            or solver.converged or not torch.isfinite(solver.f).all()):
+        raise RuntimeError("PoissonSolver: wrong count or non-finite state")
+    print(f"PoissonSolver {POISSON_N}^2, {POISSON_ITERS} iterations "
+          f"(tolerance 0, check_every {loop.check_every}): "
+          f"{solver.last_mlups:.1f} MLUPS, "
+          f"{POISSON_ITERS / solver.last_solve_seconds:.1f} iterations/s, "
+          f"{blocks} graph replays and host reads; card: {card}", flush=True)
+    # one block replayed against the same block run eagerly on the card
+    f0, rho0, react0 = loop.f.clone(), loop.rho.clone(), loop.react.clone()
+    loop.run_block(loop.check_every)
+    f_e, rho_e, flag_e = loop.block(f0, rho0, react0, loop.check_every)
+    d = max(_max_diff(loop.f, f_e), _max_diff(loop.rho, rho_e))
+    print(f"PoissonSolver {POISSON_N}^2: a replayed block of "
+          f"{loop.check_every} iterations vs the eager block: max|d| = "
+          f"{d:.3e}", flush=True)
+    if not d <= GRAPH_TOL or bool(loop.flag) != bool(flag_e):
+        raise RuntimeError(f"replayed Poisson block differs: {d}")
+    cuda = _poisson_solver(POISSON_SMALL, tolerance=0.0, device="cuda")
+    cpu = _poisson_solver(POISSON_SMALL, tolerance=0.0, device="cpu")
+    cuda.run(POISSON_SMALL_ITERS)
+    cpu.run(POISSON_SMALL_ITERS)
+    scale = float(cpu.rho.abs().max())
+    d = _max_diff(cuda.rho.cpu(), cpu.rho) / scale
+    print(f"PoissonSolver {POISSON_SMALL}^2, {POISSON_SMALL_ITERS} "
+          f"iterations, card vs CPU: max|d rho| / max|rho| = {d:.3e}",
+          flush=True)
+    if not d <= POISSON_SMALL_TOL:
+        raise RuntimeError(f"PoissonSolver on the card vs the CPU: {d}")
+    # tests/test_poisson.py:17-38 on the card
+    n, dx = 32, 1.0 / 30
+    steady = PoissonSolver(nx=n, ny=n, sources=np.ones((n, n), np.float32),
+                           delta_t=dx**2, delta_x=dx, tolerance=1e-7,
+                           device="cuda")
+    steady.run(20000)
+    rho = steady.rho.cpu().numpy()
+    lap = (rho[:-2, 1:-1] + rho[2:, 1:-1] + rho[1:-1, :-2] + rho[1:-1, 2:]
+           - 4 * rho[1:-1, 1:-1])[3:-3, 3:-3]
+    expected = -(5.0 / 9.0) * steady.lb_D * dx**4
+    err = float(np.abs(lap - expected).max() / abs(expected))
+    print(f"PoissonSolver {n}^2 uniform source on the card: converged "
+          f"{steady.converged} after {steady.num_iterations} iterations, "
+          f"deep-interior residual {err:.3e} of the source (bound 0.15)",
+          flush=True)
+    if not (steady.converged and err < 0.15):
+        raise RuntimeError("PoissonSolver steady state is wrong")
+
+
+def repelling_phase(card):
+    """``RepellingFisherWave`` at N = 128 in its three modes: warm steps
+    (the graphs' captures), then 20 timed outer steps each, with the outer
+    steps' MLUPS, the mean inner iterations, host reads and graph replays
+    per outer step; the tracking mode's replayed step held to its eager
+    step; gated and tracking rho against exact."""
+    sims = {}
+    for mode, kw in REPELLING_MODES.items():
+        sim = RepellingFisherWave(device="cuda", **REPELLING, **kw)
+        sim.run(REPELLING_WARM)
+        before = (sim.host_reads, sim.inner_iterations, sim.graph_replays)
+        _no_kernel_launches(f"RepellingFisherWave {mode}",
+                            lambda: sim.run(REPELLING_STEPS, timed=True))
+        reads, iters, replays = (
+            (b - a) / REPELLING_STEPS for a, b in zip(
+                before, (sim.host_reads, sim.inner_iterations,
+                         sim.graph_replays)))
+        if mode == "tracking":
+            iters = sim.inner_per_step
+        print(f"RepellingFisherWave N={sim.N} ({sim.ny}x{sim.nx}) {mode}: "
+              f"{sim.last_mlups:.3f} MLUPS (outer steps), {iters:.2f} inner "
+              f"iterations, {reads:.2f} host reads and {replays:.2f} graph "
+              f"replays per outer step; card: {card}", flush=True)
+        if replays < 1 or not all(torch.isfinite(t).all() for t in sim.state):
+            raise RuntimeError(f"RepellingFisherWave {mode}: no graph replay "
+                               "or a non-finite state")
+        if mode != "tracking" and reads != replays + (mode == "gated"):
+            raise RuntimeError(f"RepellingFisherWave {mode}: a solve ran "
+                               "blocks eagerly")
+        sims[mode] = sim
+    exact_rho = density(sims["exact"].state[0])
+    scale = float(exact_rho.abs().max())
+    for mode in ("gated", "tracking"):
+        d = _max_diff(density(sims[mode].state[0]), exact_rho) / scale
+        print(f"RepellingFisherWave {mode} vs exact after "
+              f"{REPELLING_WARM + REPELLING_STEPS} steps: max|d rho| / "
+              f"max|rho| = {d:.3e} (bound {REPELLING_DRIFT})", flush=True)
+        if not d < REPELLING_DRIFT:
+            raise RuntimeError(f"RepellingFisherWave {mode} drifts: {d}")
+    track = sims["tracking"]
+    state = tuple(t.clone() for t in track.state)
+    eager = track._step(state)
+    track.run(1)
+    d = max(_max_diff(a, b) for a, b in zip(track.state, eager))
+    print(f"RepellingFisherWave tracking: a replayed outer step vs the eager "
+          f"step: max|d| = {d:.3e}", flush=True)
+    if not d <= GRAPH_TOL:
+        raise RuntimeError(f"replayed tracking step differs: {d}")
+    return sims["exact"]
+
+
+def utils_phase(sim):
+    """``save_model`` / ``restore_model`` of a CUDA model's tuple state, the
+    float64-grade ``accumulated_sum`` of its populations, and one frame
+    rendered on the card with an explicit LUT (which needs no
+    matplotlib)."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "repelling.npz")
+        save_model(path, sim)
+        saved = tuple(t.clone() for t in sim.state)
+        sim.run(2)
+        restore_model(path, sim)
+    if not all(t.is_cuda and torch.equal(t, s)
+               for t, s in zip(sim.state, saved)):
+        raise RuntimeError("restore_model did not restore the CUDA state")
+    f = sim.state[0]
+    truth = float(f.double().sum())
+    f64, f32 = accumulated_sum(f, "f64"), accumulated_sum(f, "f32")
+    print(f"accumulated_sum of f {list(f.shape)} on the card: f64 "
+          f"{f64!r}, f32 {f32!r}, float64 sum {truth!r}", flush=True)
+    if not abs(f64 - truth) <= 1e-6 * abs(truth):
+        raise RuntimeError("accumulated_sum(f64) is off")
+    lut = np.stack([np.arange(256, dtype=np.uint8)] * 3, axis=1)
+    img = render_field(density(f), lut=lut)
+    if not (img.is_cuda and img.dtype == torch.uint8
+            and tuple(img.shape) == (sim.ny, sim.nx, 3)
+            and int(img.min()) == 0 and int(img.max()) == 255):
+        raise RuntimeError(f"render_field: {img.shape} {img.dtype}")
+    print(f"render_field on the card: {tuple(img.shape)} {img.dtype} "
+          f"{img.device}; save_model/restore_model of the tuple state: "
+          f"equal on {sim.state[0].device}", flush=True)
+
+
 def _field_masses(sim):
     """Float64 mass of each field of a coupled model."""
     return sim._fields4(sim.state).double().sum(dim=(0, 2, 3)).tolist()
@@ -2773,6 +2979,8 @@ def main():
     k7h = sharded_coupled_phase(card)
     p2 = transpose_phase(card)
     multi_card_phase()
+    poisson_solver_phase(card)
+    utils_phase(repelling_phase(card))
     k2, k3 = "lb2d_tpu/ops/fused.py:888", "lb2d_tpu/ops/fused.py:1193"
     kernels = {  # key: (wrapper, source, TPU kernel, model, ops per cell)
         "K1": ("pipe_step", "pipe_step.cu", "lb2d_tpu/ops/fused.py:682",

@@ -13,13 +13,18 @@ from .lattice_units import (
     PipeFlowVelocityInlet,
 )
 from .pipe_flow import PipeFlow, PipeFlowCylinder, PipeFlowObstacles, disk_mask
+from .poisson import PoissonSolver
 from .rocket_yeast import RocketYeast, RocketYeastForcesOnly
 from .spectral import ScreenedPoisson, screened_poisson_solve
 from .surfactant import (
     ClumpySurfactantNutrientWave,
     SurfactantNutrientWave,
 )
-from .waves import NoisyAdvectedFisherWave, ScreenedFisherWave
+from .waves import (
+    NoisyAdvectedFisherWave,
+    RepellingFisherWave,
+    ScreenedFisherWave,
+)
 
 __all__ = [
     "PipeFlow", "PipeFlowCylinder", "PipeFlowObstacles",
@@ -27,8 +32,10 @@ __all__ = [
     "LatticePipeFlowPeriodicBC",
     "Diffusion", "AdvectionDiffusion", "ReactionDiffusion",
     "ReactionAdvectionDiffusion", "ReactionAdvectionDiffusionStochastic",
-    "NoisyAdvectedFisherWave", "FisherExpansion", "Expansion",
-    "Fluid", "SimulationRunner", "ScreenedPoisson", "screened_poisson_solve",
+    "NoisyAdvectedFisherWave", "RepellingFisherWave", "FisherExpansion",
+    "Expansion",
+    "Fluid", "SimulationRunner", "PoissonSolver", "ScreenedPoisson",
+    "screened_poisson_solve",
     "ScreenedFisherWave", "SurfactantNutrientWave",
     "ClumpySurfactantNutrientWave", "RocketYeast", "RocketYeastForcesOnly",
 ]

@@ -2,7 +2,7 @@
 ``lb2d_tpu.models.base``).
 
 A model owns its populations ``state`` (``[Q, ny, nx]`` on its device,
-``[Q, F, ny, nx]`` for the multifield models) and a
+``[Q, F, ny, nx]`` for the multifield models, or a tuple of tensors) and a
 ``step(f) -> f`` function from :meth:`make_step`. ``run(n)`` advances ``n``
 steps through it (or through the run hooks that ``make_step`` sets); on
 CUDA each call enqueues kernels on PyTorch's current stream and the host
@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 __all__ = ["LBModel", "resolve_device", "plain_backend", "advance",
-           "held_solve_sweep"]
+           "held_solve_sweep", "graph_in_place", "state_to_numpy",
+           "state_from_numpy"]
 
 
 def plain_backend(backend: str) -> str:
@@ -68,6 +69,54 @@ def held_solve_sweep(f, n: int, step, density, solve=None,
             solve(rho)
         f = step(f, rho)
     return f
+
+
+def graph_in_place(fn, inputs, outputs) -> torch.cuda.CUDAGraph:
+    """``results = fn(*inputs)`` followed by ``outputs[i].copy_(results[i])``,
+    captured once as a CUDA graph: each ``graph.replay()`` reruns it on the
+    same buffers (``inputs`` and ``outputs`` are the graph's static tensors,
+    on one CUDA device; a result must not alias another output buffer).
+
+    ``fn`` runs once before the capture, on a side stream and on copies of
+    the inputs (so no buffer changes), to make what its ops create on first
+    use (the cached lattice columns, for instance). It must not read device
+    values on the host or copy from the host. A capture that fails raises;
+    nothing falls back to running ``fn`` eagerly.
+    """
+    device = inputs[0].device
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn(*(t.clone() for t in inputs))
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for out, result in zip(outputs, fn(*inputs)):
+            out.copy_(result)
+    return graph
+
+
+def state_to_numpy(state):
+    """A state (a tensor or a tuple of tensors) as numpy arrays of the same
+    structure."""
+    if isinstance(state, tuple):
+        return tuple(state_to_numpy(s) for s in state)
+    return state.detach().cpu().numpy().copy()
+
+
+def state_from_numpy(arrays, like, device):
+    """numpy ``arrays`` as tensors of the structure, shapes and dtypes of the
+    state ``like`` on ``device``; raises on a mismatch."""
+    if isinstance(like, tuple):
+        if not isinstance(arrays, (tuple, list)) or len(arrays) != len(like):
+            raise ValueError(f"state must be a sequence of {len(like)} "
+                             "arrays")
+        return tuple(state_from_numpy(a, t, device)
+                     for a, t in zip(arrays, like))
+    a = np.ascontiguousarray(arrays)
+    if a.shape != tuple(like.shape):
+        raise ValueError(f"state must be {tuple(like.shape)}, got {a.shape}")
+    return torch.tensor(a, dtype=like.dtype, device=device)
 
 
 class LBModel:
@@ -144,20 +193,17 @@ class LBModel:
         return self
 
     # -- state carried across packages ------------------------------------------
-    def state_numpy(self) -> np.ndarray:
-        """The populations as a numpy array of the state's shape and dtype
-        (in JAX: ``np.asarray(sim.state)``)."""
-        return self.state.detach().cpu().numpy().copy()
+    def state_numpy(self):
+        """The state as a numpy array of its shape and dtype, or a tuple of
+        them for a tuple state (in JAX: ``np.asarray(sim.state)``, or that of
+        each member)."""
+        return state_to_numpy(self.state)
 
     def load_numpy_state(self, f) -> None:
-        """Replace the populations with a numpy array of the state's shape,
-        for example the state of the JAX model built from the same
-        arguments."""
-        f = np.ascontiguousarray(f)
-        if f.shape != tuple(self.state.shape):
-            raise ValueError(f"state must be {tuple(self.state.shape)}, "
-                             f"got {f.shape}")
-        self.state = torch.tensor(f, dtype=self.state.dtype, device=self.device)
+        """Replace the state with a numpy array of its shape (a sequence of
+        arrays for a tuple state), for example the state of the JAX model
+        built from the same arguments."""
+        self.state = state_from_numpy(f, self.state, self.device)
 
     @staticmethod
     def _to_host_xy(t: torch.Tensor) -> np.ndarray:

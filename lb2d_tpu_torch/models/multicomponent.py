@@ -67,6 +67,7 @@ from ..ops.fused_mc import (
     mc_step_reference,
 )
 from ..ops.spectral import screened_gradients, screened_gradients_reference
+from ..utils.metrics import accumulated_sum
 from .base import advance, held_solve_sweep, plain_backend, resolve_device
 
 __all__ = ["Fluid", "SimulationRunner", "SECOND_BELT_STENCIL", "get_psi",
@@ -575,7 +576,8 @@ class SimulationRunner:
 
     def check_fields(self, accumulate: str = "f64"):
         """Conservation debug dump (``single_component.py:753-766``), with
-        float64-grade accumulation by default (see :func:`_accumulated_sum`);
+        float64-grade accumulation by default (``accumulate``, as in
+        :func:`lb2d_tpu_torch.utils.metrics.accumulated_sum`);
         sharded, the sums of the shards' sums."""
         parts = ([self.f] if self._sharded is None
                  else self._sharded.fluid_views())
@@ -585,8 +587,8 @@ class SimulationRunner:
         for f in parts:
             rho = f.sum(dim=0)
             for i in range(self.num_populations):
-                out[f"sum_rho_{i}"] += _accumulated_sum(rho[i], accumulate)
-                out[f"sum_f_{i}"] += _accumulated_sum(f[:, i], accumulate)
+                out[f"sum_rho_{i}"] += accumulated_sum(rho[i], accumulate)
+                out[f"sum_f_{i}"] += accumulated_sum(f[:, i], accumulate)
         if self._sharded is not None:
             out = self._sharded.sum_over_processes(out)
         print(out)
@@ -635,19 +637,3 @@ class SimulationRunner:
             return
         self.f = torch.tensor(f, dtype=self.dtype, device=self.device)
         self._refresh_hydro()
-
-
-def _accumulated_sum(x: torch.Tensor, accumulate: str = "f64") -> float:
-    """Global sum of a device tensor (a private copy of JAX
-    ``utils.metrics.accumulated_sum``, ``metrics.py:56-77``; it moves to the
-    port's ``utils`` with ROADMAP queue 1 item 4). ``"f64"``: the lanes are
-    summed on the device in 128-element windows (when ``nx`` is a multiple
-    of 128 above 128, else whole rows) and the partials in float64 on the
-    host; ``"f32"``: one device sum."""
-    if accumulate == "f64":
-        nx = x.shape[-1]
-        if nx % 128 == 0 and nx > 128:
-            x = x.reshape(*x.shape[:-1], nx // 128, 128)
-        parts = x.sum(dim=-1).detach().cpu().numpy().astype(np.float64)
-        return float(parts.sum())
-    return float(x.sum())

@@ -8,9 +8,10 @@
   (:class:`_ScreenedVelocity`) and the backends and run loop
   (:class:`CoupledModel`), which ``models/surfactant.py`` and
   ``models/rocket_yeast.py`` use too.
-
-``RepellingFisherWave`` comes with the Poisson slice (ROADMAP.md queue 1
-item 3).
+* :class:`RepellingFisherWave`: a Fisher wave advected by the negative
+  gradient of the LBM-Poisson potential of its own density, solved inside
+  every outer step (:mod:`lb2d_tpu_torch.models.poisson`), or amortized by
+  a drift test or a fixed inner budget.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from ..core import D2Q9
 from ..ops import _build
+from ..ops.collide import bgk
 from ..ops.equilibrium import feq_linear
 from ..ops.fused_coupled import (
     CoupledConfig,
@@ -31,13 +33,27 @@ from ..ops.fused_coupled import (
     screened_fisher_step_reference,
     surfactant_step_reference,
 )
-from ..ops.moments import density
+from ..ops.moments import density, rho_poisson
 from ..ops.spectral import screened_gradients, screened_gradients_reference
 from ..ops.stream import stream
-from .base import LBModel, held_solve_sweep, plain_backend, resolve_device
+from ..utils.metrics import mach_number
+from .base import (
+    LBModel,
+    graph_in_place,
+    held_solve_sweep,
+    plain_backend,
+    resolve_device,
+)
 from .diffusion import PeriodicScalarModel
+from .poisson import (
+    PoissonSolver,
+    _make_poisson_iter,
+    _poisson_run,
+    negative_gradient,
+)
 
-__all__ = ["NoisyAdvectedFisherWave", "ScreenedFisherWave", "CoupledModel"]
+__all__ = ["NoisyAdvectedFisherWave", "ScreenedFisherWave",
+           "RepellingFisherWave", "CoupledModel"]
 
 _BACKENDS = ("auto", "kernel", "eager")
 _SOLVE_METHODS = ("auto", "pallas", "matmul", "fft")
@@ -171,13 +187,6 @@ class _ScreenedVelocity:
     def __call__(self, rho):
         u_v = self.planes(rho)
         return u_v[0], u_v[1]
-
-
-def _mach_number(u, v, lattice=D2Q9) -> float:
-    """max |u| / cs over the grid (a private copy of JAX
-    ``utils.metrics.mach_number``, ``metrics.py:32-35``; it moves to the
-    port's ``utils`` with ROADMAP queue 1 item 4)."""
-    return float(torch.sqrt(torch.max(u * u + v * v))) / lattice.cs
 
 
 class CoupledModel(LBModel):
@@ -315,7 +324,7 @@ class CoupledModel(LBModel):
 
     def mach_number(self) -> float:
         u, v = self._velocity_fields()
-        return _mach_number(u, v, self.lattice)
+        return mach_number(u, v, self.lattice)
 
     def _velocity_fields(self):
         rho = self._fields4(self.state).sum(dim=0)
@@ -407,4 +416,219 @@ class ScreenedFisherWave(CoupledModel):
             "rho": self._to_host_xy(rho),
             "u": self._to_host_xy(u),
             "v": self._to_host_xy(v),
+        }
+
+
+class RepellingFisherWave(LBModel):
+    """Fisher wave repelled by its own LBM-Poisson potential
+    (``repelling_fisher_waves_old.py:55-477``): each outer step re-solves the
+    Poisson equation with source rho (to ``max_inner_iter`` iterations or
+    convergence, warm-started from the previous potential) and advects with
+    ``E (dt/dx) * (u, v)`` of its negative gradient (``:380-392``).
+
+    Arguments as in the JAX class (``seed`` is accepted and unused there
+    too: the Poisson solver draws its perturbation with seed 0), plus
+    ``device``. The state is JAX's 5-tuple ``(f, poisson f, raw gradient u,
+    v, rho at the last solve)``; the raw gradient is carried unscaled
+    (``DIVERGENCES.md`` #5). Three modes:
+
+    * exact (the default): a converge-to-tolerance solve every outer step;
+    * gated, ``reuse_tolerance > 0``: the potential is reused while
+      ``mean|rho - rho_at_last_solve| <= reuse_tolerance * mean(rho)``;
+    * tracking, ``inner_per_step = k``: the potential is converged once at
+      construction, then every outer step runs exactly ``k`` inner
+      iterations and refreshes the gradient. Excludes ``reuse_tolerance``.
+      Its lag grows with N at fixed k (see the JAX class).
+
+    Host reads of device values per outer step on CUDA (``host_reads``
+    counts them): exact, one per block of the solve,
+    ``ceil(iterations / check_every)`` (check_every 10, so at most
+    ``ceil(max_inner_iter / 10)``); gated, one for the drift test (JAX's
+    ``lax.cond``) plus, on a step that solves, the solve's; tracking, none:
+    its whole outer step is one CUDA graph, replayed ``n`` times by
+    ``run(n)``. The solve's blocks are CUDA graphs in the exact and gated
+    modes (:class:`lb2d_tpu_torch.models.poisson._PoissonLoop`); the rest
+    of their outer step runs eagerly. On the CPU everything runs eagerly.
+    """
+
+    def __init__(self, Lx=1.0, Ly=1.0, vc=1.0, E=1.0, R0=5.0,
+                 time_prefactor=1.0, N=50, max_inner_iter=200,
+                 inner_tolerance=1e-5, seed=0, dtype=torch.float32,
+                 reuse_tolerance=0.0, inner_per_step=None, device="cuda"):
+        self.D, self.G = 1.0 / 4.0, 1.0
+        self.E = E
+        self.R0 = R0
+        self.N = N
+        self.lattice = D2Q9
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.max_inner_iter = max_inner_iter
+        self.reuse_tolerance = float(reuse_tolerance)
+        self.inner_per_step = None if inner_per_step is None else int(
+            inner_per_step)
+        if self.inner_per_step is not None:
+            if self.inner_per_step < 1:
+                raise ValueError("inner_per_step must be >= 1")
+            if reuse_tolerance != 0.0:
+                raise ValueError(
+                    "inner_per_step (tracking) and reuse_tolerance (gated) "
+                    "are mutually exclusive amortization modes")
+
+        self.delta_x = 1.0 / N
+        self.delta_t = time_prefactor * self.delta_x**2
+        self.ulb = self.delta_t / self.delta_x
+        self.lb_D = np.float32(self.D * self.delta_t / self.delta_x**2)
+        self.omega = np.float32(1.0 / (0.5 + self.lb_D / self.lattice.cs2))
+        self.lb_G = np.float32(self.G * self.delta_t)
+
+        self.nx = int(np.round(N * Lx))
+        self.ny = int(np.round(N * Ly))
+
+        X, Y = np.meshgrid(np.arange(self.nx), np.arange(self.ny))
+        Xd = (X - self.nx // 2) / N
+        Yd = (Y - self.ny // 2) / N
+        rho0 = torch.tensor(np.exp(-(Xd**2 + Yd**2) / R0**2), dtype=dtype,
+                            device=self.device)
+
+        self.poisson = PoissonSolver(
+            nx=self.nx, ny=self.ny, sources=rho0, delta_t=self.delta_t,
+            delta_x=self.delta_x, tolerance=inner_tolerance, dtype=dtype,
+            device=self.device)
+
+        zero = torch.zeros((self.ny, self.nx), dtype=dtype, device=self.device)
+        if self.inner_per_step is not None:
+            # tracking: converge the potential of the initial density once,
+            # then take its gradient whether or not the run converged
+            self.poisson.run(max_inner_iter)
+            pu0, pv0 = negative_gradient(self.poisson.rho, self.delta_x)
+        else:
+            pu0, pv0 = zero.clone(), zero.clone()
+        # the 5th member: the density at the last solve (the gated mode's
+        # drift reference; -1 forces the first step to solve)
+        self.state = (feq_linear(rho0, zero, zero, self.lattice),
+                      self.poisson.f, pu0, pv0,
+                      torch.full((self.ny, self.nx), -1.0, dtype=dtype,
+                                 device=self.device))
+        self._drift_reads = self._replays = 0
+        self._graph = self._static = None
+        super().__init__()
+
+    @property
+    def num_cells(self):
+        return self.nx * self.ny
+
+    @property
+    def host_reads(self) -> int:
+        """Host reads of device values so far: the solve's convergence flags
+        and the gated mode's drift tests."""
+        return self.poisson._loop.reads + self._drift_reads
+
+    @property
+    def graph_replays(self) -> int:
+        """CUDA-graph replays so far: the solve's blocks and the tracking
+        mode's outer steps."""
+        return self.poisson._loop.replays + self._replays
+
+    @property
+    def inner_iterations(self) -> int:
+        """Iterations that the Poisson solves' converge loop ran so far (the
+        tracking mode's fixed ``k`` per step run outside it)."""
+        return self.poisson._loop.iterations
+
+    def make_step(self):
+        lat = self.lattice
+        kw = dict(dtype=self.dtype, device=self.device)
+        omega = torch.tensor(self.omega, **kw)
+        w = torch.tensor(lat.w_np(), **kw)[:, None, None]
+        G = float(self.lb_G)
+        consts = self.poisson._consts()
+        source_scale = np.float32(self.poisson.lb_D * self.poisson.delta_t)
+        max_iter = self.max_inner_iter
+        scale = float(np.float32(self.E * self.ulb))
+        n_cells = self.num_cells
+
+        def collide(f, rho, pu, pv):
+            feq = feq_linear(rho, scale * pu, scale * pv, lat)
+            growth = G * rho * (1.0 - rho)
+            return bgk(f, feq, omega) + w * growth
+
+        if self.inner_per_step is not None:
+            # tracking: k fixed inner iterations per outer step, with the
+            # second source-scaling stage of _poisson_run (DIVERGENCES #8)
+            piter = _make_poisson_iter(consts)
+            react_scale = float(source_scale * np.float32(consts["delta_t"])
+                                * np.float32(consts["lb_D"]))
+            k_inner = self.inner_per_step
+            dx = float(np.float32(consts["delta_x"]))
+
+            def step(state):
+                f, pf, pu, pv, rho_ref = state
+                f = stream(f, lat)
+                rho = density(f)
+                react = rho * react_scale
+                for _ in range(k_inner):
+                    pf, prho = piter(pf, react)
+                pu, pv = negative_gradient(prho, dx)
+                return (collide(f, rho, pu, pv), pf, pu, pv, rho)
+
+            if self.device.type == "cuda":
+                self._run_n = self._replay_run
+            return step
+
+        loop = self.poisson._loop
+        ss = float(source_scale)
+        reuse_tol = float(np.float32(self.reuse_tolerance))
+        use_reuse = self.reuse_tolerance > 0.0
+
+        def solve(rho, pf, pu, pv):
+            # warm-started from the previous potential; it0 = 0 on every
+            # solve, as JAX passes it (waves.py:674-676)
+            pf, _, pu, pv, _, _ = _poisson_run(
+                consts, pf, rho_poisson(pf, lat), pu, pv, rho * ss, 0,
+                max_iter, loop=loop)
+            return pf, pu, pv
+
+        def step(state):
+            f, pf, pu, pv, rho_ref = state
+            f = stream(f, lat)
+            rho = density(f)
+            if use_reuse:
+                drift = torch.sum(torch.abs(rho - rho_ref)) / n_cells
+                need = drift > reuse_tol * (torch.sum(rho) / n_cells)
+                self._drift_reads += 1
+                if bool(need):
+                    pf, pu, pv = solve(rho, pf, pu, pv)
+                    rho_ref = rho
+            else:
+                pf, pu, pv = solve(rho, pf, pu, pv)
+                rho_ref = rho
+            return (collide(f, rho, pu, pv), pf, pu, pv, rho_ref)
+
+        return step
+
+    def _replay_run(self, state, n):
+        """Tracking mode on CUDA: ``n`` replays of the outer step captured
+        as one CUDA graph on buffers of the model's own (the state is copied
+        in when it is not already them); returns those buffers."""
+        if self._graph is None:
+            self._static = tuple(t.clone() for t in state)
+            self._graph = graph_in_place(lambda *s: self._step(s),
+                                         self._static, self._static)
+        for buf, t in zip(self._static, state):
+            if buf is not t:
+                buf.copy_(t)
+        for _ in range(n):
+            self._graph.replay()
+        self._replays += n
+        return self._static
+
+    def get_fields(self):
+        f, pf, pu, pv, _ = self.state
+        rho = density(f)
+        scale = float(self.E * self.ulb)
+        return {
+            "f": self._to_host_xy(f),
+            "rho": self._to_host_xy(rho),
+            "u": self._to_host_xy(scale * pu),
+            "v": self._to_host_xy(scale * pv),
         }

@@ -2,33 +2,46 @@
 
 Constants are float32 tensors on the field's device, rounded as the JAX
 module rounds them, so both packages evaluate the same float32 expressions.
+They are made once per lattice, dtype, device and rank and then reused, so
+that a call copies nothing from the host (and can be captured in a CUDA
+graph once it has run).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..core import D2Q9, Lattice
 
-__all__ = ["feq_quadratic", "feq_incompressible", "feq_linear"]
+__all__ = ["feq_quadratic", "feq_incompressible", "feq_linear", "feq_poisson"]
 
 
 def _consts(lattice: Lattice, rho: torch.Tensor):
     """The lattice columns shaped ``(Q, 1, ...)`` to broadcast against
     ``rho`` of any rank (``[ny, nx]``, or ``[F, ny, nx]`` for the
-    multifield models)."""
-    def col(values):
-        return torch.tensor(values, dtype=rho.dtype, device=rho.device
-                            ).reshape((len(values),) + (1,) * rho.dim())
+    multifield models): ``w``, ``cx``, ``cy``, ``cs2`` and ``w - e_0`` (the
+    Poisson weights)."""
+    return _columns(lattice, rho.dtype, rho.device, rho.dim())
 
-    cs2 = torch.tensor(lattice.cs2, dtype=rho.dtype, device=rho.device)
-    return col(lattice.w), col(lattice.cx), col(lattice.cy), cs2
+
+@functools.lru_cache(maxsize=None)
+def _columns(lattice: Lattice, dtype, device, rank: int):
+    def col(values):
+        return torch.tensor(values, dtype=dtype, device=device
+                            ).reshape((len(values),) + (1,) * rank)
+
+    cs2 = torch.tensor(lattice.cs2, dtype=dtype, device=device)
+    w = col(lattice.w)
+    rest = col((1.0,) + (0.0,) * (lattice.q - 1))
+    return w, col(lattice.cx), col(lattice.cy), cs2, w - rest
 
 
 def feq_quadratic(rho, u, v, lattice: Lattice = D2Q9) -> torch.Tensor:
     """``w_j rho (1 + c.u/cs2 + (c.u)^2/(2 cs4) - u^2/(2 cs2))``
     (``D2Q9.cl:55-60``)."""
-    w, cx, cy, cs2 = _consts(lattice, rho)
+    w, cx, cy, cs2, _ = _consts(lattice, rho)
     cu = cx * u + cy * v
     usq = u * u + v * v
     inner = 1.0 + cu / cs2 + (cu * cu) / (2.0 * cs2 * cs2) - usq / (2.0 * cs2)
@@ -38,7 +51,7 @@ def feq_quadratic(rho, u, v, lattice: Lattice = D2Q9) -> torch.Tensor:
 def feq_incompressible(rho, u, v, lattice: Lattice = D2Q9) -> torch.Tensor:
     """He-Luo: ``w_j (rho + c.u/cs2 + (c.u)^2/(2 cs4) - u^2/(2 cs2))``
     (``D2Q9i.cl:55-60``)."""
-    w, cx, cy, cs2 = _consts(lattice, rho)
+    w, cx, cy, cs2, _ = _consts(lattice, rho)
     cu = cx * u + cy * v
     usq = u * u + v * v
     inner = rho + cu / cs2 + (cu * cu) / (2.0 * cs2 * cs2) - usq / (2.0 * cs2)
@@ -48,6 +61,12 @@ def feq_incompressible(rho, u, v, lattice: Lattice = D2Q9) -> torch.Tensor:
 def feq_linear(rho, u, v, lattice: Lattice = D2Q9) -> torch.Tensor:
     """Advection-diffusion feq, linear in velocity:
     ``w_j rho (1 + c.u/cs2)`` (``D2Q9_diffusion.cl:27-36``)."""
-    w, cx, cy, cs2 = _consts(lattice, rho)
+    w, cx, cy, cs2, _ = _consts(lattice, rho)
     cu = cx * u + cy * v
     return w * rho * (1.0 + cu / cs2)
+
+
+def feq_poisson(rho, lattice: Lattice = D2Q9) -> torch.Tensor:
+    """Chai-Shi Poisson-equation feq: ``(w_0 - 1) rho`` for the rest
+    population, ``w_j rho`` otherwise (``D2Q9_poisson.cl:17-29``)."""
+    return _consts(lattice, rho)[4] * rho

@@ -6,7 +6,8 @@ import torch
 
 from ..core import D2Q9, Lattice
 
-__all__ = ["density", "momentum", "hydro_compressible", "hydro_incompressible"]
+__all__ = ["density", "momentum", "hydro_compressible", "hydro_incompressible",
+           "rho_poisson"]
 
 
 def _c_consts(lattice: Lattice, f: torch.Tensor):
@@ -39,3 +40,13 @@ def hydro_incompressible(f: torch.Tensor, lattice: Lattice = D2Q9):
     rho = density(f)
     jx, jy = momentum(f, lattice)
     return rho, jx, jy
+
+
+def rho_poisson(f: torch.Tensor, lattice: Lattice = D2Q9) -> torch.Tensor:
+    """``rho = (1/(1-w_0)) * sum_{j>=1} f_j``; for D2Q9 the prefactor is 9/5
+    (``D2Q9_poisson.cl:59``). The populations are added in direction order,
+    as JAX's sum adds them (``torch.sum`` adds in another order)."""
+    total = f[1]
+    for j in range(2, lattice.q):
+        total = total + f[j]
+    return (1.0 / (1.0 - lattice.w[0])) * total

@@ -52,5 +52,10 @@ def test_port_and_chip_smoke_import_no_jax_package():
                  "lb2d_tpu_torch.parallel",
                  "lb2d_tpu_torch.parallel.halo",
                  "lb2d_tpu_torch.parallel.distributed",
-                 "lb2d_tpu_torch.parallel.sharded"):
+                 "lb2d_tpu_torch.parallel.sharded",
+                 "lb2d_tpu_torch.models.poisson",
+                 "lb2d_tpu_torch.utils.checkpoint",
+                 "lb2d_tpu_torch.utils.metrics",
+                 "lb2d_tpu_torch.utils.profiling",
+                 "lb2d_tpu_torch.utils.render"):
         assert name in imported, imported

@@ -7,17 +7,19 @@
 (``lb2d_tpu/models/base.py:101-110``); ``PipeFlow(init_state=False)``
 (``pipe_flow.py:83,151-154``), the configuration-only model that
 ``ShardedPipeFlow`` builds on. Every name that ``lb2d_tpu``,
-``lb2d_tpu.core`` and ``lb2d_tpu.models`` export resolves in the port,
-less the two models of a later slice.
+``lb2d_tpu.core``, ``lb2d_tpu.models`` and ``lb2d_tpu.utils`` export
+resolves in the port.
 """
 
 import importlib
-
+import inspect
 
 import numpy as np
 import pytest
 import torch
 
+import lb2d_tpu.models as jax_models
+import lb2d_tpu.utils as jax_utils
 import lb2d_tpu_torch.models as torch_models
 from lb2d_tpu_torch.models.base import LBModel
 
@@ -43,12 +45,11 @@ MODELS = {
 }
 
 
-# ROADMAP queue 1 item 3: the LBM Poisson solver and the wave built on it
-NOT_YET_PORTED = {"PoissonSolver", "RepellingFisherWave"}
+NOT_YET_PORTED = set()
 
 
-@pytest.mark.parametrize("module", ["", ".core", ".models"],
-                         ids=["package", "core", "models"])
+@pytest.mark.parametrize("module", ["", ".core", ".models", ".utils"],
+                         ids=["package", "core", "models", "utils"])
 def test_every_jax_export_resolves_in_the_port(module):
     jax_mod = importlib.import_module("lb2d_tpu" + module)
     port = importlib.import_module("lb2d_tpu_torch" + module)
@@ -58,6 +59,25 @@ def test_every_jax_export_resolves_in_the_port(module):
     assert set(jax_mod.__all__) - NOT_YET_PORTED <= set(port.__all__)
     if not module:
         assert port.__version__ == jax_mod.__version__
+
+
+@pytest.mark.parametrize(
+    "module,name", [(".models", n) for n in jax_models.__all__]
+    + [(".utils", n) for n in jax_utils.__all__])
+def test_every_argument_and_public_method_is_ported(module, name):
+    """Each exported class or function of the JAX package: every argument
+    of the constructor (or function) and every public attribute of the
+    class exist in the port's counterpart."""
+    jax_obj = getattr(importlib.import_module("lb2d_tpu" + module), name)
+    port_obj = getattr(importlib.import_module("lb2d_tpu_torch" + module),
+                       name)
+    fn = jax_obj.__init__ if inspect.isclass(jax_obj) else jax_obj
+    port_fn = port_obj.__init__ if inspect.isclass(port_obj) else port_obj
+    params = set(inspect.signature(fn).parameters)
+    assert params <= set(inspect.signature(port_fn).parameters)
+    if inspect.isclass(jax_obj):
+        public = {m for m in dir(jax_obj) if not m.startswith("_")}
+        assert public <= set(dir(port_obj))
 
 
 @pytest.mark.parametrize("name", list(MODELS))

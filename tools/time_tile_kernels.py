@@ -1,4 +1,4 @@
-"""Time K2, K4, K5, K6, K7 and K9 per launch on the card, at the shapes of
+"""Time K2, K4, K5, K6, K7, K9 and P1 per launch on the card, at the shapes of
 PERF.md's kernel table, and print one JSON line.
 
     cd <checkout> && python3 <path>/tools/time_tile_kernels.py [label] [mode]
@@ -76,7 +76,11 @@ run); K2 at K = 3 and 4 on the grids from 512^2 to 1448^2 where the two
 loops cross over, by graph replay (in both loops where the checkout has
 both, ``VELOCITY_TILE_MAX_CELLS`` set for the run); and the control: K2
 flow 4096^2 and 2048^2, diffusion and noisy Fisher 2048^2 at the models' K
-and K9 flow at its 2048 x 8192 shard, by events and graph replay.
+and K9 flow at its 2048 x 8192 shard, by events and graph replay;
+``k5p1``, K5 on the band of 4K rows of the 1024^2 ``Expansion`` at its K
+and P1 (``normals``) for a 2048^2 field, the shapes of ``chip_smoke.py``'s
+rows, each by CUDA-graph replay (as ``graph``) beside CUDA events around
+host launches.
 """
 
 import json
@@ -167,6 +171,10 @@ def main():
         return
     if sys.argv[2:] == ["k3"]:
         out.update(_k3_times())
+        print(json.dumps(out), flush=True)
+        return
+    if sys.argv[2:] == ["k5p1"]:
+        out.update(_k5_p1_times())
         print(json.dumps(out), flush=True)
         return
     if sys.argv[2:] == ["inlet"]:
@@ -524,6 +532,36 @@ def _graph_times():
         outb = torch.empty_like(halo.f)
         both(f"K7h {cfg.physics} {H}x{W} shard",
              lambda: coupled_step_halo(halo, outb, rho, ext, cfg, prm))
+    return out
+
+
+def _k5_p1_times():
+    """K5 and P1 at chip_smoke.py's shapes: ms per launch by CUDA events
+    around host launches and by CUDA-graph replay."""
+    from lb2d_tpu_torch.ops.fused import expansion_band_step
+    from lb2d_tpu_torch.ops.random import normals
+
+    sim = Expansion(device="cuda", **EXPANSION)
+    k = _models_k()["expansion"]
+    kw = sim.step_kwargs()
+    B = 2 * k
+    band = torch.cat([sim.state[:, :, -B:], sim.state[:, :, :B]],
+                     dim=2).contiguous()
+    args = [kw[n] for n in ("omegas", "omega_nutrient", "lb_G", "lb_Dg",
+                            "cutoff", "u_lb", "v_lb")]
+    band_kw = dict(seed=kw["seed"], step0=sim.steps_taken, row0=sim.ny - B,
+                   ny=sim.ny)
+    out = {}
+
+    def both(label, launch):
+        out[label] = {"events_ms": _median_ms(launch),
+                      "graph_ms": _graph_ms(launch)}
+
+    both(f"K5 band {2 * B}x{sim.nx} F={sim.num_fields} K={k}",
+         lambda: expansion_band_step(band, k, *args, **band_kw))
+    sto = ReactionAdvectionDiffusionStochastic(device="cuda", **STOCHASTIC)
+    both(f"P1 normals {sto.ny}x{sto.nx}",
+         lambda: normals(sto.rng_seed, 0, (sto.ny, sto.nx), "cuda"))
     return out
 
 
