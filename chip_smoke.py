@@ -26,13 +26,15 @@ set to 0 just before it and read just after:
   without its screened-Poisson hook, the spinodal decomposition at 1024^2
   and a D2Q25 two-fluid runner at 1024^2;
 * the spectral slice (K8, ``screened_gradients``, and K7,
-  ``coupled_step``): BASELINE config 5 whole at 8192^2 (K6 + K8, its
-  screened-Poisson force solved every step) and its ``stale_force=8``
-  variant, then the coupled models at ``examples/zoo_drive.py``'s sizes:
-  ``ScreenedFisherWave`` at 1024^2 (and ``stale_velocity=8``),
-  ``SurfactantNutrientWave`` at 512^2 (and ``stale_velocity=8`` at
-  1024^2), ``ClumpySurfactantNutrientWave`` at 512^2, ``RocketYeast`` and
-  ``RocketYeastForcesOnly`` at 1024^2. K8 is held to its plain solve at
+  ``coupled_sweep``, K steps a launch): BASELINE config 5 whole at 8192^2
+  (K6 + K8, its screened-Poisson force solved every step) and its
+  ``stale_force=8`` variant, then the coupled models at
+  ``examples/zoo_drive.py``'s sizes: ``ScreenedFisherWave`` at 1024^2
+  (and ``stale_velocity=8``), ``SurfactantNutrientWave`` at 512^2 (and
+  ``stale_velocity=8`` at 1024^2), ``ClumpySurfactantNutrientWave`` at
+  512^2, ``RocketYeast`` and ``RocketYeastForcesOnly`` at 1024^2, with K7
+  held to its plain steps and its one-step launches at K = 1, 2 and the
+  path's K from each model's state and a random 254x382 state. K8 is held to its plain solve at
   8192^2, 1024^2, 512^2, 48^2, 50^2, 45x64, 127x250 and 8191x16 (the tiled
   plan's four-step and one-launch column paths, and the whole-line
   kernel) and timed per solve and per pass at 8192^2 and 1024^2 beside
@@ -48,15 +50,16 @@ set to 0 just before it and read just after:
   beside the unsharded K2 run and the halo exchange's share, and the other
   sharded models' shorter runs in theirs;
 * the sharded runner and coupled families (K6h, ``mc_density_halo`` +
-  ``mc_step_halo``, and K7h, ``coupled_step_halo``): BASELINE config 5 at
+  ``mc_step_halo``, and K7h, ``coupled_sweep_halo``): BASELINE config 5 at
   8192^2 ``shard_over`` 4x1 shards of one card (``benchmarks/run_all.py``'s
   ``bench_porous_poisson_8192`` and its ``stale_force=8`` variant), held to
   the unsharded K6 + K8 run and timed beside it in counted windows, with
   the halo exchange's and the density sharing's ms per step; K6h against K6
   and its twins on 2x2 shards of the 1024^2 spinodal, a D2Q25 and a
   zero-gradient runner; ``ShardedCoupled`` over each coupled model at
-  ``zoo_drive.py``'s sizes, K7h held to K7 and its twin, ``run(64)`` each
-  in its own window; and P2 (``transpose``) at the probe's [4224, 8192],
+  ``zoo_drive.py``'s sizes, K7h held to K7, its twin and its one-step
+  launches at K = 1, 2 and the run's K, ``run(64)`` each in its own window;
+  and P2 (``transpose``) at the probe's [4224, 8192],
   equal to ``x.t().contiguous()`` and timed beside it;
 * the Poisson slice (plain torch ops, no hand kernel: each path must
   launch none): ``PoissonSolver`` at 1024^2 for a fixed 2,000 iterations,
@@ -163,13 +166,17 @@ from lb2d_tpu_torch.ops.fused import (
     velocity_step_reference,
 )
 from lb2d_tpu_torch.ops.fused_coupled import (
+    COUPLED_TEMPORAL_K,
     coupled_density,
     coupled_density_halo,
+    coupled_max_k,
     coupled_params,
-    coupled_step,
-    coupled_step_halo,
-    coupled_step_halo_reference,
-    coupled_step_reference,
+    coupled_sweep,
+    coupled_sweep_halo,
+    coupled_sweep_halo_reference,
+    coupled_sweep_reference,
+    _coupled_cell_step,
+    _coupled_cell_step_halo,
 )
 from lb2d_tpu_torch.ops.fused_halo import (
     HALO_TEMPORAL_K,
@@ -288,8 +295,7 @@ K8_SHAPES = ((8192, 8192), (1024, 1024), (512, 512), (48, 48), (50, 50),
              (45, 64), (127, 250), (8191, 16))  # the main paths' grids
 # (the tiled plan's four-step and one-launch columns), mixed radices, an
 # odd row count, and primes (the whole-line kernel)
-COUPLED_STEPS = 256     # each coupled model's run (32 sweeps at K = 8)
-COUPLED_CHECK_STEPS = 5  # K7 against the plain step, from one state
+COUPLED_STEPS = 256     # each coupled model's run (64 launches at K = 4)
 SCREENED_FISHER = dict(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=1024)
 SURFACTANT = dict(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=512)
 CLUMPY = dict(SURFACTANT, rho_o=1.0, G_chen=-5.0)
@@ -666,10 +672,10 @@ COUNTERS = {"K1": pipe_step, "K2": temporal_pipe_step,
             "K3 diffusion family": resident_diffusion_run, "P1": normals,
             "philox_bits": philox_bits, "K4": temporal_multifield_step,
             "K5": expansion_band_step, "K6d": mc_density, "K6s": mc_step,
-            "K7": coupled_step, "K8": screened_gradients,
+            "K7": coupled_sweep, "K8": screened_gradients,
             "K8 pass": dft_axis0, "K9": temporal_halo_step,
             "K6hd": mc_density_halo, "K6hs": mc_step_halo,
-            "K7h": coupled_step_halo, "P2": transpose}
+            "K7h": coupled_sweep_halo, "P2": transpose}
 
 
 def _window(label, drive, expected):
@@ -1787,25 +1793,39 @@ def _k7_inputs(sim):
     return f, rho, ext
 
 
-def compare_k7(cfg, f0, ext, steps=COUPLED_CHECK_STEPS):
-    """``steps`` K7 steps (density pass + step, ``ext`` held) against as
-    many plain steps; returns max |df|."""
+def _launch_k(sim):
+    """Steps per K7 launch on a coupled model's main path: the rocket
+    yeasts' K, the screened families' stale_velocity up to the cap."""
+    cfg = sim.coupled_config()
+    cap = min(COUPLED_TEMPORAL_K[cfg.physics], coupled_max_k(cfg))
+    return min(sim.steps_per_call, cap)
+
+
+def compare_k7(cfg, f0, ext, k):
+    """K7, ``k`` steps in one launch (``ext`` held), against ``k`` plain
+    steps and against ``k`` one-step launches; returns both max |df|, and
+    for a screened family at ``k = 1`` the one-step kernel's on the
+    densities of ``f0`` against the plain step (else 0)."""
     params = coupled_params(cfg)
-    rho = torch.empty((cfg.fields, *f0.shape[2:]), device="cuda")
-    a, spare = f0.clone(), torch.empty_like(f0)
-    for _ in range(steps):
-        coupled_density(a, rho)
-        a, spare = coupled_step(a, spare, rho, ext, cfg, params), a
-    b = f0
-    for _ in range(steps):
-        b = coupled_step_reference(b, cfg, ext)
-    return _max_diff(a, b)
+    a = coupled_sweep(f0, torch.empty_like(f0), ext, cfg, k, params)
+    b = coupled_sweep_reference(f0, cfg, k, ext)
+    c = f0
+    for _ in range(k):
+        c = coupled_sweep(c, torch.empty_like(c), ext, cfg, 1, params)
+    d_cell = 0.0
+    if cfg.reads_ext and k == 1:
+        rho = coupled_density(f0, torch.empty((cfg.fields, *f0.shape[2:]),
+                                              device="cuda"))
+        d_cell = _max_diff(_coupled_cell_step(f0, torch.empty_like(f0), rho,
+                                              ext, cfg, params), b)
+    return _max_diff(a, b), _max_diff(a, c), d_cell
 
 
 def coupled_kernel_phase(runs):
-    """K7, each physics, against its plain step: from the state of each
-    main path's model at its shape, and, once per physics, from a random
-    state with a random velocity field at 254x382."""
+    """K7, each physics, against its plain steps and its one-step launches
+    at K = 1, 2 and the main path's K: from the state of each main path's
+    model at its shape, and, once per physics, from a random state with a
+    random velocity field at 254x382 (K = 1, 2 and the cap)."""
     worst = {}
     rng = np.random.RandomState(4)
     w = np.asarray(D2Q9.w)[:, None, None, None]
@@ -1813,22 +1833,33 @@ def coupled_kernel_phase(runs):
         cfg = sim.coupled_config()
         physics = cfg.physics
         f, _, ext = _k7_inputs(sim)
-        cases = [(f"{sim.ny}x{sim.nx} model state ({run_label})", f, ext)]
+        cases = [(f"{sim.ny}x{sim.nx} model state ({run_label})", f, ext,
+                  sorted({1, 2, _launch_k(sim)}))]
         if physics not in worst:
             rand = torch.tensor(w * (0.2 + rng.rand(9, cfg.fields, 254, 382)),
                                 dtype=torch.float32, device="cuda")
             rand_ext = torch.tensor(0.02 * (rng.rand(2, 254, 382) - 0.5),
                                     dtype=torch.float32, device="cuda")
-            cases.append(("254x382 random state", rand, rand_ext))
-            worst[physics] = 0.0
-        for label, f0, e in cases:
-            d = compare_k7(cfg, f0, e)
-            print(f"K7 {physics} vs plain, {label}, {COUPLED_CHECK_STEPS} "
-                  f"steps: max|df| = {d:.3e}", flush=True)
-            if not d <= KERNEL_TOL:
-                raise RuntimeError(f"K7 {physics} disagrees: {d}")
-            worst[physics] = max(worst[physics], d)
-    return worst
+            cases.append(("254x382 random state", rand, rand_ext,
+                          sorted({1, 2, coupled_max_k(cfg)})))
+            worst[physics] = [0.0, 0.0]
+        for label, f0, e, ks in cases:
+            for k in ks:
+                d, d_one, d_cell = compare_k7(cfg, f0, e, k)
+                cell = (f", the one-step kernel vs the plain step "
+                        f"{d_cell:.3e}" if cfg.reads_ext and k == 1 else "")
+                print(f"K7 {physics}, {label}, K = {k}: max|df| vs {k} plain "
+                      f"steps {d:.3e}, vs {k} one-step launches {d_one:.3e}"
+                      + cell, flush=True)
+                if not max(d, d_one, d_cell) <= KERNEL_TOL:
+                    raise RuntimeError(f"K7 {physics} disagrees at K = {k}: "
+                                       f"{d}, {d_one}, {d_cell}")
+                worst[physics] = [max(worst[physics][0], d, d_cell),
+                                  max(worst[physics][1], d_one)]
+    for physics, (d, d_one) in worst.items():
+        print(f"K7 {physics}: worst max|df| vs plain steps {d:.3e}, vs "
+              f"one-step launches {d_one:.3e}", flush=True)
+    return {physics: max(d) for physics, d in worst.items()}
 
 
 def spectral_timing_phase(card):
@@ -1901,8 +1932,11 @@ def spectral_timing_phase(card):
 
 
 def coupled_timing_phase(models):
-    """Device ms per K7 launch of each physics at its model's shape, on the
-    density and velocity of the model's state, and of the plain step
+    """Device ms per K7 launch of each physics at its model's shape and its
+    main path's K, on the velocity of the model's state: by CUDA events
+    around host launches and by CUDA-graph replay (the kernel's own time,
+    where a launch is shorter than the host's); per step at K = 1 and the
+    cap; and of the plain steps, as many as the main path's launch takes
     (CUDA events)."""
     times = {}
     for physics, sim in models.items():
@@ -1910,22 +1944,38 @@ def coupled_timing_phase(models):
         f, rho, ext = _k7_inputs(sim)
         params = coupled_params(cfg)
         bufs = [f.clone(), torch.empty_like(f)]
+        k = _launch_k(sim)
+        # the main path's launch (the one-step kernel for a screened
+        # family's single step), the sweep at K = 1 and at its cap
+        ks = {"": k, " sweep K1": 1, " cap": coupled_max_k(cfg)}
+        cell = {"": rho if cfg.reads_ext and k == 1 else None}
+        for tag, k in ks.items():
+            def launch(k=k, rho=cell.get(tag)):
+                if rho is None:
+                    coupled_sweep(bufs[0], bufs[1], ext, cfg, k, params)
+                else:
+                    _coupled_cell_step(bufs[0], bufs[1], rho, ext, cfg,
+                                       params)
+                bufs.reverse()
 
-        def step():
-            coupled_step(bufs[0], bufs[1], rho, ext, cfg, params)
-            bufs.reverse()
-
-        step()
-        times[physics] = _events_ms(step, 100)
+            launch()
+            times[physics + tag] = _events_ms(launch, 100)
+            times[physics + tag + " graph"] = _graph_ms(launch)
+        k = times[physics + " k"] = ks[""]
         g = [f]
 
-        def plain():
-            g[0] = coupled_step_reference(g[0], cfg, ext)
+        def plain():  # the main path's launch: k plain steps
+            g[0] = coupled_sweep_reference(g[0], cfg, k, ext)
 
         plain()
         times["plain " + physics] = _events_ms(plain, 10)
-        print(f"K7 {physics} at {sim.ny}x{sim.nx}: {times[physics]:.4f} ms "
-              f"per launch; plain step {times['plain ' + physics]:.4f} ms "
+        print(f"K7 {physics} at {sim.ny}x{sim.nx}: "
+              + ", ".join(f"{'main path' if not tag else tag.strip()} K = "
+                          f"{k}: {times[physics + tag]:.4f} ms per launch "
+                          f"(graph {times[physics + tag + ' graph']:.4f}; "
+                          f"{times[physics + tag + ' graph'] / k:.4f} per "
+                          "step)" for tag, k in ks.items())
+              + f"; {k} plain step(s) {times['plain ' + physics]:.4f} ms "
               "(CUDA events)", flush=True)
         del bufs, g
     return times
@@ -1997,22 +2047,34 @@ def config5_phase(card, times):
     return out
 
 
+def _coupled_launches(sim, n, k, shards=1, density="K6d", step="K7"):
+    """The launches of a coupled model's ``run(n)`` (or a sharded one's, with
+    ``shards`` shards): the rocket yeasts' ``ceil(n / K)`` K7 launches and
+    no density pass; per sweep of the screened families' ``S =
+    steps_per_call``, one density pass (each solve's source) and ``ceil(S /
+    k)`` launches, the rest of ``run(n)`` exact single steps."""
+    if sim.coupled_config().physics.startswith("rocket_yeast"):
+        return {step: shards * -(-n // k)}
+    S = sim.steps_per_call
+    sweeps, rest = divmod(n, S)
+    return {step: shards * (sweeps * -(-S // k) + rest),
+            density: shards * (sweeps + rest)}
+
+
 def coupled_main_path_phase(runs, card):
     """The coupled models as a user runs them, each ``run(COUPLED_STEPS,
-    timed=True)`` in its own counted window (K6's density pass, K8 for the
-    screened ones, K7); then three plain (eager) models at the same sizes,
-    the screened ones solving with ``torch.fft``."""
+    timed=True)`` in its own counted window (K7's K-step launches; for the
+    screened ones K6's density pass and K8 once per sweep); then three
+    plain (eager) models at the same sizes, the screened ones solving with
+    ``torch.fft``."""
     launches, mlups = {}, {}
     mass0 = {label: _field_masses(sim) for label, sim in runs.items()}
     for label, sim in runs.items():
         K = sim.steps_per_call
-        screened = sim._velocity is not None
-        sweeps = COUPLED_STEPS // K
-        expected = {"K7": COUPLED_STEPS}
-        expected["K6d"] = (COUPLED_STEPS if sim.coupled_config(
-        ).reads_neighbours or K == 1 else sweeps)
-        if screened:
-            expected["K8"] = solve_launches(sim.ny, sim.nx) * sweeps
+        expected = _coupled_launches(sim, COUPLED_STEPS, _launch_k(sim))
+        if sim._velocity is not None:
+            expected["K8"] = (solve_launches(sim.ny, sim.nx)
+                              * expected["K6d"])
         sim.run(K)  # warm
         counts = _window(f"{type(sim).__name__} {sim.ny}x{sim.nx} ({label})",
                          lambda sim=sim: sim.run(COUPLED_STEPS, timed=True),
@@ -2561,32 +2623,36 @@ def _sharded_coupled_models():
 
 def sharded_coupled_phase(card):
     """ShardedCoupled at the coupled models' sizes (``zoo_drive.py``): K7h
-    against the unsharded K7 and its twin from each model's state (its
-    velocity held), 5 steps, on the run's mesh; then ``run(64,
-    timed=True)`` in its own counted window. Returns per physics the K7h
-    row information (timed at a shard of its first run)."""
+    against K7 on the whole grid, its twin and its one-step launches from
+    each model's state (its velocity held) at K = 1, 2 and the run's K, on
+    the run's mesh; then ``run(64, timed=True)`` in its own counted
+    window. Returns per physics the K7h row information (timed at a shard
+    of its first run)."""
     rows = {}
     for label, cls, kw, mesh in _sharded_coupled_models():
         sim = cls(device="cuda", **kw)
         cfg = sim.coupled_config()
         f, rho, ext = _k7_inputs(sim)
         cuts = shard_cuts(sim.ny, sim.nx, *mesh)
-        d_k7, d_twin = compare_coupled_halo(f, cfg, ext, cuts,
-                                            HALO_CHECK_STEPS)
-        print(f"K7h {label} {sim.ny}x{sim.nx}, {HALO_CHECK_STEPS} steps: "
-              f"max|df| vs K7 {d_k7:.3e}, vs the twin {d_twin:.3e} (limit "
-              f"{KERNEL_TOL:g})", flush=True)
-        if not max(d_k7, d_twin) <= KERNEL_TOL:
-            raise RuntimeError(f"K7h {label} disagrees: {d_k7}, {d_twin}")
-        sh = ShardedCoupled(sim, mesh=_cuda_mesh(mesh))
+        sh = ShardedCoupled(sim, mesh=_cuda_mesh(mesh))  # takes sim's state
+        worst = [0.0] * 4
+        for k in sorted({1, 2, sh._k}):
+            d = compare_coupled_halo(f, cfg, ext, cuts, k)
+            print(f"K7h {label} {sim.ny}x{sim.nx}, K = {k}: max|df| vs K7 "
+                  f"{d[0]:.3e}, vs the twin {d[1]:.3e}, vs {k} one-step "
+                  f"launches {d[2]:.3e}, the one-step kernel vs K7 "
+                  f"{d[3]:.3e} (limit {KERNEL_TOL:g})", flush=True)
+            if not max(d) <= KERNEL_TOL:
+                raise RuntimeError(f"K7h {label} disagrees at K = {k}: {d}")
+            worst = [max(a, b) for a, b in zip(worst, d)]
+        del f, rho
         K = sh.steps_per_call
         sh.run(K)  # warm
-        sweeps = SHARDED_COUPLED_STEPS // K
-        expected = {"K7h": 4 * SHARDED_COUPLED_STEPS}
-        expected["K6hd"] = 4 * (SHARDED_COUPLED_STEPS if cfg.reads_neighbours
-                                or K == 1 else sweeps)
+        expected = _coupled_launches(sim, SHARDED_COUPLED_STEPS, sh._k, 4,
+                                     "K6hd", "K7h")
         if sim._velocity is not None:
-            expected["K8"] = solve_launches(sim.ny, sim.nx) * sweeps
+            expected["K8"] = (solve_launches(sim.ny, sim.nx)
+                              * expected["K6hd"] // 4)
         counts = _window(f"ShardedCoupled({cls.__name__}) {sim.ny}x{sim.nx} "
                          f"({label})",
                          lambda: sh.run(SHARDED_COUPLED_STEPS, timed=True),
@@ -2594,55 +2660,67 @@ def sharded_coupled_phase(card):
         if not all(torch.isfinite(t).all() for t in sh.state):
             raise RuntimeError(f"{label}: non-finite state")
         print(f"main path ShardedCoupled({cls.__name__}) {sim.ny}x{sim.nx} "
-              f"({label}) on shards of one card: {sh.last_mlups:.1f} MLUPS "
-              f"over {SHARDED_COUPLED_STEPS} steps, launches "
-              f"{ {k: v for k, v in counts.items() if v} }; card: {card}",
+              f"({label}) on shards of one card, K = {sh._k}: "
+              f"{sh.last_mlups:.1f} MLUPS over {SHARDED_COUPLED_STEPS} "
+              f"steps, launches {_nonzero(counts)}; card: {card}",
               flush=True)
         physics = cfg.physics
         if physics not in rows:
-            rows[physics] = _k7h_row(sh, cfg, counts["K7h"],
-                                     max(d_k7, d_twin))
+            rows[physics] = _k7h_row(sh, cfg, counts["K7h"], max(worst))
         else:
-            rows[physics]["err"] = max(rows[physics]["err"], d_k7, d_twin)
+            rows[physics]["err"] = max(rows[physics]["err"], *worst)
         del sim, sh
         torch.cuda.empty_cache()
     return rows
 
 
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
 def _k7h_row(sh, cfg, launches, err):
-    """K7h at a sharded model's first shard against its twin, timed beside
-    it (CUDA events)."""
+    """K7h at a sharded model's first shard and K against its twin, timed
+    beside it (CUDA events, and CUDA-graph replay)."""
     exchange_halos(sh.mesh, sh.halos)
     dev = sh.mesh.device((0, 0))
     rho, ext = sh._rho.get(dev), sh._ext.get(dev)
-    if rho is not None:
+    if ext is not None:
         for h in sh.halos.values():
             coupled_density_halo(h, rho)
-    if ext is not None:
         sh.base._velocity.planes(rho[0], out=ext)
-    halo = sh.halos[(0, 0)]
+    halo, k = sh.halos[(0, 0)], sh._k
     out = torch.empty_like(halo.f)
     prm = coupled_params(cfg)
-    coupled_step_halo(halo, out, rho, ext, cfg, prm)
-    d = _max_diff(out, coupled_step_halo_reference(halo, rho, ext, cfg))
+    cell = rho if cfg.reads_ext and sh.steps_per_call == 1 else None
+
+    def launch():  # the main path's: the one-step kernel at K = 1
+        if cell is None:
+            coupled_sweep_halo(halo, out, ext, cfg, k, prm)
+        else:
+            _coupled_cell_step_halo(halo, out, cell, ext, cfg, prm)
+
+    launch()
+    d = _max_diff(out, coupled_sweep_halo_reference(halo, ext, cfg, k))
     if not d <= KERNEL_TOL:
         raise RuntimeError(f"K7h {cfg.physics} at a shard: {d}")
-    ms = _events_ms(lambda: coupled_step_halo(halo, out, rho, ext, cfg, prm),
-                    100)
+    ms = _events_ms(launch, 100)
+    graph_ms = _graph_ms(launch)
     plain_ms = _events_ms(
-        lambda: coupled_step_halo_reference(halo, rho, ext, cfg), 5)
+        lambda: coupled_sweep_halo_reference(halo, ext, cfg, k), 5)
     P, H, W = halo.f.shape
     F, cells = cfg.fields, H * W
-    print(f"K7h {cfg.physics} at a {H}x{W} shard: {ms:.4f} ms per launch; "
+    print(f"K7h {cfg.physics} at a {H}x{W} shard, K = {k}: {ms:.4f} ms per "
+          f"launch (graph {graph_ms:.4f}; {graph_ms / k:.4f} per step); "
           f"plain twin {plain_ms:.4f} ms (CUDA events)", flush=True)
     hk = halo.width
     halo_cells = 2 * hk * W + (0 if halo.left is None
                                else 2 * (H + 2 * hk) * hk)
     n_bytes = (4 * P * (2 * cells + halo_cells)
-               + (4 * F * cells if cfg.reads_neighbours else 0)
                + (8 * cells if cfg.reads_ext else 0))
-    return _halo_row(ms, plain_ms, launches, max(err, d), [P, H, W], n_bytes,
-                     cells * COUPLED_OPS[cfg.physics])
+    row = _halo_row(ms, plain_ms, launches, max(err, d), [P, H, W], n_bytes,
+                    cells * k * COUPLED_OPS[cfg.physics])
+    row.update(k=k, graph_ms=graph_ms)
+    return row
 
 
 def transpose_phase(card):
@@ -3053,28 +3131,33 @@ def main():
             "steps_per_launch": steps[key],
             "ms_per_step": times[key] / steps[key], "shape": shape})
     k7 = "lb2d_tpu/ops/fused_coupled.py"
-    for physics, tpu in (("rocket_yeast", f"{k7}:105"),
-                         ("rocket_yeast_forces_only", f"{k7}:105"),
-                         ("screened_fisher", f"{k7}:202"),
-                         ("surfactant", f"{k7}:251"),
-                         ("clumpy_surfactant", f"{k7}:251")):
+    k7_tpu = (("rocket_yeast", f"{k7}:105"),
+              ("rocket_yeast_forces_only", f"{k7}:105"),
+              ("screened_fisher", f"{k7}:202"), ("surfactant", f"{k7}:251"),
+              ("clumpy_surfactant", f"{k7}:251"))
+    for physics, tpu in k7_tpu:
         sim = models[physics]
         cfg, cells = sim.coupled_config(), sim.num_cells
-        F = cfg.fields
-        # f read and written once, plus the neighbours' rho or the velocity
-        per_cell = (72 * F + (4 * F if cfg.reads_neighbours else 0)
-                    + (8 if cfg.reads_ext else 0))
+        F, k = cfg.fields, k7_times[physics + " k"]
+        # f read and written once a launch, plus the velocity planes
+        per_cell = 72 * F + (8 if cfg.reads_ext else 0)
         bound_ms, bound_by = _bound(cells * per_cell,
-                                    cells * COUPLED_OPS[physics])
+                                    cells * k * COUPLED_OPS[physics])
         rows.append({
-            "name": f"coupled_step ({physics})", "route": "cuda",
+            "name": f"coupled_sweep ({physics})", "route": "cuda",
             "source": "lb2d_tpu_torch/csrc/coupled_step.cu", "replaces": tpu,
             "launches": coupled_launches[physics]["K7"],
             "max_abs_err": k7_err[physics], "ms": k7_times[physics],
+            "graph_ms": k7_times[physics + " graph"],
             "plain_ms": k7_times["plain " + physics],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes the same
-            "steps_per_launch": 1, "shape": [F, sim.ny, sim.nx]})
+            "steps_per_launch": k,
+            "ms_per_step": k7_times[physics + " graph"] / k,
+            # the sweep of one step and at its cap (8), by graph replay
+            "sweep_k1_graph_ms": k7_times[physics + " sweep K1 graph"],
+            "cap_graph_ms_per_step": k7_times[physics + " cap graph"] / 8,
+            "shape": [F, sim.ny, sim.nx]})
     cells = 8192 * 8192
     # rho read once, s (xg, yg) written once; a radix-2 real forward and a
     # complex inverse 2-D FFT (2.5 and 5 log2(cells) flops per cell) and
@@ -3115,12 +3198,8 @@ def main():
                  ("mc_step halo", "mc_step.cu", f"{k6}", dict(
                      c5_sharded["rows"]["K6hs"], err=max(
                          c5_sharded["rows"]["K6hs"]["err"], k6h_err)))]
-    for physics, tpu in (("rocket_yeast", f"{k7}:105"),
-                         ("rocket_yeast_forces_only", f"{k7}:105"),
-                         ("screened_fisher", f"{k7}:202"),
-                         ("surfactant", f"{k7}:251"),
-                         ("clumpy_surfactant", f"{k7}:251")):
-        halo_rows.append((f"coupled_step halo ({physics})",
+    for physics, tpu in k7_tpu:
+        halo_rows.append((f"coupled_sweep halo ({physics})",
                           "coupled_step.cu", tpu, k7h[physics]))
     halo_rows.append(("transpose", "transpose.cu",
                       "benchmarks/probe_transpose.py:28", p2))
@@ -3134,7 +3213,10 @@ def main():
             # P2: x.t().contiguous(), which is its plain version too; no
             # single PyTorch call computes a shard's LB step
             "library_ms": info["plain_ms"] if name == "transpose" else None,
-            "steps_per_launch": 1, "shape": info["shape"]})
+            "steps_per_launch": info.get("k", 1), "shape": info["shape"]})
+        if "graph_ms" in info:
+            rows[-1].update(graph_ms=info["graph_ms"],
+                            ms_per_step=info["graph_ms"] / info["k"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-// The row sweep of K2 and K9 (temporal_sweep.cuh) and K4 (multifield_step.cu,
-// K9's multifield physics too): its shared-memory rings, the cut of a grid
-// or a shard into work items, and the asynchronous row loads.
+// The row sweep of K2 and K9 (temporal_sweep.cuh), K4 (multifield_step.cu,
+// K9's multifield physics too) and K7 (coupled_step.cu, K7h too): its
+// shared-memory rings, the cut of a grid or a shard into work items, and the
+// asynchronous row loads.
 // lb2d_tpu_torch/ops/sweep.py mirrors every formula here (the CPU tests
 // emulate the schedule with it).
 //
@@ -50,19 +51,25 @@ __host__ __device__ constexpr int dir_slot(int j) {
   return j == 1 || j == 5 || j == 7 ? 1 : j == 3 || j == 6 || j == 8 ? 2 : 0;
 }
 
-// ring rows a level keeps per direction of group g (lag g + 1)
-__host__ __device__ constexpr int sweep_depth(int g, bool first) {
-  return g + 2 + (first ? kPrefetch : 0);
+// ring rows a level keeps per direction of group g: the next level reads
+// them lag - 1 + g phases after they were written (lag 2 here; the coupled
+// sweep's levels lag 4 where a density stage sits between them,
+// coupled_step.cu), and the row being written
+__host__ __device__ constexpr int sweep_depth(int g, bool first,
+                                              int lag = 2) {
+  return g + lag + (first ? kPrefetch : 0);
 }
 
-__host__ __device__ constexpr int sweep_group_base(int g, bool first) {
+__host__ __device__ constexpr int sweep_group_base(int g, bool first,
+                                                   int lag = 2) {
   return g == 0 ? 0
-         : g == 1 ? 3 * sweep_depth(0, first)
-                  : 3 * (sweep_depth(0, first) + sweep_depth(1, first));
+         : g == 1 ? 3 * sweep_depth(0, first, lag)
+                  : 3 * (sweep_depth(0, first, lag) +
+                         sweep_depth(1, first, lag));
 }
 
-__host__ __device__ constexpr int sweep_level_rows(bool first) {
-  return sweep_group_base(2, first) + 3 * sweep_depth(2, first);
+__host__ __device__ constexpr int sweep_level_rows(bool first, int lag = 2) {
+  return sweep_group_base(2, first, lag) + 3 * sweep_depth(2, first, lag);
 }
 
 template <int P>
@@ -110,13 +117,15 @@ inline SweepPlan sweep_plan(int rows, int cols, int K, int wb, int slots) {
 }
 
 // Resident blocks of one kernel instantiation per card and K (the
-// occupancy query, cached), after raising its shared-memory limit.
+// occupancy query for blocks of `threads`, cached), after raising its
+// shared-memory limit.
 struct SweepSlots {
   int sms[kMaxDevices] = {};
   int blocks[kMaxDevices][kSweepMaxK + 1] = {};
 
   template <class Kernel>
-  cudaError_t get(Kernel kernel, int smem, int K, int& slots) {
+  cudaError_t get(Kernel kernel, int smem, int K, int& slots,
+                  int threads = kSweepThreads) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
@@ -139,7 +148,7 @@ struct SweepSlots {
     if (!blocks[dev][K]) {
       int b = 0;
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kernel,
-                                                          kSweepThreads, smem);
+                                                          threads, smem);
       if (err != cudaSuccess) return err;
       blocks[dev][K] = b < 1 ? 1 : b;
     }

@@ -1,8 +1,10 @@
 """The halo kernels' checks that ``chip_smoke.py`` and the CUDA tests
 share: for K9 each physics' arguments, a random state, the cuts of a grid
-into shards, and K9 on each shard against its plain twin; for K6h and K7h
-(:func:`compare_mc_halo`, :func:`compare_coupled_halo`) a few steps of the
-shards against the unsharded K6 / K7 and against the plain twins.
+into shards, and K9 on each shard against its plain twin; for K6h
+(:func:`compare_mc_halo`) a few steps of the shards against the unsharded
+K6 and against the plain twins; for K7h (:func:`compare_coupled_halo`) one
+K-step launch per shard against K7's K-step launch on the whole grid,
+against the plain twin and against K one-step launches.
 
 The cuts need not divide the grid: K9 takes any shard, so a 254x382 grid
 is cut 2x2, 4x1 and 1x4 into shards of unequal edges, each with the halo
@@ -20,11 +22,12 @@ import torch
 from .core import D2Q9
 from .ops.fused_coupled import (
     coupled_density,
-    coupled_density_halo,
     coupled_params,
-    coupled_step,
-    coupled_step_halo,
-    coupled_step_halo_reference,
+    coupled_reach,
+    coupled_sweep,
+    coupled_sweep_halo,
+    coupled_sweep_halo_reference,
+    _coupled_cell_step_halo,
 )
 from .ops.fused_halo import (
     HALO_SWEEP_PHYSICS,
@@ -226,21 +229,42 @@ def compare_mc_halo(f, cfg, lattice, ext, cuts, steps=5, solve=None):
     return d_whole, d_twin, d_rho[0]
 
 
-def compare_coupled_halo(f, cfg, ext, cuts, steps=5):
-    """K7h (after K6h's density pass) on the shards ``cuts`` of the state
-    ``f [9, F, ny, nx]`` (CUDA), the velocity planes ``ext`` held, against
-    K7 on the whole grid and against K7h's plain twin, ``steps`` steps;
-    returns max |df| against K7 and against the twin."""
+def compare_coupled_halo(f, cfg, ext, cuts, k):
+    """K7h, ``k`` steps in one launch, on the shards ``cuts`` of the state
+    ``f [9, F, ny, nx]`` (CUDA) with halos of ``k`` reaches, the velocity
+    planes ``ext`` held: returns max |df| against K7's ``k``-step launch on
+    the whole grid, against K7h's plain twin (``k`` plain steps of each
+    shard's region) and against ``k`` one-step K7h launches (each after a
+    one-reach halo cut from the assembled state, as an exchange gives it);
+    and, for a screened family, of K7h's one-step kernel on the whole-grid
+    densities against K7's one-step sweep (else 0)."""
     params = coupled_params(cfg)
-    rho_w = torch.empty((cfg.fields, *f.shape[2:]), device=f.device)
-    rho_s = torch.empty_like(rho_w)
+    reach = coupled_reach(cfg)
+    flat = f.reshape(-1, *f.shape[2:])
+    whole = coupled_sweep(f, torch.empty_like(f), ext, cfg, k, params)
 
-    def whole_step(g):
-        coupled_density(g, rho_w)
-        return coupled_step(g, torch.empty_like(g), rho_w, ext, cfg, params)
+    def sweep(state, steps, width, rho=None):
+        out, d_twin = torch.empty_like(state), 0.0
+        for y0, x0, H, W in cuts:
+            halo = Halo.cut(state, y0, x0, H, W, width)
+            got = (coupled_sweep_halo(halo, torch.empty_like(halo.f), ext,
+                                      cfg, steps, params) if rho is None
+                   else _coupled_cell_step_halo(halo, torch.empty_like(halo.f),
+                                                rho, ext, cfg, params))
+            d_twin = max(d_twin, _max_diff(
+                got, coupled_sweep_halo_reference(halo, ext, cfg, steps)))
+            out[:, y0:y0 + H, x0:x0 + W] = got
+        return out, d_twin
 
-    return _shard_steps(
-        f, cuts, 1, steps, whole_step,
-        lambda h: coupled_density_halo(h, rho_s),
-        lambda h, out: coupled_step_halo(h, out, rho_s, ext, cfg, params),
-        lambda h: coupled_step_halo_reference(h, rho_s, ext, cfg))
+    swept, d_twin = sweep(flat, k, reach * k)
+    stepped = flat
+    for _ in range(k):
+        stepped = sweep(stepped, 1, reach)[0]
+    d_cell = 0.0
+    if cfg.reads_ext:
+        rho = coupled_density(f, torch.empty((cfg.fields, *f.shape[2:]),
+                                             device=f.device))
+        one = coupled_sweep(f, torch.empty_like(f), ext, cfg, 1, params)
+        d_cell = _max_diff(sweep(flat, 1, reach, rho)[0], one.view(flat.shape))
+    return (_max_diff(swept, whole.view(flat.shape)), d_twin,
+            _max_diff(swept, stepped), d_cell)

@@ -12,9 +12,10 @@
   cs^2) grad S``, ``S = (1 - exp(-c/c_o))^alpha``, and pressure ``-G_chen
   (rho - rho_o) grad rho / cs^2``; no force term in the collision.
 
-The whole step is local (one-belt stencils, periodic): on CUDA it is K6's
-density pass and one K7 launch (physics ``rocket_yeast`` /
-``rocket_yeast_forces_only``); backends and state as
+The whole step is local (one-belt stencils, periodic), so on CUDA K7
+runs ``COUPLED_TEMPORAL_K`` steps per launch, the densities computed
+inside (physics ``rocket_yeast`` / ``rocket_yeast_forces_only``), as JAX
+fuses K steps per sweep; backends and state as
 :class:`~lb2d_tpu_torch.models.waves.CoupledModel`. The diffusion constant
 of the surfactant carries the reference's ``Dc / 4`` (``rocket_yeast.py:79``).
 """

@@ -10,7 +10,8 @@
   the population, the pseudo-force of ``psi = rho_o (1 - exp(-rho /
   rho_o))`` (``:130-199, 242-364``).
 
-On CUDA each step is K6's density pass, K8 and one K7 launch (physics
+On CUDA each sweep of ``stale_velocity`` steps is K6's density pass, K8
+and K7 launches of up to ``COUPLED_TEMPORAL_K`` steps (physics
 ``surfactant`` / ``clumpy_surfactant``); backends, ``stale_velocity`` and
 state as :class:`~lb2d_tpu_torch.models.waves.CoupledModel`. The stencils
 (:func:`psi_shan_chen`, :func:`psi_sticky_repulsive`,

@@ -3,7 +3,7 @@
 * :class:`NoisyAdvectedFisherWave`: the stochastic Fisher wave (K2 / K3).
 * :class:`ScreenedFisherWave`: a Fisher wave advected by the negative
   gradient of the screened-Poisson potential of its own density, re-solved
-  every step (K7 ``screened_fisher`` + K8 on CUDA), and the machinery the
+  every step (K8 and K7 ``screened_fisher`` on CUDA), and the machinery the
   coupled families share: the per-step screened velocity
   (:class:`_ScreenedVelocity`) and the backends and run loop
   (:class:`CoupledModel`), which ``models/surfactant.py`` and
@@ -24,14 +24,18 @@ from ..ops import _build
 from ..ops.collide import bgk
 from ..ops.equilibrium import feq_linear
 from ..ops.fused_coupled import (
+    COUPLED_TEMPORAL_K,
     CoupledConfig,
     coupled_density,
+    coupled_max_k,
     coupled_params,
-    coupled_step,
     coupled_step_reference,
+    coupled_sweep,
+    density_in_order,
     rocket_yeast_step_reference,
     screened_fisher_step_reference,
     surfactant_step_reference,
+    _coupled_cell_step,
 )
 from ..ops.moments import density, rho_poisson
 from ..ops.spectral import screened_gradients, screened_gradients_reference
@@ -200,22 +204,30 @@ class CoupledModel(LBModel):
     state, implement :meth:`coupled_config`, and call
     :meth:`_finish_setup`.
 
-    Backends: ``"kernel"`` (CUDA, float32): per step K6's density pass
+    Backends: ``"kernel"`` (CUDA, float32): K7
+    (:func:`~lb2d_tpu_torch.ops.fused_coupled.coupled_sweep`), K steps per
+    launch with the densities computed inside. The rocket yeasts run
+    ``COUPLED_TEMPORAL_K`` steps a launch (``steps_per_call``): ``run(n)``
+    is ``n // K`` launches and one of the ``n % K`` steps left, and no
+    density pass. The screened families run, per sweep of
+    ``stale_velocity`` steps, K6's density pass
     (:func:`~lb2d_tpu_torch.ops.fused_coupled.coupled_density`), the K8
-    solve of the population's density into two ext planes (the screened
-    families) and one K7 launch
-    (:func:`~lb2d_tpu_torch.ops.fused_coupled.coupled_step`); ``"eager"``:
-    the plain step with the plain ``torch.fft`` solve (the CPU default; on
-    CUDA only by name); ``"auto"``: ``"kernel"`` on CUDA, ``"eager"`` on
-    the CPU. Off CUDA ``"kernel"`` raises; so do ``"kernel"`` and ``"auto"``
-    on CUDA with another dtype than float32, naming ``backend="eager"``.
+    solve of the population's density into two ext planes, and K7 launches
+    of at most ``COUPLED_TEMPORAL_K`` steps with the planes held (a sweep
+    of one step: K7's one-step kernel on the solve's densities,
+    :func:`~lb2d_tpu_torch.ops.fused_coupled._coupled_cell_step`).
+    ``"eager"``: the plain step with the plain ``torch.fft`` solve (the CPU
+    default; on CUDA only by name); ``"auto"``: ``"kernel"`` on CUDA,
+    ``"eager"`` on the CPU. Off CUDA ``"kernel"`` raises; so do
+    ``"kernel"`` and ``"auto"`` on CUDA with another dtype than float32,
+    naming ``backend="eager"``.
 
     ``stale_velocity = K > 1`` (the screened families): one solve per K-step
     sweep, from the sweep's first post-stream density, held for the sweep
-    (:func:`~lb2d_tpu_torch.models.base.held_solve_sweep`); ``run(n)`` runs
-    ``n // K`` sweeps, then the rest as exact single steps, on both
-    backends. JAX demotes K to a depth its VMEM tiling holds; the port does
-    not.
+    (:func:`~lb2d_tpu_torch.models.base.held_solve_sweep` on the eager
+    backend); ``run(n)`` runs ``n // K`` sweeps, then the rest as exact
+    single steps, on both backends. JAX demotes K to a depth its VMEM
+    tiling holds; the port does not.
     """
 
     POP = 0
@@ -271,9 +283,17 @@ class CoupledModel(LBModel):
 
     def make_step(self):
         cfg = self.coupled_config()
-        K = self.stale_velocity if self._velocity is not None else 1
-        single, steps = (self._kernel_steps(cfg) if self.backend == "kernel"
-                         else self._eager_steps(cfg))
+        if self.backend == "kernel":
+            steps = self._kernel_steps(cfg)
+            if self._velocity is None:  # local: K steps a launch, any n
+                K = min(COUPLED_TEMPORAL_K[cfg.physics], coupled_max_k(cfg))
+                self._run_n = steps
+            else:
+                K = self.stale_velocity
+            single = lambda f: steps(f, 1)  # noqa: E731
+        else:
+            K = self.stale_velocity if self._velocity is not None else 1
+            single, steps = self._eager_steps(cfg)
         self.steps_per_call = K
         self._single_step = single
         return (lambda f: steps(f, K)) if K > 1 else single
@@ -293,34 +313,42 @@ class CoupledModel(LBModel):
         def steps(f, n):
             return held_solve_sweep(
                 f, n, lambda f, rho: coupled_step_reference(f, cfg, ext),
-                lambda f: stream(self._fields4(f), self.lattice).sum(dim=0),
+                lambda f: density_in_order(stream(self._fields4(f),
+                                                  self.lattice)),
                 lambda rho: self._velocity.planes(rho[self.POP], out=ext))
 
         return self._plain_step(cfg), steps
 
     def _kernel_steps(self, cfg):
-        """The kernel path's exact step and sweep ``(f, n) -> f``."""
+        """The kernel path's ``steps(f, n) -> f``: one solve (the screened
+        families), then K7 launches of at most ``COUPLED_TEMPORAL_K``
+        steps, the velocity planes held."""
         like = dict(dtype=self.dtype, device=self.device)
         spare = [torch.empty((9, cfg.fields, self.ny, self.nx), **like)]
-        rho_buf = torch.empty((cfg.fields, self.ny, self.nx), **like)
         ext = self._held_planes(cfg)
+        rho = (torch.empty((cfg.fields, self.ny, self.nx), **like)
+               if ext is not None else None)
         prm = coupled_params(cfg)
-
-        def step(f, rho):
-            out = coupled_step(f, spare[0], rho, ext, cfg, prm)
-            spare[0] = f
-            return out
+        cap = min(COUPLED_TEMPORAL_K[cfg.physics], coupled_max_k(cfg))
 
         def steps(f, n):
-            f4 = held_solve_sweep(
-                self._fields4(f), n, step,
-                lambda f: coupled_density(f, rho_buf),
-                ((lambda rho: self._velocity.planes(rho[self.POP], out=ext))
-                 if ext is not None else None),
-                density_every_step=cfg.reads_neighbours)
+            f4 = self._fields4(f)
+            if ext is not None:
+                coupled_density(f4, rho)
+                self._velocity.planes(rho[self.POP], out=ext)
+            if ext is not None and n == 1:
+                # the solve's densities are the step's: the one-step kernel
+                out = _coupled_cell_step(f4, spare[0], rho, ext, cfg, prm)
+                spare[0], f4 = f4, out
+                n = 0
+            while n > 0:
+                k = min(cap, n)
+                out = coupled_sweep(f4, spare[0], ext, cfg, k, prm)
+                spare[0], f4 = f4, out
+                n -= k
             return f4.view(f.shape)
 
-        return (lambda f: steps(f, 1)), steps
+        return steps
 
     def mach_number(self) -> float:
         u, v = self._velocity_fields()

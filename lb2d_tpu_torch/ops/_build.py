@@ -114,7 +114,7 @@ class FftPass(ctypes.Structure):
 
 class CoupledParams(ctypes.Structure):
     """``Lb2dCoupledParams`` of ``csrc/coupled_cell.cuh``, passed by value
-    to K7: the physics, the two fields' ``omega`` and ``1 - omega``, the
+    to K7 and K7h: the physics, the two fields' ``omega`` and ``1 - omega``, the
     growth and production rates, ``-epsilon``, ``rho_o``, ``-cs^2 G_chen``,
     ``-G_chen``, the surface-tension ``c_o`` and exponent ``alpha`` and the
     D2Q9 weights. The two change together."""
@@ -182,11 +182,13 @@ _ENTRY_POINTS = {
     "lb2d_fft_lines": [_P, _P, _P, _P, _P, _P, FftParams, _P],
     # in0, in1, out0, out1, twiddle table, stage table, pass, stream
     "lb2d_fft_pass": [_P, _P, _P, _P, _P, _P, FftPass, _P],
-    # f_in, f_out, rho, ext, ny, nx, params, stream
-    "lb2d_coupled_step": [_P, _P, _P, _P, _I, _I, CoupledParams, _P],
+    # f_in, f_out, rho, ext, ny, nx, k_steps, params, stream
+    "lb2d_coupled_sweep": [_P, _P, _P, _P, _I, _I, _I, CoupledParams, _P],
     # f, top, bot, left, right, f_out, rho, ext, H, W, hk, y0, x0, ny, nx,
-    # params, stream
-    "lb2d_coupled_halo_step": [_P] * 8 + [_I] * 7 + [CoupledParams, _P],
+    # k_steps, params, stream
+    "lb2d_coupled_halo_sweep": [_P] * 8 + [_I] * 8 + [CoupledParams, _P],
+    # physics (no stream: the most steps of one launch)
+    "lb2d_coupled_max_k": [_I],
     # in, out, rows, cols, stream
     "lb2d_transpose": [_P, _P, _I, _I, _P],
     # out, n, key0, key1, step, stream

@@ -1,4 +1,4 @@
-"""One step of the coupled two-field families: K7 and its plain versions
+"""K steps of the coupled two-field families: K7 and its plain versions
 (counterpart of ``lb2d_tpu.ops.fused_coupled``).
 
 The families: rocket yeast (population + surfactant; the velocity is the
@@ -7,7 +7,7 @@ only, a surface-tension and a pressure force field), the screened Fisher
 wave (one field advected by its screened-Poisson velocity) and the
 surfactant-nutrient waves (population + nutrient on the screened-Poisson
 velocity of the population, growth ``G rho n``; clumpy: plus the
-pseudo-force). The state is ``f[9, F, ny, nx]``, K6's layout.
+pseudo-force). The state is ``f[9, F, ny, nx]``, K4's and K6's layout.
 
 * The plain steps, each exactly the JAX model's XLA step and each its
   model's eager step: :func:`rocket_yeast_step_reference` (both variants),
@@ -17,23 +17,31 @@ pseudo-force). The state is ``f[9, F, ny, nx]``, K6's layout.
   post-stream density) or as held planes ``ext = [u, v]``. Their stencils
   are the port's copies of the JAX models': :func:`stencil_gradient`,
   :func:`psi_shan_chen`, :func:`psi_sticky_repulsive`, :func:`pseudo_force`.
-* :func:`coupled_density` and :func:`coupled_step` (``csrc/coupled_step.cu``,
-  K7): one step is K6's density pass (``mc_density`` on F periodic fields,
-  the post-stream density the stencils and the spectral solve read) and one
-  launch of the coupled kernel, one thread per cell, any grid of at least
-  3 x 3. Ports ``make_rocket_yeast_step``, ``make_screened_fisher_step``
-  and ``make_surfactant_step`` (``fused_coupled.py:105, 202, 251``); their
-  K-step sweeps and density emit are TPU scheduling and are not carried
-  over.
+* :func:`coupled_sweep` (``csrc/coupled_step.cu``, K7): ``k`` steps in one
+  launch, a row sweep (K4's, ``csrc/row_sweep.cuh``) that computes each
+  level's post-stream densities inside, the velocity planes held for the
+  ``k`` steps; at most :func:`coupled_max_k` steps (shared memory; the
+  geometry is mirrored in :mod:`~lb2d_tpu_torch.ops.sweep`, and
+  :mod:`~lb2d_tpu_torch.ops.coupled_sweep` emulates the schedule on the
+  CPU). Ports ``make_rocket_yeast_step``, ``make_screened_fisher_step``
+  and ``make_surfactant_step`` (``fused_coupled.py:105, 202, 251``), which
+  JAX also runs as K-step sweeps. The models run ``COUPLED_TEMPORAL_K``
+  steps per launch. :func:`coupled_density` (K6's density pass on F
+  periodic fields) gives the spectral solve its source.
+* :func:`coupled_sweep_halo` (K7h): the same on one shard and its halos of
+  ``k`` times the step's reach (:func:`coupled_reach`), the velocity
+  planes read from whole-grid planes at global coordinates; with
+  :func:`coupled_density_halo` for the solve.
+* :func:`_coupled_cell_step` and :func:`_coupled_cell_step_halo`: K7's
+  and K7h's one-step kernel, one thread a cell, which reads the densities
+  that the solve's density pass has just written: the screened families'
+  exact (``stale_velocity=1``) step, where it is faster than a sweep of
+  one step. Their launches count with the sweep's.
 
-* :func:`coupled_density_halo` and :func:`coupled_step_halo` (K7h): the
-  same on one shard and its one-cell halo, the densities and velocity
-  planes read from whole-grid planes at global coordinates; the plain
-  twin is :func:`coupled_step_halo_reference`.
-
-The kernels run only on CUDA tensors; on CPU tensors each wrapper runs the
-plain version. :func:`coupled_step` counts its launches in
-``coupled_step.launches``, :func:`coupled_step_halo` in its own.
+The kernels run only on CUDA tensors; on CPU tensors each wrapper runs its
+plain twin (:func:`coupled_sweep_reference`,
+:func:`coupled_sweep_halo_reference`: ``k`` plain steps). Each counts its
+launches (``coupled_sweep.launches``, ``coupled_sweep_halo.launches``).
 :func:`coupled_params` packs a configuration's constants once.
 """
 
@@ -45,30 +53,32 @@ import numpy as np
 import torch
 
 from ..core import D2Q9
-from . import _build
-from .fused import _launch
-from .fused_halo import Halo, check_pieces
+from . import _build, sweep
+from .fused import _check_k, _launch
+from .fused_halo import Halo, check_pieces, cut_region
 from .fused_mc import (
     FluidParams,
     MCKernelConfig,
     _check_grid_planes,
     _check_plane_stack,
-    gather_shifted,
+    _sum_in_order,
     mc_density,
     mc_density_halo,
-    shard_cells,
-    stream_halo,
+    mc_density_halo_reference,
 )
 from .stream import stream
 
-__all__ = ["COUPLED_PHYSICS", "CoupledConfig", "stencil_gradient",
-           "psi_shan_chen", "psi_sticky_repulsive", "pseudo_force",
-           "rocket_yeast_velocity", "coupled_feq",
+__all__ = ["COUPLED_PHYSICS", "COUPLED_TEMPORAL_K", "CoupledConfig",
+           "stencil_gradient", "psi_shan_chen", "psi_sticky_repulsive",
+           "pseudo_force", "rocket_yeast_velocity", "coupled_feq",
            "rocket_yeast_step_reference",
            "screened_fisher_step_reference", "surfactant_step_reference",
-           "coupled_step_reference", "coupled_step_halo_reference",
-           "coupled_density", "coupled_step", "coupled_density_halo",
-           "coupled_step_halo", "coupled_params"]
+           "density_in_order", "coupled_step_reference",
+           "coupled_sweep_reference",
+           "coupled_sweep_halo_reference", "coupled_reach", "coupled_max_k",
+           "coupled_density", "coupled_density_halo",
+           "coupled_density_halo_reference", "coupled_sweep",
+           "coupled_sweep_halo", "coupled_params"]
 
 # Lb2dCoupledParams.physics (csrc/coupled_cell.cuh)
 COUPLED_PHYSICS = {"rocket_yeast": 0, "rocket_yeast_forces_only": 1,
@@ -77,6 +87,16 @@ COUPLED_PHYSICS = {"rocket_yeast": 0, "rocket_yeast_forces_only": 1,
 _EXT_PHYSICS = ("screened_fisher", "surfactant", "clumpy_surfactant")
 _NEIGHBOUR_PHYSICS = ("rocket_yeast", "rocket_yeast_forces_only",
                       "clumpy_surfactant")
+# steps per K7 launch of the models: the rocket yeasts' K, and the most
+# steps of one launch of the spectral families' stale_velocity sweeps (a
+# deeper sweep runs several launches, the velocity held). Each is the
+# fastest per step at the models' shapes on an H100 (PERF.md, section 6):
+# the physics with a density stage at K = 4, where two blocks fit
+# an SM (from K = 5 one does, 1.3-1.4x slower a step; JAX's first choice,
+# 8, fused_coupled.py:56-84, ran 1.29x slower), the others at K = 8.
+COUPLED_TEMPORAL_K = {"rocket_yeast": 4, "rocket_yeast_forces_only": 4,
+                      "screened_fisher": 8, "surfactant": 8,
+                      "clumpy_surfactant": 4}
 
 
 @dataclass(frozen=True)
@@ -114,25 +134,38 @@ class CoupledConfig:
 
     @property
     def reads_neighbours(self) -> bool:
-        """The kernel reads the neighbours' post-stream densities."""
+        """The step reads the neighbours' post-stream densities (its belt is
+        1)."""
         return self.physics in _NEIGHBOUR_PHYSICS
+
+    @property
+    def belt(self) -> int:
+        return int(self.reads_neighbours)
 
 
 # -- the plain pieces (in the JAX package: models/surfactant.py,
 #    models/rocket_yeast.py) ------------------------------------------------
 
-def _belt_sum(field, lattice):
-    """``(sum_j w_j cx_j v(x + c_j), sum_j w_j cy_j v(x + c_j))`` over the
-    moving directions, periodic neighbours, in direction order."""
-    fx = torch.zeros_like(field)
-    fy = torch.zeros_like(field)
+def _belt_terms(shifted, lattice=D2Q9):
+    """``(sum_j w_j cx_j v_j, sum_j w_j cy_j v_j)`` over the moving
+    directions in direction order, ``v_j = shifted(cx_j, cy_j)`` the value
+    at ``x + c_j``."""
+    fx = fy = None
     for j in range(1, lattice.q):
         cxj, cyj = lattice.cx[j], lattice.cy[j]
-        # v(x + c_j): shift by -c on the array index
-        shifted = torch.roll(torch.roll(field, -cyj, dims=-2), -cxj, dims=-1)
-        fx = fx + lattice.w[j] * cxj * shifted
-        fy = fy + lattice.w[j] * cyj * shifted
+        v = shifted(cxj, cyj)
+        if fx is None:
+            fx, fy = torch.zeros_like(v), torch.zeros_like(v)
+        fx = fx + lattice.w[j] * cxj * v
+        fy = fy + lattice.w[j] * cyj * v
     return fx, fy
+
+
+def _belt_sum(field, lattice):
+    """:func:`_belt_terms` of ``field`` with periodic neighbours (a shift
+    by ``-c`` on the array index)."""
+    return _belt_terms(lambda cx, cy: torch.roll(
+        torch.roll(field, -cy, dims=-2), -cx, dims=-1), lattice)
 
 
 def stencil_gradient(field, lattice=D2Q9):
@@ -210,6 +243,14 @@ def rocket_yeast_velocity(rho, cfg: CoupledConfig, belt=None):
     return sfx + pfx, sfy + pfy
 
 
+def density_in_order(f):
+    """Each field's density of ``f[9, ...]``, the directions added in
+    order, as K6's density pass and K7 add them: a reduction adds in an
+    order that follows the tensor's layout, so a block cut from the grid
+    would not give the grid's bits."""
+    return _sum_in_order([f[j] for j in range(f.shape[0])])
+
+
 def _columns(like):
     """D2Q9 ``w``, ``cx``, ``cy`` as ``[9, 1, 1]`` columns of ``like``'s
     dtype and device."""
@@ -248,7 +289,7 @@ def rocket_yeast_step_reference(f, cfg: CoupledConfig):
 def _rocket_yeast_update(f, cfg, belt=None):
     """The rocket-yeast step after the stream; ``belt`` as
     :func:`rocket_yeast_velocity`."""
-    rho = f.sum(dim=0)
+    rho = density_in_order(f)
     belt = belt or _own_belt(rho)
     u, v = rocket_yeast_velocity(rho, cfg, belt)
     feq = coupled_feq(rho, u, v)
@@ -287,7 +328,7 @@ def screened_fisher_step_reference(f, cfg: CoupledConfig, ext=None,
 
 def _screened_fisher_update(f, cfg, ext, velocity=None):
     """The screened Fisher step of ``f[9, R, S]`` after the stream."""
-    rho = f.sum(dim=0)
+    rho = density_in_order(f)
     u, v = _velocity_of(rho, ext, velocity)
     w, cx, cy = _columns(f)
     feq = w * rho * (1.0 + (cx * u + cy * v) / D2Q9.cs2)
@@ -310,7 +351,7 @@ def surfactant_step_reference(f, cfg: CoupledConfig, ext=None,
 def _surfactant_update(f, cfg, ext, velocity=None, belt=None):
     """The surfactant-nutrient step after the stream; ``belt`` as
     :func:`rocket_yeast_velocity` (the clumpy pseudo-force's sums)."""
-    rho = f.sum(dim=0)
+    rho = density_in_order(f)
     u, v = _velocity_of(rho[0], ext, velocity)
     feq = coupled_feq(rho, u, v)
     w, cx, cy = _columns(f)
@@ -327,8 +368,8 @@ def _surfactant_update(f, cfg, ext, velocity=None, belt=None):
 
 
 def coupled_step_reference(f, cfg: CoupledConfig, ext=None):
-    """The plain version of :func:`coupled_step`: one step of ``cfg``'s
-    physics, the spectral velocity held in ``ext``."""
+    """One plain step of ``cfg``'s physics, the spectral velocity held in
+    ``ext`` (the step :func:`coupled_sweep` takes ``k`` times)."""
     if cfg.physics.startswith("rocket_yeast"):
         return rocket_yeast_step_reference(f, cfg)
     if cfg.physics == "screened_fisher":
@@ -336,40 +377,40 @@ def coupled_step_reference(f, cfg: CoupledConfig, ext=None):
     return surfactant_step_reference(f, cfg, ext=ext)
 
 
-def coupled_step_halo_reference(halo: Halo, rho: torch.Tensor | None,
-                                ext: torch.Tensor | None,
-                                cfg: CoupledConfig) -> torch.Tensor:
-    """One plain step of ``cfg``'s physics of a halo's shard, ``[9 F, H,
-    W]`` (the plain twin of :func:`coupled_step_halo`; a new tensor): the
-    stream of the halo-extended region cut back to the shard, then the
-    step of :func:`coupled_step_reference` with the one-belt sums read from
-    the whole-grid densities ``rho[F, ny, nx]`` and the velocity planes cut
-    from the whole-grid ``ext[2, ny, nx]``. Equals
-    :func:`coupled_step_reference` of the whole grid at the shard's
-    cells."""
-    f = stream_halo(halo, _density_config(cfg.fields), D2Q9)
-    rows, cols = shard_cells(halo)
-    belt = None
-    if cfg.reads_neighbours:
-        def belt(g):  # _belt_sum of g(rho) at the shard's cells
-            field = g(rho)  # the whole grid's, rounded as unsharded
-            fx = torch.zeros_like(field[rows, cols])
-            fy = torch.zeros_like(fx)
-            for j in range(1, D2Q9.q):
-                cxj, cyj = D2Q9.cx[j], D2Q9.cy[j]
-                shifted = gather_shifted(field, (rows, cols), cxj, cyj)
-                fx = fx + D2Q9.w[j] * cxj * shifted
-                fy = fy + D2Q9.w[j] * cyj * shifted
-            return fx, fy
+def coupled_sweep_reference(f, cfg: CoupledConfig, k_steps: int,
+                            ext=None):
+    """``k_steps`` plain steps of :func:`coupled_step_reference`, the
+    velocity planes ``ext`` held (the plain twin of :func:`coupled_sweep`;
+    a new tensor)."""
+    for _ in range(int(k_steps)):
+        f = coupled_step_reference(f, cfg, ext)
+    return f
+
+
+def coupled_reach(cfg: CoupledConfig) -> int:
+    """Cells one step of ``cfg``'s physics reaches: 1, or 2 where it reads
+    the neighbours' post-stream densities. A sweep of ``k`` steps reads a
+    halo of ``k`` times this."""
+    return sweep.coupled_reach(cfg.belt)
+
+
+def coupled_sweep_halo_reference(halo: Halo, ext: torch.Tensor | None,
+                                 cfg: CoupledConfig,
+                                 k_steps: int) -> torch.Tensor:
+    """``k_steps`` plain steps of a halo's shard, ``[9 F, H, W]`` (the plain
+    twin of :func:`coupled_sweep_halo`; a new tensor): the plain steps of
+    the halo-extended region, the velocity planes cut from the whole-grid
+    ``ext[2, ny, nx]`` around it, then the shard's cells. The region's own
+    wrap brings garbage in at its edges, one reach deeper per step, so with
+    a halo of at least ``k_steps`` reaches the shard equals
+    :func:`coupled_sweep_reference` of the whole grid there."""
+    hk = halo.width
+    P, H, W = halo.f.shape
     if cfg.reads_ext:
-        ext = ext[:, rows, cols]
-    if cfg.physics.startswith("rocket_yeast"):
-        out = _rocket_yeast_update(f, cfg, belt)
-    elif cfg.physics == "screened_fisher":
-        out = _screened_fisher_update(f[:, 0], cfg, ext)
-    else:
-        out = _surfactant_update(f, cfg, ext, belt=belt)
-    return out.reshape(halo.f.shape)
+        ext = cut_region(ext, halo.y0, halo.x0, H, W, hk)
+    f = halo.extended().view(9, P // 9, H + 2 * hk, W + 2 * hk)
+    f = coupled_sweep_reference(f, cfg, k_steps, ext)
+    return f[..., hk:hk + H, hk:hk + W].reshape(P, H, W)
 
 
 # -- the kernels --------------------------------------------------------------
@@ -396,6 +437,13 @@ def coupled_density_halo(halo: Halo, rho: torch.Tensor) -> torch.Tensor:
                            D2Q9)
 
 
+def coupled_density_halo_reference(halo: Halo) -> torch.Tensor:
+    """The plain twin of :func:`coupled_density_halo`: the post-stream
+    densities of a halo's shard, ``[F, H, W]`` (a new tensor)."""
+    return mc_density_halo_reference(
+        halo, _density_config(halo.f.shape[0] // 9), D2Q9)
+
+
 def coupled_params(cfg: CoupledConfig) -> _build.CoupledParams:
     """``cfg``'s constants as K7's by-value struct ``Lb2dCoupledParams``,
     each the float32 rounding of what the plain step multiplies by."""
@@ -419,6 +467,12 @@ def coupled_params(cfg: CoupledConfig) -> _build.CoupledParams:
     return prm
 
 
+def coupled_max_k(cfg: CoupledConfig) -> int:
+    """The most steps of one K7 launch of ``cfg``'s physics (its rings and
+    density rings fit a block's shared memory: 8 for all five)."""
+    return sweep.coupled_max_k(cfg.fields, cfg.belt)
+
+
 def _check_coupled(f_in, f_out, cfg):
     F = cfg.fields
     for name, t in (("f_in", f_in), ("f_out", f_out)):
@@ -432,93 +486,148 @@ def _check_coupled(f_in, f_out, cfg):
     if f_out.shape != f_in.shape or f_out.device != f_in.device:
         raise ValueError("f_out must match f_in in shape and device")
     if f_out.data_ptr() == f_in.data_ptr():
-        raise ValueError("f_out must be a distinct tensor (the step is out "
+        raise ValueError("f_out must be a distinct tensor (the sweep is out "
                          "of place)")
-    if f_in.device.type == "cuda" and min(f_in.shape[2:]) < 3:
-        raise ValueError(f"the coupled kernel needs a grid of at least 3 x 3, "
-                         f"not {tuple(f_in.shape[2:])}")
 
 
-def coupled_step(f_in: torch.Tensor, f_out: torch.Tensor,
-                 rho: torch.Tensor | None, ext: torch.Tensor | None,
-                 cfg: CoupledConfig,
-                 params: _build.CoupledParams | None = None) -> torch.Tensor:
-    """Write one step of ``cfg``'s physics of ``f_in`` (``[9, F, ny, nx]``
-    float32) into ``f_out`` and return ``f_out``. ``rho`` (``[F, ny,
-    nx]``) holds ``f_in``'s post-stream densities (:func:`coupled_density`)
-    for the physics that read the neighbours' (``cfg.reads_neighbours``);
-    ``ext`` (``[2, ny, nx]``) the velocity planes ``(u, v)`` for those
-    whose velocity comes from the spectral solve (``cfg.reads_ext``).
-    ``params`` is ``coupled_params(cfg)``, packed once by a caller that
-    steps one configuration many times; None packs it here.
+def _check_cell_rho(rho, cfg, ny, nx):
+    """The one-step kernel's conditions: a screened family on a grid of at
+    least 3 x 3."""
+    if not cfg.reads_ext or min(ny, nx) < 3:
+        raise ValueError("the one-step kernel takes a screened family on a "
+                         f"grid of at least 3 x 3, not {cfg.physics} on "
+                         f"{ny} x {nx}")
 
-    On CUDA tensors this launches K7 (counted in ``coupled_step.launches``);
-    on CPU tensors it runs :func:`coupled_step_reference`.
-    """
-    _check_coupled(f_in, f_out, cfg)
-    if cfg.reads_ext:
-        _check_plane_stack(ext, "ext", 2, f_in)
-    if f_in.device.type == "cpu":
-        f_out.copy_(coupled_step_reference(f_in, cfg, ext))
-        return f_out
-    if cfg.reads_neighbours:
-        _check_plane_stack(rho, "rho", cfg.fields, f_in)
-    if params is None:
-        params = coupled_params(cfg)
+
+def _k7(f_in, f_out, rho, ext, k_steps, params, cfg):
+    """Launch K7 (the sweep, or with ``rho`` the one-step kernel) and count
+    it in ``coupled_sweep.launches``."""
     ny, nx = f_in.shape[2:]
-    _launch("lb2d_coupled_step", f_in, f_out,
-            rho if cfg.reads_neighbours else None,
-            ext if cfg.reads_ext else None, ny, nx, params)
-    coupled_step.launches += 1
+    _launch("lb2d_coupled_sweep", f_in, f_out, rho,
+            ext if cfg.reads_ext else None, ny, nx, k_steps,
+            params if params is not None else coupled_params(cfg))
+    coupled_sweep.launches += 1
     return f_out
 
 
-coupled_step.launches = 0
+def coupled_sweep(f_in: torch.Tensor, f_out: torch.Tensor,
+                  ext: torch.Tensor | None, cfg: CoupledConfig, k_steps: int,
+                  params: _build.CoupledParams | None = None) -> torch.Tensor:
+    """Write ``k_steps`` steps of ``cfg``'s physics of ``f_in`` (``[9, F,
+    ny, nx]`` float32) into ``f_out`` and return ``f_out``. ``ext`` (``[2,
+    ny, nx]``) holds the velocity planes ``(u, v)`` for the physics whose
+    velocity comes from the spectral solve (``cfg.reads_ext``), held for
+    the ``k_steps`` steps. ``params`` is ``coupled_params(cfg)``, packed
+    once by a caller that steps one configuration many times; None packs
+    it here. ``1 <= k_steps <= coupled_max_k(cfg)``.
 
-
-def coupled_step_halo(halo: Halo, f_out: torch.Tensor,
-                      rho: torch.Tensor | None, ext: torch.Tensor | None,
-                      cfg: CoupledConfig,
-                      params: _build.CoupledParams | None = None
-                      ) -> torch.Tensor:
-    """Write one step of ``cfg``'s physics of a halo's shard (``halo.f`` is
-    ``[9 F, H, W]`` float32 with a halo of at least one cell) into
-    ``f_out`` and return it. ``rho`` (``[F, ny, nx]``) holds every shard's
-    post-stream densities (:func:`coupled_density_halo`) for the physics
-    that read the neighbours'; ``ext`` (``[2, ny, nx]``) the whole-grid
-    velocity planes for those that read them; both at the cells' global
-    coordinates. ``params`` as :func:`coupled_step`.
-
-    On CUDA tensors this launches K7h (counted in
-    ``coupled_step_halo.launches``); on CPU tensors it runs
-    :func:`coupled_step_halo_reference`.
+    On CUDA tensors this launches K7 (counted in ``coupled_sweep.launches``);
+    on CPU tensors it runs :func:`coupled_sweep_reference`.
     """
+    _check_coupled(f_in, f_out, cfg)
+    k_steps = _check_k(k_steps, coupled_max_k(cfg))
+    if cfg.reads_ext:
+        _check_plane_stack(ext, "ext", 2, f_in)
+    if f_in.device.type == "cpu":
+        f_out.copy_(coupled_sweep_reference(f_in, cfg, k_steps, ext))
+        return f_out
+    return _k7(f_in, f_out, None, ext, k_steps, params, cfg)
+
+
+coupled_sweep.launches = 0
+
+
+def _coupled_cell_step(f_in: torch.Tensor, f_out: torch.Tensor,
+                       rho: torch.Tensor, ext: torch.Tensor,
+                       cfg: CoupledConfig,
+                       params: _build.CoupledParams | None = None
+                       ) -> torch.Tensor:
+    """One step of a screened family (``cfg.reads_ext``) by K7's one-step
+    kernel, one thread a cell: the exact (``stale_velocity=1``) step, where
+    the solve's density pass has just written ``rho [F, ny, nx]``, the
+    post-stream densities of ``f_in``, which the kernel reads in place of
+    computing them (a stale ``rho`` gives a wrong clumpy pseudo-force).
+    Faster than a sweep of one step (``PERF.md``, section 6). Otherwise as
+    :func:`coupled_sweep` at ``k_steps = 1``, and counted with it."""
+    _check_coupled(f_in, f_out, cfg)
+    _check_cell_rho(rho, cfg, *f_in.shape[2:])
+    _check_plane_stack(ext, "ext", 2, f_in)
+    _check_plane_stack(rho, "rho", cfg.fields, f_in)
+    if f_in.device.type == "cpu":
+        f_out.copy_(coupled_sweep_reference(f_in, cfg, 1, ext))
+        return f_out
+    return _k7(f_in, f_out, rho, ext, 1, params, cfg)
+
+
+def _check_halo_sweep(halo, f_out, ext, cfg, k_steps):
     check_pieces(halo, f_out)
     F = cfg.fields
     if halo.f.shape[0] != 9 * F:
         raise ValueError(f"f must be [{9 * F}, H, W] for {cfg.physics}, got "
                          f"{tuple(halo.f.shape)}")
+    k_steps = _check_k(k_steps, coupled_max_k(cfg))
+    if halo.width < k_steps * coupled_reach(cfg):
+        raise ValueError(f"{k_steps} steps of {cfg.physics} need a halo of "
+                         f"{k_steps * coupled_reach(cfg)} cells, not "
+                         f"{halo.width}")
     if cfg.reads_ext:
         _check_grid_planes(ext, "ext", 2, halo)
-    if cfg.reads_neighbours:
-        _check_grid_planes(rho, "rho", F, halo)
-    if halo.f.device.type == "cpu":
-        f_out.copy_(coupled_step_halo_reference(halo, rho, ext, cfg))
-        return f_out
-    if min(halo.ny, halo.nx) < 3:
-        raise ValueError(f"the coupled kernel needs a grid of at least 3 x "
-                         f"3, not {halo.ny} x {halo.nx}")
-    if params is None:
-        params = coupled_params(cfg)
+    return k_steps
+
+
+def _k7h(halo, f_out, rho, ext, k_steps, params, cfg):
+    """Launch K7h (the sweep, or with ``rho`` the one-step kernel) and count
+    it in ``coupled_sweep_halo.launches``."""
     H, W = halo.f.shape[1:]
     with torch.cuda.device(halo.f.device):  # shards may lie on several cards
-        _launch("lb2d_coupled_halo_step", halo.f, halo.top, halo.bot,
-                halo.left, halo.right, f_out,
-                rho if cfg.reads_neighbours else None,
+        _launch("lb2d_coupled_halo_sweep", halo.f, halo.top, halo.bot,
+                halo.left, halo.right, f_out, rho,
                 ext if cfg.reads_ext else None, H, W, halo.width, halo.y0,
-                halo.x0, halo.ny, halo.nx, params)
-    coupled_step_halo.launches += 1
+                halo.x0, halo.ny, halo.nx, k_steps,
+                params if params is not None else coupled_params(cfg))
+    coupled_sweep_halo.launches += 1
     return f_out
 
 
-coupled_step_halo.launches = 0
+def coupled_sweep_halo(halo: Halo, f_out: torch.Tensor,
+                       ext: torch.Tensor | None, cfg: CoupledConfig,
+                       k_steps: int,
+                       params: _build.CoupledParams | None = None
+                       ) -> torch.Tensor:
+    """Write ``k_steps`` steps of ``cfg``'s physics of a halo's shard
+    (``halo.f`` is ``[9 F, H, W]`` float32, its halo at least ``k_steps *
+    coupled_reach(cfg)`` cells) into ``f_out`` and return it. ``ext``
+    (``[2, ny, nx]``) holds the whole-grid velocity planes for the physics
+    that read them, at the cells' global coordinates. ``params`` as
+    :func:`coupled_sweep`.
+
+    On CUDA tensors this launches K7h (counted in
+    ``coupled_sweep_halo.launches``); on CPU tensors it runs
+    :func:`coupled_sweep_halo_reference`.
+    """
+    k_steps = _check_halo_sweep(halo, f_out, ext, cfg, k_steps)
+    if halo.f.device.type == "cpu":
+        f_out.copy_(coupled_sweep_halo_reference(halo, ext, cfg, k_steps))
+        return f_out
+    return _k7h(halo, f_out, None, ext, k_steps, params, cfg)
+
+
+coupled_sweep_halo.launches = 0
+
+
+def _coupled_cell_step_halo(halo: Halo, f_out: torch.Tensor,
+                            rho: torch.Tensor, ext: torch.Tensor,
+                            cfg: CoupledConfig,
+                            params: _build.CoupledParams | None = None
+                            ) -> torch.Tensor:
+    """:func:`_coupled_cell_step` on a halo's shard: ``rho [F, ny, nx]``
+    the whole-grid post-stream densities (the shard's band, and for the
+    clumpy surfactant the belt around it). Otherwise as
+    :func:`coupled_sweep_halo` at ``k_steps = 1``, and counted with it."""
+    _check_halo_sweep(halo, f_out, ext, cfg, 1)
+    _check_cell_rho(rho, cfg, halo.ny, halo.nx)
+    _check_grid_planes(rho, "rho", cfg.fields, halo)
+    if halo.f.device.type == "cpu":
+        f_out.copy_(coupled_sweep_halo_reference(halo, ext, cfg, 1))
+        return f_out
+    return _k7h(halo, f_out, rho, ext, 1, params, cfg)

@@ -1,5 +1,6 @@
-"""The geometry of the row sweep that K2 and K4 run on the card
-(``csrc/row_sweep.cuh``), mirrored in Python: the ring of rows each level
+"""The geometry of the row sweep that K2, K4 and K7 run on the card
+(``csrc/row_sweep.cuh``, ``csrc/coupled_step.cu``), mirrored in Python:
+the ring of rows each level
 keeps in shared memory, the shared-memory budget that sets the most steps
 per launch, and the cut of a grid into work items. The CPU tests emulate the
 kernels' schedule with these numbers (``tests/test_torch_sweep_plan.py``);
@@ -21,9 +22,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 __all__ = ["SWEEP_THREADS", "PREFETCH", "MAX_SWEEP_K", "SMEM_PER_BLOCK",
-           "LAG", "GROUP", "SLOT", "strip_width", "depth", "group_base",
-           "level_rows", "smem_bytes", "blocks_per_sm", "max_k",
-           "SweepPlan", "plan"]
+           "LAG", "GROUP", "SLOT", "DENSITY_SLOTS", "strip_width", "depth",
+           "group_base", "level_rows", "smem_bytes", "blocks_per_sm",
+           "max_k", "coupled_reach", "coupled_lag", "coupled_smem_bytes",
+           "coupled_blocks_per_sm", "coupled_max_k", "SweepPlan", "plan"]
 
 SWEEP_THREADS = 256       # threads per block: strip_width columns x lanes
 PREFETCH = 1              # input rows in flight ahead of the one completing
@@ -44,21 +46,25 @@ def strip_width(planes: int) -> int:
     return 128 if planes == 1 else 64 if planes <= 3 else 32
 
 
-def depth(group: int, first: bool) -> int:
-    """Rows a level keeps for each direction of ``group``: lag + 1, and the
-    prefetched rows for the input level (``first``)."""
-    return group + 2 + (PREFETCH if first else 0)
+def depth(group: int, first: bool, lag: int = 2) -> int:
+    """Rows a level keeps for each direction of ``group``: the next level
+    reads them ``lag - 1 + group`` phases after they were written (``lag``
+    2; 4 for the coupled sweep's levels with a density stage,
+    :mod:`~lb2d_tpu_torch.ops.coupled_sweep`), plus the row being written,
+    and the prefetched rows for the input level (``first``)."""
+    return group + lag + (PREFETCH if first else 0)
 
 
-def group_base(group: int, first: bool) -> int:
+def group_base(group: int, first: bool, lag: int = 2) -> int:
     """The first ring row of ``group`` in a level's ring; the ring row of
     (direction j, slot) is ``group_base(GROUP[j]) + 3 slot + SLOT[j]``."""
-    return sum(3 * depth(g, first) for g in range(group))
+    return sum(3 * depth(g, first, lag) for g in range(group))
 
 
-def level_rows(first: bool) -> int:
-    """Ring rows of one level: 27, and 9 per prefetched row at the input."""
-    return group_base(3, first)
+def level_rows(first: bool, lag: int = 2) -> int:
+    """Ring rows of one level: 27 at lag 2, and 9 per prefetched row at the
+    input."""
+    return group_base(3, first, lag)
 
 
 def smem_bytes(k_steps: int, planes: int, mask: bool = False) -> int:
@@ -86,6 +92,46 @@ def max_k(planes: int) -> int:
     return k
 
 
+# -- K7's sweep (csrc/coupled_step.cu): belt 1 for the physics that read
+#    their neighbours' post-stream densities, which a density stage between
+#    two levels computes into a ring of DENSITY_SLOTS rows of F + 1 planes
+DENSITY_SLOTS = 4
+
+
+def coupled_reach(belt: int) -> int:
+    """Cells one coupled step reaches: the stream, and the belt."""
+    return 1 + belt
+
+
+def coupled_lag(belt: int) -> int:
+    """Phases a coupled level lags behind the one below: 2, as K4, or 4
+    with the density stage between them."""
+    return 2 + 2 * belt
+
+
+def coupled_smem_bytes(k_steps: int, fields: int, belt: int) -> int:
+    """Shared memory of one K7 block: the rings of levels 0 .. K - 1 at the
+    level's lag, and with a belt each level's density ring."""
+    wb, lag = strip_width(fields), coupled_lag(belt)
+    rows = level_rows(True, lag) + (k_steps - 1) * level_rows(False, lag)
+    dens = k_steps * DENSITY_SLOTS * (fields + 1) * wb if belt else 0
+    return 4 * (rows * fields * wb + dens)
+
+
+def coupled_blocks_per_sm(k_steps: int, fields: int, belt: int) -> int:
+    """K7 blocks of one SM that the shared memory allows."""
+    return SMEM_PER_SM // (coupled_smem_bytes(k_steps, fields, belt) + 1024)
+
+
+def coupled_max_k(fields: int, belt: int) -> int:
+    """The most steps of one K7 launch, up to ``MAX_SWEEP_K``: its rings fit
+    one block's shared memory."""
+    k = MAX_SWEEP_K
+    while k > 1 and coupled_smem_bytes(k, fields, belt) > SMEM_PER_BLOCK:
+        k -= 1
+    return k
+
+
 class SweepPlan(NamedTuple):
     """The cut of a ``rows x cols`` domain into ``strips x segments`` work
     items: strip ``i`` stores columns ``[i wo, min((i + 1) wo, cols))``,
@@ -104,7 +150,9 @@ def plan(rows: int, cols: int, k_steps: int, planes: int,
          slots: int) -> SweepPlan:
     """Strips of at most ``strip_width - 2 K`` stored columns, evened out;
     as many segments as fill ``slots`` resident blocks (the card's SMs
-    times its blocks per SM) in one wave, evened out."""
+    times its blocks per SM) in one wave, evened out. ``k_steps`` is the
+    halo of a strip: K cells for K2 and K4 (the coupled sweep's is its
+    reach times K)."""
     wo = _ceil(cols, _ceil(cols, strip_width(planes) - 2 * k_steps))
     strips = _ceil(cols, wo)
     segments = min(max(slots // strips, 1), rows)

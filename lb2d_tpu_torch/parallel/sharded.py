@@ -31,9 +31,8 @@ its state up to the shards (its ``state`` becomes None, so no device keeps
 the whole grid) and follows the sharded model's ``steps_taken``.
 
 The multicomponent runner (:class:`ShardedRunner`, what
-``SimulationRunner.shard_over`` drives) and the coupled families
-(:class:`ShardedCoupled`) step one step per launch, K6h and K7h: the
-halo is the lattice's reach, and the post-stream densities, which the
+``SimulationRunner.shard_over`` drives) steps one step per launch, K6h:
+the halo is the lattice's reach, and the post-stream densities, which the
 interaction stencils read at the neighbours and the screened-Poisson
 solve reads everywhere, go into one whole-grid plane stack per device,
 filled band by band by the shards' density passes; across devices and
@@ -41,9 +40,15 @@ processes :func:`~lb2d_tpu_torch.parallel.halo.exchange_bands` brings
 each device the belt around its shards, and :func:`~lb2d_tpu_torch.
 parallel.halo.gather_bands` completes the solve's source planes alone; K8
 then solves once per device (JAX runs its matmul DFT on the sharded
-density under GSPMD, ``sharded.py:734-750``). JAX's sweeps of
-K kernel steps per exchange, its ext halo chunks and its 128-lane x strips
-are TPU scheduling and have no counterpart.
+density under GSPMD, ``sharded.py:734-750``). JAX's sweeps of K kernel
+steps per exchange, its ext halo chunks and its 128-lane x strips are TPU
+scheduling and have no counterpart there.
+
+The coupled families (:class:`ShardedCoupled`) run K7h's K-step sweeps,
+as JAX runs K kernel steps per exchange: one halo exchange of K times the
+step's reach per launch; the rocket yeasts need nothing else, the
+screened families' density pass and solve run once per
+``stale_velocity`` sweep, on the same plane stacks.
 """
 
 from __future__ import annotations
@@ -58,17 +63,20 @@ import torch.distributed as dist
 from ..models.base import held_solve_sweep, plain_backend
 from ..ops.fused import multifield_max_k
 from ..ops.fused_coupled import (
-    _density_config,
+    COUPLED_TEMPORAL_K,
     coupled_density_halo,
+    coupled_max_k,
     coupled_params,
-    coupled_step_halo,
-    coupled_step_halo_reference,
+    coupled_reach,
+    coupled_density_halo_reference,
+    coupled_sweep_halo,
+    coupled_sweep_halo_reference,
+    _coupled_cell_step_halo,
 )
 from ..ops.fused_halo import (
     HALO_TEMPORAL_K,
     cut_region,
     halo_max_k,
-    supports_temporal_halo,
     temporal_halo_step,
     temporal_halo_step_reference,
 )
@@ -79,7 +87,6 @@ from ..ops.fused_mc import (
     mc_step_halo,
     mc_step_halo_reference,
     shard_cells,
-    stream_halo,
 )
 from .halo import (
     Mesh,
@@ -140,12 +147,15 @@ def _shard_shape(mesh: Mesh, ny: int, nx: int):
     return ny // mesh.my, nx // mesh.mx
 
 
-def _steps_per_sweep(k_steps, mesh, H, W, max_k):
-    """``k_steps`` capped by the smallest shard edge (along the sharded
-    axes) and the kernel's limit."""
-    k = min(int(k_steps), H, W if mesh.mx > 1 else k_steps, max_k)
-    if not supports_temporal_halo(H, W, k, mesh.mx > 1, max_k):
-        raise ValueError(f"no K9 sweep for {H}x{W} shards")
+def _steps_per_sweep(k_steps, mesh, H, W, max_k, reach=1):
+    """``k_steps`` capped by the kernel's limit ``max_k`` and by the shard's
+    edge along the sharded axes: the halo of ``reach`` cells a step comes
+    from one neighbour."""
+    k = min(int(k_steps), max_k, H // reach,
+            W // reach if mesh.mx > 1 else max_k)
+    if k < 1:
+        raise ValueError(f"no sweep of steps that reach {reach} cells on "
+                         f"{H}x{W} shards")
     return k
 
 
@@ -255,6 +265,10 @@ class _ShardedModel:
 
     def _sweep(self, k):
         self._sweep_fn(self.halos, self._spare, k)
+        self._swap()
+
+    def _swap(self):
+        """The spare buffers, just written, become the shards."""
         for pos, h in self.halos.items():
             self._spare[pos], self.halos[pos] = h.f, h._replace(
                 f=self._spare[pos])
@@ -498,39 +512,35 @@ class ShardedMultifield(_ShardedModel):
 
 
 class _DensityShards(_ShardedModel):
-    """The run loop of the multicomponent runner's and the coupled
-    families' shards, one step per launch (K6h, K7h) around whole-grid
-    planes on each device.
+    """Whole-grid planes on each device around the shards, for the models
+    whose steps read densities: the multicomponent runner's shards and the
+    coupled families.
 
-    A step exchanges the shards' halos of the lattice's reach (1 for D2Q9,
-    3 for D2Q25); when the step reads densities, every shard's density pass
-    writes its band of the post-stream densities into one whole-grid
-    ``rho`` per device. Across devices and processes, each device then
-    receives the ``belt`` rows and columns around its shards' bands that
-    the interaction stencils read (:func:`~lb2d_tpu_torch.parallel.halo.
-    exchange_bands`), and, before a solve (the screened-Poisson force or
-    velocity), the whole of the planes the solve reads (:func:`~lb2d_tpu_
-    torch.parallel.halo.gather_bands`); the solve runs once per device from
-    them into whole-grid ext planes; then each shard's step reads ``rho``
-    at its neighbours' and ext at its own global cells.
-    ``held_solve_sweep`` holds the solve for a sweep of ``steps_per_call``
-    steps, as the unsharded models do; a shorter sweep, the rest of
-    ``run(n)``, is exact single steps.
+    Every shard's density pass writes its band of the post-stream densities
+    into one whole-grid ``rho`` per device (:meth:`_densities`). Across
+    devices and processes, each device then receives the ``belt`` rows and
+    columns around its shards' bands that the interaction stencils read
+    (:func:`~lb2d_tpu_torch.parallel.halo.exchange_bands`), and, before a
+    solve (the screened-Poisson force or velocity), the whole of the planes
+    the solve reads (:func:`~lb2d_tpu_torch.parallel.halo.gather_bands`);
+    the solve runs once per device from them into whole-grid ext planes
+    (:meth:`_solve`). Each shard's step then reads ``rho`` at its
+    neighbours' and ext at its own global cells; the subclasses' ``_sweep``
+    launch the steps.
 
     Subclasses call :meth:`_place` with their shards, then
-    :meth:`_set_step` with ``density(halo, rho)``, ``step(halo, out, rho,
-    ext)``, the solve ``solve(rho, ext)`` (or None), the planes of ``rho``
-    (0 for none), the belt and the planes the solve reads.
+    :meth:`_set_planes` with ``density(halo, rho)``, the solve ``solve(rho,
+    ext)`` (or None), the planes of ``rho`` (0 for none), the ext planes,
+    the belt and the planes the solve reads.
     """
 
-    def _set_step(self, density, step, solve, rho_planes, ext, dtype,
-                  belt, solve_planes):
+    def _set_planes(self, density, solve, rho_planes, ext, dtype, belt,
+                    solve_planes):
         """``ext``: the whole-grid ext planes ``[E, ny, nx]`` to start from
-        on every device (None for none); ``belt``: how far the step reads
-        the neighbours' densities (0: not at all, and the density pass runs
-        only before a solve); ``solve_planes``: the planes of ``rho`` the
-        solve reads."""
-        self._density_fn, self._step_fn, self._solve_fn = density, step, solve
+        on every device (None for none); ``belt``: how far the steps read
+        the neighbours' densities (0: not at all); ``solve_planes``: the
+        planes of ``rho`` the solve reads."""
+        self._density_fn, self._solve_fn = density, solve
         self._belt, self._solve_planes = belt, tuple(solve_planes)
         devices = {self.mesh.device(p) for p in self.halos}
         like = dict(dtype=dtype)
@@ -540,47 +550,24 @@ class _DensityShards(_ShardedModel):
         self._ext = ({d: ext.to(d, copy=True) for d in devices}
                      if ext is not None else {})
 
-    def _sweep(self, k):
-        if 1 < k < self.steps_per_call:
-            for _ in range(k):
-                self._sweep(1)
-            return
-        fresh = [False]
+    def _densities(self, belt):
+        """Every shard's density pass into its device's ``rho`` (from
+        exchanged halos), then, with ``belt``, the belt around each band
+        from the other devices; returns the planes per device."""
+        for pos, h in self.halos.items():
+            self._density_fn(h, self._rho[self.mesh.device(pos)])
+        if belt:
+            exchange_bands(self.mesh, self._rho, self._H, self._W, belt)
+        return self._rho
 
-        def exchange():
-            if not fresh[0]:
-                exchange_halos(self.mesh, self.halos)
-                fresh[0] = True
-
-        def density(_):
-            exchange()
-            for pos, h in self.halos.items():
-                self._density_fn(h, self._rho[self.mesh.device(pos)])
-            if self._belt:
-                exchange_bands(self.mesh, self._rho, self._H, self._W,
-                               self._belt)
-            return self._rho
-
-        def solve(rho):
-            gather_bands(self.mesh, rho, self._H, self._W, self._solve_planes)
-            for dev, r in rho.items():
-                with _on(dev):  # K8 launches on the current card
-                    self._solve_fn(r, self._ext[dev])
-
-        def step(_, rho):
-            exchange()
-            for pos, h in self.halos.items():
-                dev = self.mesh.device(pos)
-                self._step_fn(h, self._spare[pos], self._rho.get(dev),
-                              self._ext.get(dev))
-            for pos, h in self.halos.items():
-                self._spare[pos], self.halos[pos] = h.f, h._replace(
-                    f=self._spare[pos])
-            fresh[0] = False
-
-        held_solve_sweep(None, k, step, density,
-                         solve if self._solve_fn is not None else None,
-                         density_every_step=bool(self._belt))
+    def _solve(self):
+        """The solve's planes gathered on every device, then the solve once
+        per device into its ext planes."""
+        gather_bands(self.mesh, self._rho, self._H, self._W,
+                     self._solve_planes)
+        for dev, r in self._rho.items():
+            with _on(dev):  # K8 launches on the current card
+                self._solve_fn(r, self._ext[dev])
 
     def _state_model(self) -> torch.Tensor:
         """The global state in the wrapped model's layout (gathered to its
@@ -685,12 +672,49 @@ class ShardedRunner(_DensityShards):
             _reach_fits(self.mesh, self._H, self._W, belt,
                         "the interactions' belt")
             reads = bool(cfg.interactions or cfg.screened)
-            self._set_step(density, step, solve if cfg.screened else None,
-                           runner.num_populations if reads else 0, ext,
-                           runner.dtype, belt,
-                           sorted({hook[3] for hook in cfg.screened}))
+            self._step_fn = step
+            self._set_planes(density, solve if cfg.screened else None,
+                             runner.num_populations if reads else 0, ext,
+                             runner.dtype, belt,
+                             sorted({hook[3] for hook in cfg.screened}))
         self.steps_per_call = 1 if debug else runner._sweep_depth(k_steps)
         return self
+
+    def _sweep(self, k):
+        """``k`` steps, one halo exchange of the lattice's reach and one
+        K6h step launch per shard each: the density pass before each step
+        whose interactions read it, and before the first for the solve,
+        which ``held_solve_sweep`` holds for a sweep of ``steps_per_call``
+        steps, as the runner does; a shorter sweep, the rest of ``run(n)``,
+        is exact single steps."""
+        if 1 < k < self.steps_per_call:
+            for _ in range(k):
+                self._sweep(1)
+            return
+        fresh = [False]
+
+        def exchange():
+            if not fresh[0]:
+                exchange_halos(self.mesh, self.halos)
+                fresh[0] = True
+
+        def density(_):
+            exchange()
+            return self._densities(self._belt)
+
+        def step(_, rho):
+            exchange()
+            for pos, h in self.halos.items():
+                dev = self.mesh.device(pos)
+                self._step_fn(h, self._spare[pos], self._rho.get(dev),
+                              self._ext.get(dev))
+            self._swap()
+            fresh[0] = False
+
+        held_solve_sweep(None, k, step, density,
+                         ((lambda _: self._solve())
+                          if self._solve_fn is not None else None),
+                         density_every_step=bool(self._belt))
 
     def fluid_views(self) -> list:
         """This process's shards as ``[q, C, H, W]`` views."""
@@ -719,19 +743,43 @@ class ShardedRunner(_DensityShards):
         return out[:C], out[C], out[C + 1]
 
 
+# Steps per sweep of the sharded rocket yeasts on meshes that cut x. Their
+# shards exchange columns too, which keeps the host busy about 1 ms a sweep
+# on one card whatever K, so the kernel's cap, which halves the sweeps, beat
+# COUPLED_TEMPORAL_K's 4 by 1.67-1.78x at 1024^2 on 2x2 shards, where the
+# 4x1 shards, bound by the kernel, ran 1.12-1.13x faster at 4 (an H100;
+# PERF.md, section 6).
+COUPLED_X_SHARDED_K = 8
+
+
 class ShardedCoupled(_DensityShards):
     """The coupled families over a mesh (``lb2d_tpu/parallel/sharded.py:
     630-853``): wraps a constructed :class:`~lb2d_tpu_torch.models.
     RocketYeast` (or ``RocketYeastForcesOnly``), ``SurfactantNutrientWave``
-    (or ``Clumpy...``) or ``ScreenedFisherWave``. Each step is K6h's density
-    pass when the step or the solve reads densities, the screened velocity
-    solved by K8 once per device on the gathered population density (once
-    per sweep of ``K = k_steps``, default the model's ``stale_velocity``),
-    and K7h per shard, on the model's ``kernel`` backend; the plain twins
-    on ``eager``. Rocket yeast is local: one step per sweep. The model gives
-    its state up to the shards (its ``state`` becomes None) and follows
-    ``steps_taken``. JAX's sweeps of K kernel steps and its matmul DFT under
-    GSPMD have no counterpart (``PERF.md``)."""
+    (or ``Clumpy...``) or ``ScreenedFisherWave``.
+
+    A sweep exchanges halos of ``K`` times the step's reach (2 cells for
+    the physics that read the neighbours' densities, else 1) and launches
+    K7h once per shard for ``K`` steps (:func:`~lb2d_tpu_torch.ops.
+    fused_coupled.coupled_sweep_halo`) on the model's ``kernel`` backend;
+    on ``eager`` its plain twin runs the same sweeps, on any device. ``K``
+    is ``k_steps`` for the rocket yeasts (default ``COUPLED_TEMPORAL_K``,
+    or ``COUPLED_X_SHARDED_K`` on meshes that cut x) and the
+    ``stale_velocity`` depth (``k_steps``, default the model's) for
+    the screened families, capped by the kernel and by the shard's edge.
+    The rocket yeasts need no density planes: ``run(n)`` is ``n // K``
+    sweeps and one of the rest. The screened families solve once per
+    sweep: each shard's density pass (K6h) fills its band of a whole-grid
+    density per device, ``gather_bands`` completes it across devices, K8
+    solves once per device, and the sweep's launches hold the planes; a
+    deeper sweep than the cap takes several launches, each after an
+    exchange, and the rest of ``run(n)`` runs exact single steps, as the
+    unsharded models. A sweep of one step runs K7h's one-step kernel on
+    those densities (for the clumpy surfactant with the belt around each
+    band, ``exchange_bands``).
+    The model gives its state up to the shards (its ``state`` becomes None)
+    and follows ``steps_taken``. JAX's matmul DFT under GSPMD has no
+    counterpart (``PERF.md``)."""
 
     def __init__(self, base, mesh: Mesh | None = None,
                  k_steps: int | None = None):
@@ -747,43 +795,92 @@ class ShardedCoupled(_DensityShards):
         cfg = base.coupled_config()
         F = cfg.fields
         H, W = _shard_shape(self.mesh, self.ny, self.nx)
-        _reach_fits(self.mesh, H, W, 1)
+        reach = coupled_reach(cfg)
+        _reach_fits(self.mesh, H, W, reach, "one step's reach")
         velocity = base._velocity
-        self.steps_per_call = (int(k_steps or base.stale_velocity)
-                               if velocity is not None else 1)
-        if self.steps_per_call < 1:
+        if velocity is not None:
+            depth = int(k_steps or base.stale_velocity)
+        else:
+            depth = int(k_steps or (COUPLED_X_SHARDED_K if self.mesh.mx > 1
+                                    else COUPLED_TEMPORAL_K[cfg.physics]))
+        if depth < 1:
             raise ValueError(f"k_steps must be >= 1, got {k_steps}")
+        launch = (min(depth, COUPLED_TEMPORAL_K[cfg.physics])
+                  if velocity is not None else depth)
+        self._k = _steps_per_sweep(launch, self.mesh, H, W,
+                                   coupled_max_k(cfg), reach)
+        self.steps_per_call = depth if velocity is not None else self._k
         self._base_shape = tuple(base.state.shape)
         self._place(_split(self.mesh, base.state.reshape(9 * F, self.ny,
                                                          self.nx), H, W),
-                    1, None)
+                    reach * self._k, None)
         base.state = None  # the shards hold it now
-        prm = coupled_params(cfg) if kernel else None
-        density_cfg = _density_config(F)
+        if kernel:
+            prm = coupled_params(cfg)
+            density = coupled_density_halo
 
-        def density(h, rho):
-            if kernel:
-                coupled_density_halo(h, rho)
-            else:  # the eager model's density: the stream, summed
+            def step(h, out, ext, k):
+                coupled_sweep_halo(h, out, ext, cfg, k, prm)
+
+            def cell(h, out, rho, ext):
+                _coupled_cell_step_halo(h, out, rho, ext, cfg, prm)
+        else:  # the plain twins, on any device
+
+            def density(h, rho):
                 rows, cols = shard_cells(h)
-                rho[:, rows, cols] = stream_halo(h, density_cfg).sum(dim=0)
+                rho[:, rows, cols] = coupled_density_halo_reference(h)
 
-        def step(h, out, rho, ext):
-            if kernel:
-                coupled_step_halo(h, out, rho, ext, cfg, prm)
-            else:
-                out.copy_(coupled_step_halo_reference(h, rho, ext, cfg))
+            def step(h, out, ext, k):
+                out.copy_(coupled_sweep_halo_reference(h, ext, cfg, k))
+
+            def cell(h, out, rho, ext):
+                step(h, out, ext, 1)
+
+        self._step_fn, self._cell_fn = step, cell
 
         def solve(rho, ext):
             velocity.planes(rho[base.POP], out=ext)
 
         ext = (torch.zeros((2, self.ny, self.nx), dtype=base.dtype)
                if cfg.reads_ext else None)
-        reads = cfg.reads_neighbours or velocity is not None
-        self._set_step(density, step,
-                       solve if velocity is not None else None,
-                       F if reads else 0, ext, base.dtype,
-                       1 if cfg.reads_neighbours else 0, (base.POP,))
+        self._set_planes(density, solve if velocity is not None else None,
+                         F if velocity is not None else 0, ext, base.dtype,
+                         cfg.belt, (base.POP,))
+
+    def _sweep(self, k):
+        """``k`` steps: one exchange and one K7h launch per shard for each
+        ``self._k`` of them, after the screened families' density pass and
+        solve."""
+        solving = self._solve_fn is not None
+        if solving and 1 < k < self.steps_per_call:
+            for _ in range(k):  # the rest of run(n): exact single steps
+                self._sweep(1)
+            return
+        exchange_halos(self.mesh, self.halos)
+        # one step of a screened family: the solve's densities are the
+        # step's, and K7h runs its one-step kernel on them (the clumpy
+        # pseudo-force reads the belt around each shard's band)
+        cell = solving and k == 1
+        if solving:
+            self._densities(self._belt if cell else 0)
+            self._solve()
+        if cell:
+            for pos, h in self.halos.items():
+                dev = self.mesh.device(pos)
+                self._cell_fn(h, self._spare[pos], self._rho[dev],
+                              self._ext[dev])
+            self._swap()
+            return
+        done = 0
+        while done < k:
+            kk = min(self._k, k - done)
+            if done:
+                exchange_halos(self.mesh, self.halos)
+            for pos, h in self.halos.items():
+                self._step_fn(h, self._spare[pos],
+                              self._ext.get(self.mesh.device(pos)), kk)
+            self._swap()
+            done += kk
 
 
 def _split(mesh: Mesh, f: torch.Tensor, H: int, W: int) -> dict:

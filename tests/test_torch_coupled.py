@@ -11,7 +11,8 @@ JAX's K7 kernels run in interpret mode at 128^2
 (tests/test_surfactant_rocket.py:106-168, tests/test_waves.py:149-166), the
 sweep-stale mode to JAX's kernel path with ``steps_per_call == 4``, and the
 physics checks of the JAX tests are rerun on the port. K7 itself is CUDA
-and is held to these plain steps on the card.
+and is held to these plain steps on the card; on CPU tensors its wrapper
+(:func:`coupled_sweep`, K steps a call) runs them.
 """
 
 import numpy as np
@@ -35,8 +36,10 @@ from lb2d_tpu_torch.ops.fused_coupled import (
     CoupledConfig,
     coupled_density,
     coupled_params,
-    coupled_step,
     coupled_step_reference,
+    coupled_sweep,
+    coupled_sweep_reference,
+    _coupled_cell_step,
 )
 from lb2d_tpu_torch.ops.stream import stream
 
@@ -307,6 +310,8 @@ def _random_state(F, ny=30, nx=34, seed=5):
 
 @pytest.mark.parametrize("physics", list(COUPLED_PHYSICS))
 def test_coupled_step_on_cpu_runs_the_plain_step(physics):
+    """K7's wrapper on CPU tensors runs the plain steps (one, and three in
+    one call), and launches nothing."""
     cfg = CoupledConfig(physics, omega=1.6, lb_G=1e-3, omega2=1.2,
                         lb_G2=2e-3, epsilon=0.05, rho_o=1.0, G_chen=-0.5)
     f = _random_state(cfg.fields)
@@ -314,10 +319,15 @@ def test_coupled_step_on_cpu_runs_the_plain_step(physics):
     np.testing.assert_allclose(rho.numpy(), stream(f).sum(dim=0).numpy(),
                                rtol=1e-6)
     ext = 1e-3 * torch.ones((2, 30, 34)) if cfg.reads_ext else None
-    before = coupled_step.launches
-    out = coupled_step(f, torch.empty_like(f), rho, ext, cfg)
-    assert coupled_step.launches == before
+    before = coupled_sweep.launches
+    out = coupled_sweep(f, torch.empty_like(f), ext, cfg, 1)
     assert torch.equal(out, coupled_step_reference(f, cfg, ext))
+    out = coupled_sweep(f, torch.empty_like(f), ext, cfg, 3)
+    assert coupled_sweep.launches == before
+    want = coupled_step_reference(coupled_step_reference(
+        coupled_step_reference(f, cfg, ext), cfg, ext), cfg, ext)
+    assert torch.equal(out, want)
+    assert torch.equal(out, coupled_sweep_reference(f, cfg, 3, ext))
     prm = coupled_params(cfg)
     assert prm.physics == COUPLED_PHYSICS[physics]
     assert prm.one_minus_omega == np.float32(1) - np.float32(1.6)
@@ -327,13 +337,27 @@ def test_coupled_step_on_cpu_runs_the_plain_step(physics):
 def test_coupled_step_checks_its_arguments():
     cfg = CoupledConfig("surfactant", omega=1.6, lb_G=1e-3)
     f = _random_state(2)
+    ext = torch.zeros((2, 30, 34))
     with pytest.raises(ValueError, match="ext must be"):
-        coupled_step(f, torch.empty_like(f), None, None, cfg)
+        coupled_sweep(f, torch.empty_like(f), None, cfg, 1)
     with pytest.raises(ValueError, match="distinct"):
-        coupled_step(f, f, None, torch.zeros((2, 30, 34)), cfg)
+        coupled_sweep(f, f, ext, cfg, 1)
     with pytest.raises(ValueError, match=r"\[9, 1, ny, nx\]"):
-        coupled_step(f, torch.empty_like(f), None, torch.zeros((2, 30, 34)),
-                     CoupledConfig("screened_fisher", omega=1.6, lb_G=0.0))
+        coupled_sweep(f, torch.empty_like(f), ext,
+                      CoupledConfig("screened_fisher", omega=1.6, lb_G=0.0),
+                      1)
+    for k in (0, 9):
+        with pytest.raises(ValueError, match=r"k_steps must be in 1\.\.8"):
+            coupled_sweep(f, torch.empty_like(f), ext, cfg, k)
+    rho = torch.zeros((2, 30, 34))  # the one-step kernel's densities
+    assert torch.equal(_coupled_cell_step(f, torch.empty_like(f), rho, ext,
+                                          cfg),
+                       coupled_step_reference(f, cfg, ext))
+    with pytest.raises(ValueError, match="rho must be"):
+        _coupled_cell_step(f, torch.empty_like(f), rho[:1], ext, cfg)
+    with pytest.raises(ValueError, match="one-step kernel takes a screened"):
+        _coupled_cell_step(f, torch.empty_like(f), rho, ext,
+                           CoupledConfig("rocket_yeast", omega=1.6, lb_G=0.0))
     with pytest.raises(ValueError, match="unknown physics"):
         CoupledConfig("fisher", omega=1.0, lb_G=0.0)
 

@@ -5,11 +5,12 @@ coupled builders step one y-shard from its rows and the CH-row chunks above
 and below it (``lb2d_tpu/ops/fused_mc.py:704``, ``fused_coupled.py:105,
 202``). Here they run in interpret mode on one 32-row shard of a 128-lane
 grid (rows [32, 64)) with CH = 8 chunks, one step, and the port's twins
-(:func:`~lb2d_tpu_torch.ops.fused_mc.mc_step_halo_reference`,
-:func:`~lb2d_tpu_torch.ops.fused_coupled.coupled_step_halo_reference`) take
-the same shard with the chunks' rows next to it as their halo and the
-densities of the whole grid; so do the wrappers, whose CPU path is the
-twin. The bar is JAX's kernel-vs-XLA bar, atol 5e-7 and rtol 1e-5. JAX's
+take the same shard with the chunks' rows next to it as their halo: K6h's
+(:func:`~lb2d_tpu_torch.ops.fused_mc.mc_step_halo_reference`) with the
+densities of the whole grid, K7h's (:func:`~lb2d_tpu_torch.ops.
+fused_coupled.coupled_sweep_halo_reference`) with a halo of one step's
+reach (two rows for rocket yeast, whose densities it computes on the
+shard's region); so do the wrappers, whose CPU path is the twin. The bar is JAX's kernel-vs-XLA bar, atol 5e-7 and rtol 1e-5. JAX's
 K6 takes no zero-gradient edges (its kernel plan sends them to the XLA
 step), so the zero-gradient twin, on a shard at the grid's top-right
 corner, is held to JAX's XLA step of the whole grid cut to the shard.
@@ -23,11 +24,11 @@ import jax.numpy as jnp
 import lb2d_tpu.models as jax_models
 import lb2d_tpu.models.multicomponent as jax_mc
 from lb2d_tpu_torch import models as torch_models
-from lb2d_tpu_torch.core import D2Q9
 from lb2d_tpu_torch.mc_cases import mc_case
 from lb2d_tpu_torch.ops.fused_coupled import (
-    coupled_step_halo,
-    coupled_step_halo_reference,
+    coupled_reach,
+    coupled_sweep_halo,
+    coupled_sweep_halo_reference,
 )
 from lb2d_tpu_torch.ops.fused_halo import Halo
 from lb2d_tpu_torch.ops.fused_mc import (
@@ -36,7 +37,6 @@ from lb2d_tpu_torch.ops.fused_mc import (
     mc_step_halo,
     mc_step_halo_reference,
 )
-from lb2d_tpu_torch.ops.stream import stream
 
 torch.set_num_threads(1)
 
@@ -125,17 +125,15 @@ def test_coupled_halo_twin_matches_jax_halo_kernel(name):
     sim = getattr(torch_models, name)(device="cpu", **kw)
     cfg = sim.coupled_config()
     F = cfg.fields
-    f4 = sim.state.reshape(9, F, 128, 128)
-    f = f4.reshape(9 * F, 128, 128).numpy()
+    f = sim.state.reshape(9 * F, 128, 128).numpy()
     pieces = list(map(jnp.asarray, _jax_pieces(f)))
-    rho = ext = None
+    ext = None
     if name == "RocketYeast":
         kernel = make_rocket_yeast_step(
             H=H, nx=128, omega=float(jm.omega), omega_c=float(jm.omega_c),
             lb_G=float(jm.lb_G), lb_Gc=float(jm.lb_Gc),
             epsilon=float(jm.epsilon), rho_o=float(jm.rho_o),
             G_chen=float(jm.G_chen), interpret=True, chunk=CH, k_steps=1)
-        rho = stream(f4, D2Q9).sum(dim=0)
     else:
         kernel = make_screened_fisher_step(
             H=H, nx=128, omega=float(jm.omega), lb_G=float(jm.lb_G),
@@ -144,9 +142,9 @@ def test_coupled_halo_twin_matches_jax_halo_kernel(name):
             2, 128, 128) - 0.5), dtype=torch.float32)
         pieces.append(jnp.asarray(ext[:, Y0:Y0 + H].numpy()))
     want = np.asarray(kernel(*pieces))
-    halo = _halo(f, 1)
-    got = coupled_step_halo_reference(halo, rho, ext, cfg)
+    halo = _halo(f, coupled_reach(cfg))
+    got = coupled_sweep_halo_reference(halo, ext, cfg, 1)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
-    launches = coupled_step_halo.launches
-    out = coupled_step_halo(halo, torch.empty_like(halo.f), rho, ext, cfg)
-    assert torch.equal(out, got) and coupled_step_halo.launches == launches
+    launches = coupled_sweep_halo.launches
+    out = coupled_sweep_halo(halo, torch.empty_like(halo.f), ext, cfg, 1)
+    assert torch.equal(out, got) and coupled_sweep_halo.launches == launches

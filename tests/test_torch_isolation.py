@@ -44,6 +44,7 @@ def test_port_and_chip_smoke_import_no_jax_package():
                  "lb2d_tpu_torch.ops.fused_mc", "lb2d_tpu_torch.mc_cases",
                  "lb2d_tpu_torch.ops.spectral",
                  "lb2d_tpu_torch.ops.fused_coupled",
+                 "lb2d_tpu_torch.ops.coupled_sweep",
                  "lb2d_tpu_torch.models.spectral",
                  "lb2d_tpu_torch.models.surfactant",
                  "lb2d_tpu_torch.models.rocket_yeast",

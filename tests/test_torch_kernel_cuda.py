@@ -18,16 +18,18 @@ the flow kernels), in each configuration of ``lb2d_tpu_torch.mc_cases``
 K8, the screened-gradient solve, is held to its plain ``torch.fft``
 version at 1e-5 of max |g| (two FFTs in float32, the kernel's sums in
 another order), at any grid; its 1-D pass to ``torch.fft.fft`` at 1e-6 of
-the scale. K7, the coupled families' step, is held to its plain steps at
-1e-6 after 5 steps (FMA contraction), and BASELINE config 5 through K6 +
-K8 to the eager runner. K3, the one-launch run, holds its diffusion family to the plain steps bit
+the scale. K7, the coupled families' K-step sweep, is held to its plain
+steps at 1e-6 at every K from 1 to its limit (FMA contraction) and to K
+one-step launches, and BASELINE config 5 through K6 + K8 to the eager
+runner. K3, the one-launch run, holds its diffusion family to the plain steps bit
 for bit on every cut. K9, the step of one shard from its halos, is held
 to its plain twin at 1e-6 for the flow physics and at 0 for the diffusion
 and multifield physics, on shards of an unaligned grid, and the sharded
 models to the unsharded K2 / K4 runs (1e-6 for flow, 0 for the rest).
 K6h and K7h, K6 and K7 on a shard and its halo, are held to the unsharded
-K6 / K7 and to their plain twins at 1e-6 after 5 steps (the same per-cell
-code, so the unsharded kernels are expected to agree exactly), and the
+K6 / K7 and to their plain twins at 1e-6 (K6h after 5 steps, K7h at K =
+1, 2, 3 and its limit; the same per-cell code, so the unsharded kernels
+are expected to agree exactly), and the
 sharded runner (config 5, stale or not) and ``ShardedCoupled`` to the
 unsharded kernel runs. P2, the transpose, is exact.
 """
@@ -91,15 +93,17 @@ from lb2d_tpu_torch.ops.fused_coupled import (
     COUPLED_PHYSICS,
     CoupledConfig,
     coupled_density,
-    coupled_step,
-    coupled_step_reference,
+    coupled_max_k,
+    coupled_sweep,
+    coupled_sweep_reference,
+    _coupled_cell_step,
 )
-from lb2d_tpu_torch.ops import fused, resident_plan
+from lb2d_tpu_torch.ops import _build, fused, resident_plan
 from lb2d_tpu_torch.ops.fused_halo import (
     HALO_SWEEP_PHYSICS,
     temporal_halo_step,
 )
-from lb2d_tpu_torch.ops.fused_coupled import coupled_step_halo
+from lb2d_tpu_torch.ops.fused_coupled import coupled_sweep_halo
 from lb2d_tpu_torch.ops.fused_mc import (
     mc_density,
     mc_density_halo,
@@ -801,32 +805,59 @@ def _coupled_config(physics):
                          else 2.0)
 
 
+def _coupled_state(cfg, shape, device, seed=7):
+    """A random state near rest with a random velocity field."""
+    rs = np.random.RandomState(seed)
+    w = np.asarray(D2Q9.w)[:, None, None, None]
+    f = torch.tensor(w * (0.2 + rs.rand(9, cfg.fields, *shape)),
+                     dtype=torch.float32, device=device)
+    ext = torch.tensor(0.02 * (rs.rand(2, *shape) - 0.5),
+                       dtype=torch.float32, device=device)
+    return f, ext
+
+
 @pytest.mark.parametrize("shape", [(254, 382), (128, 128)],
                          ids=["254x382", "128x128"])
 @pytest.mark.parametrize("physics", list(COUPLED_PHYSICS))
 def test_coupled_kernel_matches_reference(cuda, physics, shape):
-    """5 K7 steps (density pass, then the step) on a random state with a
-    random velocity field against the plain step."""
+    """K7 on a random state with a random velocity field, 5 steps as one
+    launch of 5 and as 5 launches of 1, against 5 plain steps; the two
+    launches agree bit for bit."""
     cfg = _coupled_config(physics)
-    F = cfg.fields
-    rs = np.random.RandomState(7)
-    w = np.asarray(D2Q9.w)[:, None, None, None]
-    f = torch.tensor(w * (0.2 + rs.rand(9, F, *shape)), dtype=torch.float32,
-                     device=cuda)
-    ext = torch.tensor(0.02 * (rs.rand(2, *shape) - 0.5),
-                       dtype=torch.float32, device=cuda)
-    a, spare = f.clone(), torch.empty_like(f)
-    rho = torch.empty((F, *shape), device=cuda)
-    before = coupled_step.launches
+    f, ext = _coupled_state(cfg, shape, cuda)
+    before = coupled_sweep.launches
+    a = coupled_sweep(f, torch.empty_like(f), ext, cfg, 5)
+    b = f
     for _ in range(5):
-        coupled_density(a, rho)
-        a, spare = coupled_step(a, spare, rho, ext, cfg), a
-        f = coupled_step_reference(f, cfg, ext)
+        b = coupled_sweep(b, torch.empty_like(b), ext, cfg, 1)
+    want = coupled_sweep_reference(f, cfg, 5, ext)
     torch.cuda.synchronize()
-    assert coupled_step.launches == before + 5
-    assert torch.isfinite(a).all()
-    d = float((a - f).abs().max())
+    assert coupled_sweep.launches == before + 6
+    assert torch.isfinite(a).all() and torch.equal(a, b)
+    d = float((a - want).abs().max())
     assert d <= TOL, d
+    if cfg.reads_ext:  # one step by the one-step kernel on the densities
+        rho = coupled_density(f, torch.empty((cfg.fields, *shape),
+                                             device=cuda))
+        got = _coupled_cell_step(f, torch.empty_like(f), rho, ext, cfg)
+        d = float((got - coupled_sweep_reference(f, cfg, 1, ext)).abs().max())
+        assert d <= TOL, d
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("physics", list(COUPLED_PHYSICS))
+def test_coupled_sweep_every_k_matches_its_twin(cuda, physics, k):
+    """K7 at every K up to its limit against its plain twin, on a 45x33
+    grid narrower than one strip and a 37x301 grid of several strips; the
+    limit equals the Python mirror's."""
+    cfg = _coupled_config(physics)
+    assert coupled_max_k(cfg) == _build.load_library().lb2d_coupled_max_k(
+        COUPLED_PHYSICS[physics]) == 8
+    for shape in ((45, 33), (37, 301)):
+        f, ext = _coupled_state(cfg, shape, cuda, seed=k)
+        got = coupled_sweep(f, torch.empty_like(f), ext, cfg, k)
+        d = float((got - coupled_sweep_reference(f, cfg, k, ext)).abs().max())
+        assert d <= TOL, (shape, d)
 
 
 COUPLED_MODELS = {
@@ -854,22 +885,29 @@ COUPLED_RUNS = ([(name, 1) for name in COUPLED_MODELS]
 @pytest.mark.parametrize("name,stale", COUPLED_RUNS,
                          ids=[f"{n}-stale{k}" for n, k in COUPLED_RUNS])
 def test_coupled_model_kernel_backend_matches_eager(cuda, name, stale):
-    """``auto`` runs K7 (and K8, the screened models) on CUDA; ``run(7)``
-    (one sweep and three exact steps at ``stale_velocity=4``) matches the
-    eager backend with the plain solve."""
+    """``auto`` runs K7 (and K6's density pass and K8, the screened models)
+    on CUDA; ``run(11)`` (the rocket yeasts: two launches of 4 and one of
+    3; at ``stale_velocity=4``: two sweeps and three exact steps by the
+    one-step kernel) matches the eager backend with the plain solve."""
     kw, eager_kw = dict(device=cuda), dict(device=cuda, backend="eager")
     if not name.startswith("Rocket"):
         kw["stale_velocity"] = eager_kw["stale_velocity"] = stale
     sim, eager = COUPLED_MODELS[name](**kw), COUPLED_MODELS[name](**eager_kw)
     assert sim.backend == "kernel" and eager.backend == "eager"
-    before = (coupled_step.launches, screened_gradients.launches)
-    sim.run(7)
-    eager.run(7)
+    before = (coupled_sweep.launches, screened_gradients.launches,
+              mc_density.launches)
+    sim.run(11)
+    eager.run(11)
     torch.cuda.synchronize()
-    solves = 0 if name.startswith("Rocket") else (7 if stale == 1 else 4)
-    assert (coupled_step.launches - before[0],
-            screened_gradients.launches - before[1]) == (
-                7, solve_launches(sim.ny, sim.nx) * solves)
+    if name.startswith("Rocket"):
+        assert sim.steps_per_call == 4
+        want = (3, 0, 0)
+    else:
+        solves = 11 if stale == 1 else 5
+        want = (solves, solve_launches(sim.ny, sim.nx) * solves, solves)
+    assert (coupled_sweep.launches - before[0],
+            screened_gradients.launches - before[1],
+            mc_density.launches - before[2]) == want
     d = float((sim.state - eager.state).abs().max())
     assert d <= 1e-5, d
 
@@ -1056,24 +1094,24 @@ def test_mc_halo_kernel_equals_k6(cuda, case):
     assert d_k6 <= limit and d_rho <= limit, (d_k6, d_rho)
 
 
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
 @pytest.mark.parametrize("mesh", HALO_MESHES, ids=HALO_IDS)
 @pytest.mark.parametrize("physics", list(COUPLED_PHYSICS))
-def test_coupled_halo_kernel_matches_k7_and_twin(cuda, physics, mesh):
+def test_coupled_halo_kernel_matches_k7_and_twin(cuda, physics, mesh, k):
     """K7h on the shards of a random 254x382 state with a random velocity
-    field, 5 steps, against K7 on the whole grid and the plain twin."""
+    field (x halos on the 2x2 and 1x4 cuts), K steps in one launch, against
+    K7's launch on the whole grid, the plain twin and K one-step
+    launches."""
     cfg = _coupled_config(physics)
-    rs = np.random.RandomState(7)
-    w = np.asarray(D2Q9.w)[:, None, None, None]
-    f = torch.tensor(w * (0.2 + rs.rand(9, cfg.fields, 254, 382)),
-                     dtype=torch.float32, device=cuda)
-    ext = torch.tensor(0.02 * (rs.rand(2, 254, 382) - 0.5),
-                       dtype=torch.float32, device=cuda)
+    f, ext = _coupled_state(cfg, (254, 382), cuda)
     cuts = shard_cuts(254, 382, *mesh)
-    before = coupled_step_halo.launches
-    d_k7, d_twin = compare_coupled_halo(f, cfg, ext, cuts)
+    before = coupled_sweep_halo.launches
+    d = compare_coupled_halo(f, cfg, ext, cuts, k)
     torch.cuda.synchronize()
-    assert coupled_step_halo.launches == before + 5 * len(cuts)
-    assert d_k7 <= TOL and d_twin <= TOL, (d_k7, d_twin)
+    one_step = len(cuts) if cfg.reads_ext else 0  # the one-step kernel
+    assert coupled_sweep_halo.launches == before + (1 + k) * len(cuts) + \
+        one_step
+    assert max(d) <= TOL, d
 
 
 @pytest.mark.parametrize("stale", [None, 4], ids=["exact", "stale4"])
@@ -1102,19 +1140,45 @@ def test_sharded_config5_matches_unsharded_kernel(cuda, mesh, stale):
 @pytest.mark.parametrize("name,stale", COUPLED_RUNS,
                          ids=[f"{n}-stale{k}" for n, k in COUPLED_RUNS])
 def test_sharded_coupled_matches_unsharded_kernel(cuda, name, stale):
-    """ShardedCoupled on 2x2 shards of one card (K7h, K8 on the gathered
-    density) against the unsharded kernel run, ``run(7)``."""
+    """ShardedCoupled on 2x2 shards of one card (K7h; K6h and K8 on the
+    gathered density for the screened models) against the unsharded kernel
+    run, ``run(11)``."""
     kw = dict(device=cuda)
     if not name.startswith("Rocket"):
         kw["stale_velocity"] = stale
     single = COUPLED_MODELS[name](**kw)
     sh = ShardedCoupled(COUPLED_MODELS[name](**kw),
                         mesh=make_mesh(devices=[cuda] * 4, shape=(2, 2)))
-    before = coupled_step_halo.launches
-    single.run(7)
-    sh.run(7)
+    before = coupled_sweep_halo.launches
+    single.run(11)
+    sh.run(11)
     torch.cuda.synchronize()
-    assert coupled_step_halo.launches == before + 4 * 7
+    launches = (-(-11 // sh.steps_per_call) if name.startswith("Rocket")
+                else (11 if stale == 1 else 5))
+    assert coupled_sweep_halo.launches == before + 4 * launches
+    d = float(np.abs(sh.state_numpy().ravel()
+                     - single.state_numpy().ravel()).max())
+    assert d <= TOL, d
+
+
+@pytest.mark.parametrize("name", ["RocketYeast", "ScreenedFisherWave",
+                                  "ClumpySurfactantNutrientWave"])
+def test_eager_sharded_coupled_launches_no_kernel(cuda, name):
+    """ShardedCoupled of a model built with ``backend="eager"`` on the card
+    runs the plain twins, as the unsharded eager model does: ``run(5)``
+    launches no K7h, K6h density pass or K7 and equals the unsharded eager
+    run."""
+    kw = dict(device=cuda, backend="eager")
+    single = COUPLED_MODELS[name](**kw)
+    sh = ShardedCoupled(COUPLED_MODELS[name](**kw),
+                        mesh=make_mesh(devices=[cuda] * 4, shape=(2, 2)))
+    before = (coupled_sweep_halo.launches, coupled_sweep.launches,
+              mc_density_halo.launches)
+    single.run(5)
+    sh.run(5)
+    torch.cuda.synchronize()
+    assert (coupled_sweep_halo.launches, coupled_sweep.launches,
+            mc_density_halo.launches) == before
     d = float(np.abs(sh.state_numpy().ravel()
                      - single.state_numpy().ravel()).max())
     assert d <= TOL, d

@@ -3,9 +3,11 @@ package and against the port's unsharded models, on the CPU.
 
 The counterparts of ``tests/test_sharding.py:305-445``: each coupled model
 cut into meshes of CPU shards (``make_mesh(devices=["cpu"] * 4)``, 4x1 and
-2x2), where the sharded step runs K7h's plain twin and the screened
-velocity is solved once on the gathered density (``device="cpu"``: the
-``eager`` backend). Each run is held to JAX's unsharded XLA step from the
+2x2), where the sharded sweeps run K7h's plain twin (the rocket yeasts
+``COUPLED_TEMPORAL_K`` steps per sweep on 4x1, ``COUPLED_X_SHARDED_K`` on
+2x2, from halos of twice that, the rest of ``run(n)`` one shorter
+sweep) and the screened velocity is solved once
+on the gathered density (``device="cpu"``: the ``eager`` backend). Each run is held to JAX's unsharded XLA step from the
 same state at 128^2 (atol 5e-7, rtol 1e-5) and to the port's unsharded run
 at 1e-7, where it is expected to agree exactly. JAX's XLA step solves its
 velocity every step, so the ``stale_velocity`` runs are held to the port's
@@ -18,7 +20,9 @@ import pytest
 import torch
 
 from lb2d_tpu_torch import models as torch_models
+from lb2d_tpu_torch.ops.fused_coupled import COUPLED_TEMPORAL_K
 from lb2d_tpu_torch.parallel import Mesh, ShardedCoupled, make_mesh
+from lb2d_tpu_torch.parallel.sharded import COUPLED_X_SHARDED_K
 
 torch.set_num_threads(1)
 
@@ -76,7 +80,12 @@ class TestShardedCoupled:
         steps = STEPS.get(name, 5)
         single = _model(name)
         sh = ShardedCoupled(_model(name), mesh=_mesh(mesh))
-        assert sh.base.state is None and sh.steps_per_call == 1
+        rocket = name.startswith("Rocket")
+        # the rocket yeasts' K: 8 where the mesh cuts x (its exchanges cost
+        # the host more than a sweep's launches), COUPLED_TEMPORAL_K else
+        K = (1 if not rocket else COUPLED_X_SHARDED_K if mesh[1] > 1
+             else COUPLED_TEMPORAL_K[single.coupled_config().physics])
+        assert sh.base.state is None and sh.steps_per_call == K
         single.run(steps)
         sh.run(2)
         sh.run(steps - 2)

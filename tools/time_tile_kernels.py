@@ -20,11 +20,21 @@ at the model's K; K6 ``mc_density`` and
 ``mc_step`` on the 8192^2 porous two-fluid Shan-Chen runner of BASELINE
 config 5 with its hooks (the Shan-Chen interaction and the screened
 force's ext planes) and K7 per physics at the coupled models' shapes
-(``chip_smoke.py``'s: 1024^2, the surfactant waves 512^2; there a launch
-takes 15-90 us and the host's launch rate shows) and at 2048^2, on the
-models' states (K7's velocity planes those of the state's density). Modes
+(``chip_smoke.py``'s: 1024^2, the surfactant waves 512^2) and at 2048^2,
+on the models' states (K7's velocity planes those of the state's
+density), ms per launch at every K from 1 to its limit by CUDA-graph
+replay and by events around host launches, the screened families'
+one-step kernel and K6's density pass. Modes
 after the label: ``k7``, K7 alone, so that many pairs of runs fit in one
-call; ``k8``, K8 alone: one screened-gradient solve (config 5's screen and
+call; ``coupled``, the coupled main paths of ``chip_smoke.py`` as MLUPS of
+``run(n, timed=True)`` (median of three after a warm run; the five
+models, the two ``stale_velocity=8`` runs and ``ShardedCoupled`` on four
+shards of one card), which any checkout of the port runs; ``kshard``,
+``ShardedCoupled`` rocket yeast and forces only at 1024^2 on 4 x 1 and
+2 x 2 shards of one card at K = 4, 6 and 8 in turns (``k_steps``; MLUPS
+of five ``run(64, timed=True)`` per K and round, two rounds in opposite
+orders); ``k8``, K8
+alone: one screened-gradient solve (config 5's screen and
 amplitude) of a random field at 8192^2, 1024^2 and 512^2 (20 solves
 between the events at 8192^2); ``paths``, the main paths that run K8, as
 MLUPS of ``run(n, timed=True)`` after a warm run (host clock, median of
@@ -50,7 +60,8 @@ warm run); ``graph``, the kernels' own device time where a launch is
 short enough for the host's launch rate to show in the events' time: K9 at
 its 2 x 2 shards (and the velocity inlet's 100 x 401 shard), K7 per
 physics at the coupled models' shapes and K7h at the shards the sharded
-coupled models run, each by CUDA-graph replay (20 launches captured in one
+coupled models run, at the K of their main paths, each by CUDA-graph
+replay (20 launches captured in one
 graph, the graph replayed 20 times between two events, five times) beside
 the same launches timed by events; ``k3``, K3 per physics at its main
 path's shape (ms per 1000-step launch, CUDA events, median of three runs
@@ -155,6 +166,14 @@ def main():
     if sys.argv[2:] == ["k7"]:
         for n in (1024, 2048):
             out.update(_k7_times(n))
+        print(json.dumps(out), flush=True)
+        return
+    if sys.argv[2:] == ["coupled"]:
+        out.update(_coupled_mlups())
+        print(json.dumps(out), flush=True)
+        return
+    if sys.argv[2:] == ["kshard"]:
+        out.update(_sharded_coupled_k())
         print(json.dumps(out), flush=True)
         return
     if sys.argv[2:] == ["ksweep"]:
@@ -468,10 +487,11 @@ def _graph_times():
     """K9 at its 2 x 2 shards, K7 and K7h: ms per launch by CUDA events
     around host launches and by CUDA-graph replay."""
     from lb2d_tpu_torch.ops.fused_coupled import (
-        coupled_density,
-        coupled_params,
-        coupled_step,
-        coupled_step_halo,
+        _coupled_cell_step,
+        _coupled_cell_step_halo,
+        coupled_reach,
+        coupled_sweep,
+        coupled_sweep_halo,
     )
     from lb2d_tpu_torch.ops.fused_halo import (
         HALO_TEMPORAL_K,
@@ -518,20 +538,20 @@ def _graph_times():
          lambda: temporal_halo_step(halo, outb, k, "velocity_inlet", **kw))
     for model, mesh in _coupled_models(1024):
         cfg = model.coupled_config()
-        f = model._fields4(model.state)
-        rho = coupled_density(f, torch.empty((cfg.fields, model.ny,
-                                              model.nx), device="cuda"))
-        ext = (model._velocity.planes(rho[0]) if model._velocity is not None
-               else None)
-        prm = coupled_params(cfg)
-        both(f"K7 {cfg.physics} {model.ny}^2", _ping_pong(
-            f, lambda a, b: coupled_step(a, b, rho, ext, cfg, prm)))
+        f, ext, prm, k, cell = _k7_inputs(model)
+        both(f"K7 {cfg.physics} {model.ny}^2 K={k}", _ping_pong(
+            f, (lambda a, b: coupled_sweep(a, b, ext, cfg, k, prm))
+            if cell is None else
+            (lambda a, b: _coupled_cell_step(a, b, cell, ext, cfg, prm))))
         H, W = model.ny // mesh[0], model.nx // mesh[1]
         halo = Halo.cut(f.reshape(9 * cfg.fields, model.ny, model.nx), 0, 0,
-                        H, W, 1)
+                        H, W, coupled_reach(cfg) * k)
         outb = torch.empty_like(halo.f)
-        both(f"K7h {cfg.physics} {H}x{W} shard",
-             lambda: coupled_step_halo(halo, outb, rho, ext, cfg, prm))
+        both(f"K7h {cfg.physics} {H}x{W} shard K={k}",
+             (lambda: coupled_sweep_halo(halo, outb, ext, cfg, k, prm))
+             if cell is None else
+             (lambda: _coupled_cell_step_halo(halo, outb, cell, ext, cfg,
+                                              prm)))
     return out
 
 
@@ -1023,26 +1043,164 @@ def _path_mlups():
     return out
 
 
-def _k7_times(n):
-    """K7 per physics on ``n``^2 models' states (the surfactant waves at
-    ``n / 2`` when ``n`` is 1024, as ``chip_smoke.py`` runs them)."""
+def _k7_inputs(model):
+    """A coupled model's state ``[9, F, ny, nx]``, the velocity planes of
+    its density (the screened models), its K7 constants, the steps per
+    launch of its main path and the densities its launch takes there (the
+    screened models' at one step a launch: the one-step kernel), or
+    None."""
     from lb2d_tpu_torch.ops.fused_coupled import (
+        COUPLED_TEMPORAL_K,
         coupled_density,
         coupled_params,
-        coupled_step,
+    )
+
+    cfg = model.coupled_config()
+    f = model._fields4(model.state)
+    rho = coupled_density(f, torch.empty((cfg.fields, model.ny, model.nx),
+                                         device="cuda"))
+    ext = (model._velocity.planes(rho[0]) if model._velocity is not None
+           else None)
+    k = min(model.steps_per_call, COUPLED_TEMPORAL_K[cfg.physics])
+    cell = rho if ext is not None and k == 1 else None
+    return f, ext, coupled_params(cfg), k, cell
+
+
+def _k7_times(n):
+    """K7 per physics on ``n``^2 models' states (the surfactant waves at
+    ``n / 2`` when ``n`` is 1024, as ``chip_smoke.py`` runs them): ms per
+    launch at every K up to the kernel's limit, by CUDA-graph replay and by
+    events around host launches, and K6's density pass (the screened
+    families' solve source) by graph replay."""
+    from lb2d_tpu_torch.ops.fused_coupled import (
+        _coupled_cell_step,
+        coupled_density,
+        coupled_max_k,
+        coupled_sweep,
     )
 
     out = {}
     for model, _ in _coupled_models(n):
         cfg = model.coupled_config()
-        f = model._fields4(model.state)
-        rho = coupled_density(f, torch.empty((cfg.fields, model.ny,
-                                              model.nx), device="cuda"))
-        ext = (model._velocity.planes(rho[0]) if model._velocity is not None
-               else None)
-        prm = coupled_params(cfg)
-        out[f"K7 {cfg.physics} {model.ny}^2"] = _median_ms(_ping_pong(
-            f, lambda a, b: coupled_step(a, b, rho, ext, cfg, prm)))
+        f, ext, prm, _, _ = _k7_inputs(model)
+        rho = torch.empty((cfg.fields, model.ny, model.nx), device="cuda")
+        if ext is not None:  # the one-step kernel on the state's densities
+            coupled_density(f, rho)
+            out[f"K7 one-step kernel {cfg.physics} {model.ny}^2 graph_ms"] = (
+                _graph_ms(_ping_pong(f, lambda a, b: _coupled_cell_step(
+                    a, b, rho, ext, cfg, prm))))
+        by_k = {}
+        for k in range(1, coupled_max_k(cfg) + 1):
+            launch = _ping_pong(f, lambda a, b, k=k: coupled_sweep(
+                a, b, ext, cfg, k, prm))
+            graph = _graph_ms(launch)
+            by_k[k] = {"graph_ms": graph, "graph_ms_per_step": graph / k,
+                       "events_ms": _median_ms(launch, reps=30, rounds=3)}
+        out[f"K7 {cfg.physics} {model.ny}^2 by K"] = by_k
+        out[f"K6 density {cfg.physics} {model.ny}^2 graph_ms"] = _graph_ms(
+            lambda: coupled_density(f, rho))
+    return out
+
+
+def _coupled_mlups():
+    """The coupled main paths of ``chip_smoke.py`` as MLUPS of ``run(n,
+    timed=True)`` (median of three after a warm run): the five models at
+    their sizes, the two ``stale_velocity=8`` runs, and ``ShardedCoupled``
+    over four shards of one card (rocket yeast 4 x 1 and 2 x 2, the forces
+    only 2 x 2, the screened Fisher wave 2 x 2 exact and ``stale_velocity=
+    8``), ``run(256)`` unsharded and ``run(64)`` sharded."""
+    from lb2d_tpu_torch.models import (
+        ClumpySurfactantNutrientWave,
+        RocketYeast,
+        RocketYeastForcesOnly,
+        ScreenedFisherWave,
+        SurfactantNutrientWave,
+    )
+    from lb2d_tpu_torch.parallel import ShardedCoupled, make_mesh
+
+    def median_mlups(sim, n):
+        sim.run(n)  # warm
+        runs = []
+        for _ in range(3):
+            sim.run(n, timed=True)
+            runs.append(sim.last_mlups)
+        return sorted(runs)[1]
+
+    sfw = dict(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=1024)
+    waves = dict(sfw, N=512)
+    rocket = dict(Lx=1.0, Ly=1.0, R0=0.2, epsilon=0.05, Gc=2.0, N=1024,
+                  G_chen=-0.1)
+    forces = dict(rocket, c_o=0.25, alpha=2.0)
+    makers = {
+        "ScreenedFisherWave 1024^2": (ScreenedFisherWave, sfw),
+        "ScreenedFisherWave 1024^2 stale8": (ScreenedFisherWave,
+                                             dict(sfw, stale_velocity=8)),
+        "SurfactantNutrientWave 512^2": (SurfactantNutrientWave, waves),
+        "SurfactantNutrientWave 1024^2 stale8": (
+            SurfactantNutrientWave, dict(waves, N=1024, stale_velocity=8)),
+        "ClumpySurfactantNutrientWave 512^2": (
+            ClumpySurfactantNutrientWave, dict(waves, rho_o=1.0,
+                                               G_chen=-5.0)),
+        "RocketYeast 1024^2": (RocketYeast, rocket),
+        "RocketYeastForcesOnly 1024^2": (RocketYeastForcesOnly, forces),
+    }
+    out = {}
+    for label, (cls, kw) in makers.items():
+        out[f"MLUPS {label}"] = median_mlups(cls(device="cuda", **kw), 256)
+        torch.cuda.empty_cache()
+    for label, cls, kw, shape in (
+            ("RocketYeast 4x1", RocketYeast, rocket, (4, 1)),
+            ("RocketYeast 2x2", RocketYeast, rocket, (2, 2)),
+            ("RocketYeastForcesOnly 2x2", RocketYeastForcesOnly, forces,
+             (2, 2)),
+            ("ScreenedFisherWave 2x2", ScreenedFisherWave, sfw, (2, 2)),
+            ("ScreenedFisherWave stale8 2x2", ScreenedFisherWave,
+             dict(sfw, stale_velocity=8), (2, 2))):
+        sh = ShardedCoupled(cls(device="cuda", **kw),
+                            mesh=make_mesh(devices=["cuda"] * 4, shape=shape))
+        out[f"MLUPS ShardedCoupled {label}"] = median_mlups(sh, 64)
+        del sh
+        torch.cuda.empty_cache()
+    return out
+
+
+SHARDED_K = (4, 6, 8)
+
+
+def _sharded_coupled_k():
+    """``ShardedCoupled`` rocket yeast and forces only at 1024^2 over four
+    shards of one card, 4 x 1 and 2 x 2, at each K of ``SHARDED_K`` in
+    turns (the order reversed in the second round): MLUPS of five ``run(64,
+    timed=True)`` after a warm run, each K's runs of both rounds."""
+    from lb2d_tpu_torch.models import RocketYeast, RocketYeastForcesOnly
+    from lb2d_tpu_torch.parallel import ShardedCoupled, make_mesh
+
+    rocket = dict(Lx=1.0, Ly=1.0, R0=0.2, epsilon=0.05, Gc=2.0, N=1024,
+                  G_chen=-0.1)
+    forces = dict(rocket, c_o=0.25, alpha=2.0)
+    out = {}
+    for rnd, order in enumerate((SHARDED_K, SHARDED_K[::-1])):
+        for label, cls, kw, shape in (
+                ("RocketYeast 4x1", RocketYeast, rocket, (4, 1)),
+                ("RocketYeast 2x2", RocketYeast, rocket, (2, 2)),
+                ("RocketYeastForcesOnly 4x1", RocketYeastForcesOnly, forces,
+                 (4, 1)),
+                ("RocketYeastForcesOnly 2x2", RocketYeastForcesOnly, forces,
+                 (2, 2))):
+            for k in order:
+                sh = ShardedCoupled(cls(device="cuda", **kw),
+                                    mesh=make_mesh(devices=["cuda"] * 4,
+                                                   shape=shape), k_steps=k)
+                assert sh.steps_per_call == k
+                sh.run(64)  # warm
+                runs = []
+                for _ in range(5):
+                    sh.run(64, timed=True)
+                    runs.append(sh.last_mlups)
+                out.setdefault(f"MLUPS ShardedCoupled {label} K={k}",
+                               []).extend(runs)
+                del sh
+                torch.cuda.empty_cache()
     return out
 
 
