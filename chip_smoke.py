@@ -20,7 +20,9 @@ set to 0 just before it and read just after:
 * the multifield slice, at the reference's own sizes: ``FisherExpansion``
   at 2048^2 with 2 populations (K4 fisher), ``Expansion`` at 1024^2 with 2
   populations and the nutrient (K4 expansion), and K5, the Expansion's
-  seam-band op, through its own entry point on that model's band;
+  seam-band op, through its own entry point on that model's band (K5 and
+  P1 timed by CUDA events and by CUDA-graph replay; P1 held bit for bit to
+  its first one-cell-a-thread loop, ``normals_per_cell``);
 * the multicomponent slice (K6, ``mc_density`` + ``mc_step``): the porous
   two-fluid Shan-Chen ``SimulationRunner`` of BASELINE config 5 at 8192^2
   without its screened-Poisson hook, the spinodal decomposition at 1024^2
@@ -144,7 +146,7 @@ from lb2d_tpu_torch.models.multifield import (
     FISHER_TEMPORAL_K,
 )
 from lb2d_tpu_torch.models.pipe_flow import TEMPORAL_K, VELOCITY_TEMPORAL_K
-from lb2d_tpu_torch.ops import _build, fused
+from lb2d_tpu_torch.ops import _build, band_plan, fused
 from lb2d_tpu_torch.ops.fused import (
     MAX_MULTIFIELD_FIELDS,
     MAX_TEMPORAL_K,
@@ -209,6 +211,7 @@ from lb2d_tpu_torch.ops.spectral import (
 )
 from lb2d_tpu_torch.ops.random import (
     normals,
+    normals_per_cell,
     normals_reference,
     philox4x32_10,
     philox_bits,
@@ -670,7 +673,8 @@ COUNTERS = {"K1": pipe_step, "K2": temporal_pipe_step,
             "K3v": resident_velocity_run,
             "K2 diffusion family": temporal_diffusion_step,
             "K3 diffusion family": resident_diffusion_run, "P1": normals,
-            "philox_bits": philox_bits, "K4": temporal_multifield_step,
+            "P1 per cell": normals_per_cell, "philox_bits": philox_bits,
+            "K4": temporal_multifield_step,
             "K5": expansion_band_step, "K6d": mc_density, "K6s": mc_step,
             "K7": coupled_sweep, "K8": screened_gradients,
             "K8 pass": dft_axis0, "K9": temporal_halo_step,
@@ -821,14 +825,18 @@ def compare_k3_velocity(sim, obstacle, outlet, incompressible, n,
 
 
 def compare_normals(seed, step, ny, nx):
-    """P1 against the plain Philox: the words bit for bit (returns the
-    normals' max |d|)."""
+    """P1 against the plain Philox: the words bit for bit, and the normals
+    bit for bit against P1's first one-cell-a-thread loop (returns the
+    normals' max |d| from the plain version)."""
     cell = torch.arange(ny * nx, dtype=torch.int64, device="cuda")
     want = philox4x32_10((cell, step & 0xFFFFFFFF, step >> 32, 0),
                          philox_key(seed))
     if not torch.equal(philox_bits(seed, step, ny * nx, "cuda"), want):
         raise RuntimeError("P1: the Philox words differ from the plain ones")
     eta = normals(seed, step, (ny, nx), "cuda")
+    if not torch.equal(eta, normals_per_cell(seed, step, (ny, nx), "cuda")):
+        raise RuntimeError("P1: the normals differ from the one-cell-a-"
+                           "thread loop's")
     return _max_diff(eta, normals_reference(seed, step, ny, nx, "cuda"))
 
 
@@ -881,10 +889,11 @@ def diffusion_kernel_phase(adv, sto, wave, rad, inlet):
                               compare_k3_velocity(inlet, obstacle or None,
                                                   outlet, incompressible, n,
                                                   shape))
-    for step in (0, STEP0 + 4):
-        check("P1", f"P1 vs plain {sto.ny}x{sto.nx} step {step} (words "
-              "equal)", compare_normals(sto.rng_seed, step, sto.ny, sto.nx),
-              NORMALS_TOL)
+    for step in (0, 5, STEP0 + 4):  # STEP0 + 4 = 2^32 + 1
+        for ny, nx in ((sto.ny, sto.nx), (2049, 7), (3, 5)):
+            check("P1", f"P1 vs plain {ny}x{nx} step {step} (words and the "
+                  "one-cell-a-thread loop's normals equal)",
+                  compare_normals(sto.rng_seed, step, ny, nx), NORMALS_TOL)
     return worst
 
 
@@ -985,6 +994,8 @@ def diffusion_timing_phase(adv, sto, wave, rad, inlet):
     normals(sto.rng_seed, 0, shape, "cuda")
     times["P1"] = _events_ms(lambda: normals(sto.rng_seed, 0, shape, "cuda"),
                              100)
+    times["P1 graph"] = _graph_ms(
+        lambda: normals(sto.rng_seed, 0, shape, "cuda"))
     normals_reference(sto.rng_seed, 0, *shape, "cuda")
     times["plain P1"] = _events_ms(
         lambda: normals_reference(sto.rng_seed, 0, *shape, "cuda"), 5)
@@ -996,6 +1007,8 @@ def diffusion_timing_phase(adv, sto, wave, rad, inlet):
               f"of {steps[key]} step(s); plain version "
               f"{times['plain ' + key]:.4f} ms for the same work (CUDA "
               f"events)", flush=True)
+    print(f"P1 at {sto.ny}x{sto.nx}: {times['P1 graph']:.4f} ms per launch "
+          "by CUDA-graph replay", flush=True)
     print(f"for scale, not the same function: torch.randn {shape} "
           f"(cuRAND's Philox normals) {randn_ms:.4f} ms", flush=True)
     return times, steps
@@ -1238,7 +1251,8 @@ def multifield_kernel_phase(fe, ex):
     for k in sorted({1, ex.temporal_k, band_max_k(ex.num_fields)}):
         for B in (2 * k, 2 * k + 5):
             check("K5", f"K5 vs plain and vs K4 rows [-{k}, {k}), band of "
-                  f"{2 * B} rows of the {ex.ny}x{ex.nx} model state, k={k}",
+                  f"{2 * B} rows of the {ex.ny}x{ex.nx} model state, k={k} "
+                  f"({band_plan.plan(ex.num_fields, k, ex.nx)})",
                   compare_k5(kw, ex.state, k, B))
     for F in range(1, MAX_MULTIFIELD_FIELDS + 1):
         shapes = ((254, 382), (45, 33), (7, 300)) if F in (1, 2, 3, 8) else (
@@ -1324,6 +1338,8 @@ def multifield_timing_phase(fe, ex):
     expansion_band_step(band, k, *args, **band_kw)
     times["K5"] = _events_ms(
         lambda: expansion_band_step(band, k, *args, **band_kw), 200)
+    times["K5 graph"] = _graph_ms(
+        lambda: expansion_band_step(band, k, *args, **band_kw))
     expansion_band_reference(band, k, *args, **band_kw)
     times["plain K5"] = _events_ms(
         lambda: expansion_band_reference(band, k, *args, **band_kw), 10)
@@ -1335,6 +1351,8 @@ def multifield_timing_phase(fe, ex):
               f"launch of {steps[key]} step(s); plain version "
               f"{times['plain ' + key]:.4f} ms for the same work (CUDA "
               f"events)", flush=True)
+    print(f"K5: {times['K5 graph']:.4f} ms per launch by CUDA-graph replay "
+          f"(plan {band_plan.plan(ex.num_fields, k, ex.nx)})", flush=True)
     return times, steps, band.shape[2]
 
 
@@ -3130,6 +3148,8 @@ def main():
             "library_ms": None,  # no single PyTorch call computes the same
             "steps_per_launch": steps[key],
             "ms_per_step": times[key] / steps[key], "shape": shape})
+        if key in ("K5", "P1"):  # their launches are shorter than the host's
+            rows[-1]["graph_ms"] = times[key + " graph"]
     k7 = "lb2d_tpu/ops/fused_coupled.py"
     k7_tpu = (("rocket_yeast", f"{k7}:105"),
               ("rocket_yeast_forces_only", f"{k7}:105"),

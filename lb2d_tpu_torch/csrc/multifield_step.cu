@@ -9,8 +9,8 @@
 // band of R rows that wraps within itself, emitting the central 2K rows.
 // K4 runs K2's row sweep (row_sweep.cuh, temporal_step.cu) on 9F planes,
 // the TPU kernel's own loop (fused.py:1539, row chunks in order, rings of
-// intermediate rows); K5 keeps the first K4's tile loop (band_tile_kernel,
-// below, says why). A block sweeps a strip of at most
+// intermediate rows); K5 runs a cone of one cell per thread
+// (band_cone_kernel, below). A K4 block sweeps a strip of at most
 // 64 columns (F = 2, 3; 128 at F = 1, 32 at F >= 4) down a segment of
 // rows: the next input row's 9F planes arrive by cp.async while each level
 // computes its row from the ring of the level below, and the last level
@@ -24,6 +24,19 @@
 //   can use: on a band of `rows` rows it writes only rows [(R - 2K) / 2,
 //   (R + 2K) / 2), with band row r drawing the noise of global row
 //   (row0 + r) mod ny, through the same per-cell update.
+// K5's 2K output rows are too few for a sweep (its 3K phases of pipeline
+// fill) and for tiles (the first K4's 32 x 32 tiles: 43 blocks at 1024
+// columns, each thread four cell updates in a row per step). What bounds
+// it on this card is the chain of K cell updates and the launch, not its
+// bytes (16 x 1024 x 27 planes, 0.8 us at 3.35 TB/s). So a block owns a
+// strip of about nx / 128 columns (128 blocks, one an SM, at 1024) and
+// computes only the cone that reaches its 2K x W outputs, one cell a
+// thread: a launch is K updates and K - 1 barriers per thread, level 1
+// reading the band straight from global memory (band_cone_kernel). Its
+// shared memory holds levels 1 and 2 (36,720 B at F = 3, K = 4, 224
+// threads). On an H100 80GB HBM3 at 700 W (PERF.md, section 6):
+// 0.0089 ms a launch by CUDA-graph replay on the 1024^2 Expansion's 16-row
+// band, against 0.0231 for the tiles.
 // K9's multifield physics (lb2d_halo_multifield_step, replacing
 // lb2d_tpu/ops/fused_halo.py:make_temporal_halo_step with "multifield_fisher"
 // and "multifield_expansion") is the same kernel on one shard: its rows
@@ -214,117 +227,154 @@ cudaError_t launch(const Src& src, float* f_out, const Domain& d, int K,
   return cudaGetLastError();
 }
 
-// K5's loop: K Expansion steps of a band in T x T tiles, each block
-// writing the inner (T - 2K)^2 cells of its region (the first K4's loop,
-// which K5 keeps: its 2K emitted rows make a row sweep's segments a few
-// rows long, and its 3K phases of pipeline fill cost more than the tiles'
-// halo, 0.0073 against 0.0062 ms per step at K = 4; PERF.md, PR 9). Two
-// buffers of 9F planes of the tile: T = 32 up to F = 3, 24 up to 5, 16
-// from 6, so K <= 8, and 4 from F = 6.
-template <int F>
-__host__ __device__ constexpr int band_tile_edge() {
-  return F <= 3 ? 32 : F <= 5 ? 24 : 16;
+// K5: K Expansion steps of a band as a cone of one cell per thread. A
+// block owns a strip of W output columns and all 2K output rows; its
+// level s (1..K) computes only the cells that reach them, the region of
+// halo h = K - s: band rows [out0 - h, out0 + 2K + h), columns [xs - h, xs
+// + W + h), thread t the cell (t / cols, t % cols). Level 1 pulls from the
+// band in global memory (its band rows [out0 - K, out0 + 3K) lie inside
+// the band, so they never wrap), levels 2..K from the level below in
+// shared memory (odd levels in one buffer, even in the other), and level K
+// writes f_out. The plan (band_plan; mirror ops/band_plan.py) aims at
+// kBandBlocks strips; W shrinks until level 1 has at most kBandThreads
+// cells and both buffers fit kSmemPerBlock.
+constexpr int kBandThreads = 512;
+constexpr int kBandBlocks = 128;
+
+__host__ __device__ constexpr int band_level_rows(int K, int s) {
+  return 4 * K - 2 * s;
 }
 
-template <int F>
-__host__ __device__ constexpr int band_max_k() {
-  return (band_tile_edge<F>() - 8) / 2 < 8 ? (band_tile_edge<F>() - 8) / 2 : 8;
+__host__ __device__ constexpr int band_level_cols(int K, int s, int W) {
+  return W + 2 * (K - s);
 }
 
-template <int F>
-__host__ __device__ constexpr int band_smem() {
-  return 2 * 9 * F * band_tile_edge<F>() * band_tile_edge<F>() *
-         (int)sizeof(float);
+inline int band_smem(int F, int K, int W) {
+  int cells = 0;
+  for (int s = 1; s <= 2 && s < K; ++s)
+    cells += band_level_rows(K, s) * band_level_cols(K, s, W);
+  return 9 * F * cells * (int)sizeof(float);
 }
 
-template <int F>
-__host__ __device__ constexpr int band_min_blocks() {
-  return 3 * band_smem<F>() <= kSmemPerBlock ? 3
-         : 2 * band_smem<F>() <= kSmemPerBlock ? 2 : 1;
+inline int band_threads(int K, int W) {
+  return (band_level_rows(K, 1) * band_level_cols(K, 1, W) + 31) / 32 * 32;
 }
 
-// field p's 9 pulls of the tile cell at p0 (direction 0 of field 0; plane q
-// of a cell at q T^2 from it)
-template <int F, int T>
-struct TilePull {
-  const float* p0;
+struct BandPlan {
+  int width, strips, threads, smem;
+};
+
+// width 0: K steps do not fit even strips of one column
+inline BandPlan band_plan(int F, int K, int nx) {
+  int w = (nx + kBandBlocks - 1) / kBandBlocks;
+  while (w > 0 && (band_threads(K, w) > kBandThreads ||
+                   band_smem(F, K, w) > kSmemPerBlock))
+    --w;
+  if (w == 0) return {0, 0, 0, 0};
+  return {w, (nx + w - 1) / w, band_threads(K, w), band_smem(F, K, w)};
+}
+
+// field p's 9 pulls of band row y, column x, from the band in global
+// memory: f points at row y of plane 0, the columns x - 1, x, x + 1 wrapped
+template <int F>
+struct BandPull {
+  const float* f;
+  size_t plane;
+  int nx, cm, c0, cp;
 
   __device__ __forceinline__ void operator()(int p, float (&s)[9]) const {
-    constexpr int dir = F * T * T;
-    const float* q = p0 + p * T * T;
-    s[0] = q[0];
-    s[1] = q[1 * dir - 1];
-    s[2] = q[2 * dir - T];
-    s[3] = q[3 * dir + 1];
-    s[4] = q[4 * dir + T];
-    s[5] = q[5 * dir - T - 1];
-    s[6] = q[6 * dir - T + 1];
-    s[7] = q[7 * dir + T + 1];
-    s[8] = q[8 * dir + T - 1];
+    const float* q = f + p * plane;
+    const size_t d = F * plane;
+    s[0] = __ldg(q + c0);
+    s[1] = __ldg(q + d + cm);
+    s[2] = __ldg(q + 2 * d - nx + c0);
+    s[3] = __ldg(q + 3 * d + cp);
+    s[4] = __ldg(q + 4 * d + nx + c0);
+    s[5] = __ldg(q + 5 * d - nx + cm);
+    s[6] = __ldg(q + 6 * d - nx + cp);
+    s[7] = __ldg(q + 7 * d + nx + cp);
+    s[8] = __ldg(q + 8 * d + nx + cm);
   }
 };
 
-// K steps of the band domain d (GridSource: its rows wrap within it) into
-// f_out[9F][out_rows][d.cols], domain rows [out0, out0 + out_rows); block
-// row b writes output rows [b (T - 2K), (b + 1) (T - 2K)).
+// field p's 9 pulls of a cell from the level below in shared memory: p0 is
+// the cell there (rows of `cols` cells, planes of `plane`)
 template <int F>
-__global__ void __launch_bounds__(kSweepThreads, band_min_blocks<F>())
-band_tile_kernel(GridSource src, float* __restrict__ f_out, Domain d, int K,
-                 int out0, int out_rows, Lb2dMultifieldParams prm) {
-  constexpr int T = band_tile_edge<F>();
-  constexpr int TT = T * T;
-  constexpr int kPlanes = 9 * F;
-  extern __shared__ float smem[];
-  float* cur = smem;
-  float* nxt = smem + kPlanes * TT;
+struct ConePull {
+  const float* p0;
+  int cols, plane;
 
-  const int inner = T - 2 * K;
-  const int y0 = out0 + blockIdx.y * inner - K;  // domain row of region row 0
-  const int x0 = blockIdx.x * inner - K;
-  const size_t out_plane = (size_t)out_rows * d.cols;
-
-  for (int i = threadIdx.x; i < TT; i += kSweepThreads) {
-    size_t stride;
-    const float* p = src.at(y0 + i / T, x0 + i % T, stride);
-#pragma unroll 9
-    for (int pl = 0; pl < kPlanes; ++pl) cur[pl * TT + i] = __ldg(p + pl * stride);
+  __device__ __forceinline__ void operator()(int p, float (&s)[9]) const {
+    const float* q = p0 + p * plane;
+    const int d = F * plane;
+    s[0] = q[0];
+    s[1] = q[d - 1];
+    s[2] = q[2 * d - cols];
+    s[3] = q[3 * d + 1];
+    s[4] = q[4 * d + cols];
+    s[5] = q[5 * d - cols - 1];
+    s[6] = q[6 * d - cols + 1];
+    s[7] = q[7 * d + cols + 1];
+    s[8] = q[8 * d + cols - 1];
   }
+};
+
+// K steps of band[9F][rows][nx] into f_out[9F][2K][nx], band rows [out0,
+// out0 + 2K), out0 = (rows - 2K) / 2; band row y draws the noise of global
+// row (row0 + y) mod ny of an ny x nx grid; block b owns columns [b W, (b +
+// 1) W) of f_out
+template <int F>
+__global__ void __launch_bounds__(kBandThreads)
+band_cone_kernel(const float* __restrict__ band, float* __restrict__ f_out,
+                 int rows, int nx, int K, int W, int row0, int ny,
+                 Lb2dMultifieldParams prm) {
+  extern __shared__ float smem[];
+  float* const odd = smem;  // levels 1, 3, ..
+  float* const even =
+      smem + 9 * F * band_level_rows(K, 1) * band_level_cols(K, 1, W);
+  const int out0 = (rows - 2 * K) / 2, xs = blockIdx.x * W;
+  const size_t plane = (size_t)rows * nx, out_plane = (size_t)2 * K * nx;
   float coef[9];
   feq_coefficients(prm.u, prm.v, coef);
-  __syncthreads();
 
   for (int s = 1; s <= K; ++s) {
+    const int h = K - s, R = band_level_rows(K, s);
+    const int C = band_level_cols(K, s, W);
+    const int t = threadIdx.x, r = t / C, c = t % C;
     const bool last = s == K;
-    for (int i = threadIdx.x; i < TT; i += kSweepThreads) {
-      const int r = i / T, c = i % T;
-      if (r < s || r >= T - s || c < s || c >= T - s) continue;
-      const int oy = blockIdx.y * inner + r - K;  // output row at the last step
-      if (last && (oy >= out_rows || x0 + c >= d.cols)) continue;  // ragged edge
-      const int gy = wrap(d.y0 + y0 + r, d.ny), gx = wrap(d.x0 + x0 + c, d.nx);
-      const GlobalPut<F> put = {
-          last ? f_out + (size_t)oy * d.cols + (x0 + c) : nxt + i,
-          last ? out_plane : (size_t)TT};
-      expansion_cell_update<F>(TilePull<F, T>{cur + i}, put,
-                               (unsigned long long)gy * d.nx + gx,
-                               prm.step0 + (s - 1), prm, coef);
+    if (t < R * C && !(last && xs + c >= nx)) {  // the ragged strip's edge
+      const int y = out0 - h + r;  // band row
+      const int gx = wrap(xs - h + c, nx);
+      const unsigned long long cell =
+          (unsigned long long)wrap(row0 + y, ny) * nx + gx;
+      const unsigned long long step = prm.step0 + (s - 1);
+      const GlobalPut<F> put =
+          last ? GlobalPut<F>{f_out + (size_t)r * nx + xs + c, out_plane}
+               : GlobalPut<F>{(s & 1 ? odd : even) + r * C + c,
+                              (size_t)(R * C)};
+      if (s == 1) {
+        const BandPull<F> pull = {band + (size_t)y * nx, plane, nx,
+                                  gx ? gx - 1 : nx - 1, gx,
+                                  gx + 1 < nx ? gx + 1 : 0};
+        expansion_cell_update<F>(pull, put, cell, step, prm, coef);
+      } else {
+        const int Cp = C + 2;  // the level below: halo h + 1
+        const ConePull<F> pull = {(s & 1 ? even : odd) + (r + 1) * Cp + c + 1,
+                                  Cp, (R + 2) * Cp};
+        expansion_cell_update<F>(pull, put, cell, step, prm, coef);
+      }
     }
-    if (!last) {
-      __syncthreads();  // step s complete before step s+1 reads it
-      float* t = cur;
-      cur = nxt;
-      nxt = t;
-    }
+    if (!last) __syncthreads();  // level s complete before s + 1 reads it
   }
 }
 
 template <int F>
-cudaError_t band_launch(const GridSource& src, float* f_out, const Domain& d,
-                        int K, int out0, int out_rows,
+cudaError_t band_launch(const float* band, float* f_out, int rows, int nx,
+                        int K, int row0, int ny,
                         const Lb2dMultifieldParams& prm,
                         cudaStream_t stream) {
-  if (K < 1 || K > band_max_k<F>()) return cudaErrorInvalidValue;
-  constexpr int smem = band_smem<F>();
-  static_assert(smem <= kSmemPerBlock, "the tile does not fit");
+  const BandPlan plan = band_plan(F, K, nx);
+  if (K < 1 || K > kSweepMaxK || plan.width == 0) return cudaErrorInvalidValue;
   // once per instantiation and card: the attribute is the card's
   static bool configured[kMaxDevices] = {};
   int dev = 0;
@@ -332,16 +382,13 @@ cudaError_t band_launch(const GridSource& src, float* f_out, const Domain& d,
     return cudaErrorInvalidDevice;
   if (!configured[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        band_tile_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        band_cone_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemPerBlock);
     if (err != cudaSuccess) return err;
     configured[dev] = true;
   }
-  const int inner = band_tile_edge<F>() - 2 * K;
-  const dim3 grid((d.cols + inner - 1) / inner, (out_rows + inner - 1) / inner);
-  if (grid.y > 65535) return cudaErrorInvalidValue;
-  band_tile_kernel<F><<<grid, kSweepThreads, smem, stream>>>(
-      src, f_out, d, K, out0, out_rows, prm);
+  band_cone_kernel<F><<<plan.strips, plan.threads, plan.smem, stream>>>(
+      band, f_out, rows, nx, K, plan.width, row0, ny, prm);
   return cudaGetLastError();
 }
 
@@ -407,17 +454,12 @@ extern "C" int lb2d_expansion_band_step(const float* band, float* out,
                                         void* stream) {
   if (rows < 4 * k_steps || nx < 1 || ny < 1 || row0 < 0 || row0 >= ny)
     return (int)cudaErrorInvalidValue;
-  // band row r is global row (row0 + r) mod ny; the rows that reach the
-  // emitted ones, [(rows - 2 k_steps) / 2 - k_steps, (rows + 2 k_steps) / 2
-  // + k_steps), lie inside the band, so they are never its own wrap's
-  const GridSource src = {band, rows, nx};
-  const Domain d = {rows, nx, row0, 0, ny, nx};
-  const int out0 = (rows - 2 * k_steps) / 2, out_rows = 2 * k_steps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (num_fields) {
-#define LB2D_BAND(n)                                                     \
-  case n:                                                                \
-    return (int)band_launch<n>(src, out, d, k_steps, out0, out_rows, prm, s);
+#define LB2D_BAND(n)                                                   \
+  case n:                                                              \
+    return (int)band_launch<n>(band, out, rows, nx, k_steps, row0, ny, \
+                               prm, s);
     LB2D_BAND(2)
     LB2D_BAND(3)
     LB2D_BAND(4)

@@ -1,5 +1,5 @@
 // Where the row sweeps of K2, K4 and K9 read a block's cells from: the
-// whole periodic grid (GridSource: K2 in temporal_step.cu, K4 and K5 in
+// whole periodic grid (GridSource: K2 in temporal_step.cu, K4 in
 // multifield_step.cu), or one shard of a domain-decomposed grid with its
 // neighbours' halos (HaloSource: K9, which replaces
 // lb2d_tpu/ops/fused_halo.py:make_temporal_halo_step, in halo_step.cu and
@@ -10,8 +10,7 @@
 // K9 agrees with them bit for bit.
 //
 // A block reads domain cells (y, x), unwrapped: a sweep up to K cells
-// outside the written domain on each side, and K5's ragged last tiles
-// further out. Each cell's BCs and noise use its global coordinates,
+// outside the written domain on each side. Each cell's BCs and noise use its global coordinates,
 // wrap(y0 + y, ny) and wrap(x0 + x, nx) (Domain).
 
 #pragma once
@@ -35,8 +34,7 @@ struct Domain {
   int rows, cols, y0, x0, ny, nx;
 };
 
-// The whole periodic domain f[P][rows][cols] (or K5's band, which wraps
-// within itself): a region cell wraps into it.
+// The whole periodic domain f[P][rows][cols]: a region cell wraps into it.
 struct GridSource {
   const float* f;
   int rows, cols;

@@ -193,6 +193,7 @@ _ENTRY_POINTS = {
     "lb2d_transpose": [_P, _P, _I, _I, _P],
     # out, n, key0, key1, step, stream
     "lb2d_normals": [_P, _LL, _U, _U, _ULL, _P],
+    "lb2d_normals_per_cell": [_P, _LL, _U, _U, _ULL, _P],
     "lb2d_philox_bits": [_P, _LL, _U, _U, _ULL, _P],
 }
 

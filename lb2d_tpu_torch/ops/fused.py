@@ -45,7 +45,8 @@ plane ``j * F + p`` when flattened) run through K4 and K5
   equals ``k`` plain steps and the JAX models' wall and seam patches are
   not needed.
 * :func:`expansion_band_step` (K5): ``k`` Expansion steps on a band of rows
-  that wraps within itself, emitting its central ``2k`` rows; ports
+  that wraps within itself, emitting its central ``2k`` rows, each block
+  the cone of one strip, one cell a thread (:mod:`.band_plan`); ports
   ``make_expansion_band_step``. Its noise is keyed to global rows, so the
   band of rows ``[-B, B)`` gives K4's rows ``[-k, k)`` bit for bit.
 
@@ -77,7 +78,7 @@ from .boundary import (
 )
 from .collide import bgk
 from .equilibrium import feq_incompressible, feq_linear, feq_quadratic
-from . import resident_plan
+from . import band_plan, resident_plan
 from .random import (
     normals_reference,
     philox_key,
@@ -117,7 +118,7 @@ RESIDENT_MAX_CELLS_DIFFUSION = 1 << 18
 # 0.0520); from 724^2 the sweep wins at K = 4 (0.0603 against 0.0714;
 # 2048^2 0.3042 against 0.4808) and ties at K = 3 (0.0437, 0.0439)
 VELOCITY_TILE_MAX_CELLS = 640 * 640
-MAX_MULTIFIELD_FIELDS = 8  # K4 and K5 hold rings of 9F planes of a strip
+MAX_MULTIFIELD_FIELDS = 8  # K4's rings, K5's levels: 9F planes each
 
 
 def supports_resident(ny: int, nx: int, physics: str = "flow") -> bool:
@@ -587,15 +588,15 @@ _WALLS = ((("n",), 7, 5), (("n",), 4, 2), (("n",), 8, 6),
 
 
 def band_max_k(num_fields: int) -> int:
-    """The most steps per K5 launch for ``num_fields`` fields: its tiles
-    (two buffers of ``9 F`` planes of 32^2, 24^2 or 16^2 cells by F) keep
-    an inner edge of at least 8 cells."""
-    tile = 32 if num_fields <= 3 else 24 if num_fields <= 5 else 16
-    return min(MAX_TEMPORAL_K, (tile - 8) // 2)
+    """The most steps per K5 launch for ``num_fields`` fields: its cone's
+    two levels in shared memory (``9 F`` planes of levels 1 and 2) fit one
+    block at strips of one column, 8 steps up to F = 7 and 7 at F = 8
+    (:func:`lb2d_tpu_torch.ops.band_plan.max_k`)."""
+    return band_plan.max_k(num_fields)
 
 
 def multifield_max_k(num_fields: int) -> int:
-    """The most steps per K4/K5 launch for ``num_fields`` fields: the rings
+    """The most steps per K4 launch for ``num_fields`` fields: the rings
     of ``K`` levels fit one block's shared memory
     (:func:`lb2d_tpu_torch.ops.sweep.max_k`)."""
     return _sweep_max_k(num_fields)

@@ -24,6 +24,7 @@ products from 16-bit halves, never overflowing int64.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -31,7 +32,8 @@ from . import _build
 
 __all__ = ["philox4x32_10", "box_muller", "normals_reference", "normals",
            "population_normals_reference", "population_normals_at",
-           "philox_bits", "philox_key"]
+           "philox_bits", "philox_key", "normals_per_cell",
+           "NormalsSplit", "normals_split", "normals_thread_cells"]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57   # Philox4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85   # Weyl key increments
@@ -160,6 +162,59 @@ def normals(seed: int, step: int, shape, device) -> torch.Tensor:
 
 
 normals.launches = 0
+
+
+def normals_per_cell(seed: int, step: int, shape, device) -> torch.Tensor:
+    """:func:`normals` from P1's first one-cell-a-thread loop
+    (``lb2d_normals_per_cell``), which :func:`normals` never launches: the
+    tests hold P1 to it bit for bit. Counted in
+    ``normals_per_cell.launches`` on CUDA; on the CPU it runs
+    :func:`normals_reference`."""
+    ny, nx = (int(n) for n in shape)
+    device = torch.device(device)
+    if device.type == "cpu":
+        return normals_reference(seed, step, ny, nx)
+    out = torch.empty((ny, nx), dtype=torch.float32, device=device)
+    if out.numel():
+        _call_philox("lb2d_normals_per_cell", out, ny * nx, seed, step)
+        normals_per_cell.launches += 1
+    return out
+
+
+normals_per_cell.launches = 0
+
+NORMALS_BLOCK = 256      # threads of a P1 block
+NORMALS_MAX_BLOCKS = 65536
+
+
+class NormalsSplit(NamedTuple):
+    head: int     # cells before out's first 16-byte boundary, one a thread
+    quads: int    # whole quads of 4 cells after them, one a thread
+    ragged: int   # head and the cells after the last quad
+    threads: int  # threads launched (a grid-stride loop covers the rest)
+
+
+def normals_split(n: int, address: int) -> NormalsSplit:
+    """How P1 (``csrc/normals.cu``: ``lb2d_normals``) cuts ``n`` cells of
+    an ``out`` at byte ``address`` (4-byte aligned) into threads."""
+    head = min(n, (16 - address % 16) % 16 // 4)
+    quads = (n - head) // 4
+    ragged = n - 4 * quads
+    blocks = min(-(-max(quads, ragged) // NORMALS_BLOCK), NORMALS_MAX_BLOCKS)
+    return NormalsSplit(head, quads, ragged, blocks * NORMALS_BLOCK)
+
+
+def normals_thread_cells(split: NormalsSplit, n: int, g: int) -> list[int]:
+    """The cells that thread ``g`` of P1 writes: its quads (``head + 4 q``
+    and the three after it, for ``q = g, g + threads, ..``, each one 16-byte
+    store), then one ragged cell if ``g < ragged``."""
+    cells = []
+    for q in range(g, split.quads, split.threads):
+        cells += range(split.head + 4 * q, split.head + 4 * q + 4)
+    if g < split.ragged:
+        body = split.head + 4 * split.quads
+        cells.append(g if g < split.head else body + g - split.head)
+    return cells
 
 
 def philox_bits(seed: int, step: int, n: int, device) -> torch.Tensor:

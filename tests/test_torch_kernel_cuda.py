@@ -98,7 +98,7 @@ from lb2d_tpu_torch.ops.fused_coupled import (
     coupled_sweep_reference,
     _coupled_cell_step,
 )
-from lb2d_tpu_torch.ops import _build, fused, resident_plan
+from lb2d_tpu_torch.ops import _build, band_plan, fused, random, resident_plan
 from lb2d_tpu_torch.ops.fused_halo import (
     HALO_SWEEP_PHYSICS,
     temporal_halo_step,
@@ -121,6 +121,7 @@ from lb2d_tpu_torch.ops.spectral import (
 )
 from lb2d_tpu_torch.ops.random import (
     normals,
+    normals_per_cell,
     normals_reference,
     philox4x32_10,
     philox_bits,
@@ -469,24 +470,44 @@ def test_resident_scratch_is_the_plans_exchange(cuda):
         resident_diffusion_run(big, torch.empty_like(big), 2, **DIFFUSION)
 
 
+NORMALS_SHAPES = [(254, 382), (1, 1), (3, 5), (2049, 7)]
+
+
+@pytest.mark.parametrize("shape", NORMALS_SHAPES,
+                         ids=[f"{ny}x{nx}" for ny, nx in NORMALS_SHAPES])
 @pytest.mark.parametrize("step", [0, 5, 2**32 + 1])
-def test_normals_kernel_matches_reference(cuda, step):
-    """The Philox words bit for bit; the normals within 5e-6, the card's
-    logf/cosf against torch's (|eta| < 6, a few ulp each)."""
-    seed, ny, nx = 2**33 + 12345, 254, 382
-    bits = philox_bits(seed, step, ny * nx, cuda)
-    cell = torch.arange(ny * nx, dtype=torch.int64, device=cuda)
+def test_normals_kernel_matches_reference(cuda, step, shape):
+    """The Philox words bit for bit; the normals bit for bit against P1's
+    first one-cell-a-thread loop (``normals_per_cell``), also into an
+    ``out`` 4, 8 and 12 bytes past a 16-byte boundary, and within 5e-6 of
+    the plain version, the card's logf/cosf against torch's (|eta| < 6, a
+    few ulp each)."""
+    seed = 2**33 + 12345
+    ny, nx = shape
+    n = ny * nx
+    bits = philox_bits(seed, step, n, cuda)
+    cell = torch.arange(n, dtype=torch.int64, device=cuda)
     want_bits = philox4x32_10((cell, step & 0xFFFFFFFF, step >> 32, 0),
                               (seed & 0xFFFFFFFF, seed >> 32))
     assert torch.equal(bits, want_bits)
-    before = normals.launches
+    before = normals.launches, normals_per_cell.launches
     eta = normals(seed, step, (ny, nx), cuda)
+    first = normals_per_cell(seed, step, (ny, nx), cuda)
     want = normals_reference(seed, step, ny, nx, device=cuda)
     torch.cuda.synchronize()
-    assert normals.launches == before + 1
+    assert (normals.launches, normals_per_cell.launches) == (
+        before[0] + 1, before[1] + 1)
     assert torch.isfinite(eta).all()
+    assert torch.equal(eta, first)
     d = float((eta - want).abs().max())
     assert d <= 5e-6, d
+    buf = torch.empty(n + 4, dtype=torch.float32, device=cuda)
+    for skip in (1, 2, 3):
+        out = buf[skip:skip + n]
+        assert out.data_ptr() % 16 == 4 * skip
+        random._call_philox("lb2d_normals", out, n, seed, step)
+        torch.cuda.synchronize()
+        assert torch.equal(out, first.reshape(-1)), skip
 
 
 @pytest.mark.parametrize("noisy", [False, True], ids=["det", "noisy"])
@@ -593,12 +614,15 @@ def test_temporal_multifield_expansion_is_exact(cuda, F, shape):
         assert torch.equal(out, want), (k, float((out - want).abs().max()))
 
 
-@pytest.mark.parametrize("F", [3, MAX_MULTIFIELD_FIELDS])
+@pytest.mark.parametrize("nx", [382, 37, 7])
+@pytest.mark.parametrize("F", [2, 3, 5, MAX_MULTIFIELD_FIELDS])
 @pytest.mark.parametrize("extra", [0, 5], ids=["B=2K", "B=2K+5"])
-def test_expansion_band_kernel_is_exact_and_gives_k4_rows(cuda, extra, F):
+def test_expansion_band_kernel_is_exact_and_gives_k4_rows(cuda, extra, F, nx):
     """K5 on the band of rows [-B, B) equals its plain version and rows
-    [-K, K) of K4 on the whole grid, bit for bit, noise on."""
-    f = _mf_inputs(cuda, F, (254, 382), "expansion")
+    [-K, K) of K4 on the whole grid, bit for bit, noise on, at every K:
+    strips of 3 columns at 382 (128 blocks), of one at 37 and 7."""
+    assert band_plan.plan(F, 1, nx).width == (3 if nx == 382 else 1)
+    f = _mf_inputs(cuda, F, (254, nx), "expansion")
     kw = _mf_kwargs(F, "expansion")
     physics = kw.pop("physics")
     step0 = kw.pop("step0")

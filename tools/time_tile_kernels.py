@@ -91,7 +91,8 @@ and K9 flow at its 2048 x 8192 shard, by events and graph replay;
 ``k5p1``, K5 on the band of 4K rows of the 1024^2 ``Expansion`` at its K
 and P1 (``normals``) for a 2048^2 field, the shapes of ``chip_smoke.py``'s
 rows, each by CUDA-graph replay (as ``graph``) beside CUDA events around
-host launches.
+host launches, and P1's first one-cell-a-thread loop where the checkout
+keeps it (``normals_per_cell``).
 """
 
 import json
@@ -580,8 +581,13 @@ def _k5_p1_times():
     both(f"K5 band {2 * B}x{sim.nx} F={sim.num_fields} K={k}",
          lambda: expansion_band_step(band, k, *args, **band_kw))
     sto = ReactionAdvectionDiffusionStochastic(device="cuda", **STOCHASTIC)
+    shape = (sto.ny, sto.nx)
     both(f"P1 normals {sto.ny}x{sto.nx}",
-         lambda: normals(sto.rng_seed, 0, (sto.ny, sto.nx), "cuda"))
+         lambda: normals(sto.rng_seed, 0, shape, "cuda"))
+    from lb2d_tpu_torch.ops import random
+    if hasattr(random, "normals_per_cell"):  # the first loop, where kept
+        both(f"P1 per cell {sto.ny}x{sto.nx}",
+             lambda: random.normals_per_cell(sto.rng_seed, 0, shape, "cuda"))
     return out
 
 
