@@ -74,7 +74,17 @@ set to 0 just before it and read just after:
   tracking mode's replayed outer step against its eager step); and the
   ``utils`` on the card: ``save_model`` / ``restore_model`` of its tuple
   state, ``accumulated_sum(..., "f64")`` and one frame of
-  ``render_field`` with an explicit LUT.
+  ``render_field`` with an explicit LUT;
+* the C++ CPU engine (``backend="native"``, no hand kernel: its runs must
+  launch none): against the eager step on this machine's CPU with an
+  obstacle in both equilibria, on a ``device="cuda"`` state against K2,
+  and timed on the reference's cylinder at N = 50 (MLUPS of the host CPU,
+  printed with its ``/proc/cpuinfo`` names and thread count);
+* the examples (``examples_torch``) on the card: ``zoo_drive.main()`` at
+  its default sizes (every row ok, every model with a kernel on it),
+  ``backend_comparison.main(steps=1000)`` on the 3751x1251 cylinder (K2)
+  and ``poiseuille_verification`` at N = 10 and 50 (K3, the error falling
+  with N), each in a counted window.
 
 It checks the physics (Poiseuille profile through each flow backend,
 cylinder mass, Gaussian spreading, advection, mass, noise amplitude and
@@ -103,6 +113,11 @@ import time
 import numpy as np
 import torch
 
+from examples_torch import (
+    backend_comparison,
+    poiseuille_verification,
+    zoo_drive,
+)
 from lb2d_tpu_torch.core import D2Q9, D2Q25
 from lb2d_tpu_torch.halo_cases import (
     HALO_CASES,
@@ -126,6 +141,7 @@ from lb2d_tpu_torch.models import (
     NoisyAdvectedFisherWave,
     PipeFlow,
     PipeFlowCylinder,
+    PipeFlowObstacles,
     PipeFlowVelocityInlet,
     PoissonSolver,
     ReactionAdvectionDiffusion,
@@ -2952,6 +2968,133 @@ def utils_phase(sim):
           f"equal on {sim.state[0].device}", flush=True)
 
 
+NATIVE_PIPE = dict(POISEUILLE, N=15, pipe_length=1.5 * 30.5 / 15)  # 16 x 32
+NATIVE_STEPS = 20     # the engine against the eager step on the host
+NATIVE_TOL = 1e-5     # tests/test_native.py's bar
+NATIVE_CARD = dict(POISEUILLE, N=127, pipe_length=1.5 * 254.5 / 127)
+NATIVE_CARD_STEPS = 100  # a device="cuda" native model against K2
+NATIVE_CYLINDER_N = 50   # examples/backend_comparison.py's reduced copy
+NATIVE_TIMED_STEPS = 100
+# the zoo's kernels that backend="auto" runs at examples/zoo_drive.py's
+# default sizes (RepellingFisherWave, PoissonSolver and ScreenedPoisson
+# have none)
+ZOO_KERNELS = ("K2", "K2v", "K3", "K3 diffusion family", "K4", "K6d", "K6s",
+               "K7", "K8")
+
+
+def _host_cpu() -> str:
+    """The host CPU as ``/proc/cpuinfo`` names it (model name, vendor,
+    family and model numbers) and the threads the C++ engine's OpenMP runs
+    on (the cores this process may use, or OMP_NUM_THREADS)."""
+    info = {}
+    with open("/proc/cpuinfo") as fh:
+        for line in fh:
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    threads = os.environ.get("OMP_NUM_THREADS") or len(
+        os.sched_getaffinity(0))
+    return (f"model name {info.get('model name', '?')!r}, "
+            f"{info.get('vendor_id', '?')} family {info.get('cpu family', '?')}"
+            f" model {info.get('model', '?')}, {threads} OpenMP threads")
+
+
+def native_phase(card):
+    """The C++ CPU engine (``backend="native"``): on the card's host
+    against the eager step with an obstacle in both equilibria, a
+    ``device="cuda"`` native model against K2, and its MLUPS on the
+    reference's cylinder at N = 50, labelled with the host CPU (it is not a
+    card number). The native runs launch no hand kernel."""
+    t0 = time.perf_counter()
+    mask = np.zeros((16, 32), np.int32)
+    mask[6:10, 12:18] = 1
+    for eq in ("compressible", "incompressible"):
+        kw = dict(NATIVE_PIPE, obstacle_mask=mask, equilibrium=eq,
+                  device="cpu")
+        nat = PipeFlowObstacles(backend="native", **kw)
+        eager = PipeFlowObstacles(backend="eager", **kw)
+        nat.run(NATIVE_STEPS)
+        eager.run(NATIVE_STEPS)
+        d = _max_diff(nat.state, eager.state)
+        print(f"native engine vs eager step, {nat.ny}x{nat.nx} with an "
+              f"obstacle, {eq}, {NATIVE_STEPS} steps on the host: max|df| "
+              f"= {d:.3e} (bound {NATIVE_TOL})", flush=True)
+        if not d < NATIVE_TOL:
+            raise RuntimeError(f"native engine ({eq}) differs from the "
+                               f"eager step: {d}")
+    nat = PipeFlow(backend="native", device="cuda", **NATIVE_CARD)
+    k2 = PipeFlow(backend="temporal", device="cuda", **NATIVE_CARD)
+    _no_kernel_launches("native on a CUDA state",
+                        lambda: nat.run(NATIVE_CARD_STEPS))
+    _window("K2 beside the native model", lambda: k2.run(NATIVE_CARD_STEPS),
+            {"K2": NATIVE_CARD_STEPS // TEMPORAL_K})
+    d = _max_diff(nat.state, k2.state)
+    print(f"native model on device='cuda' ({nat.ny}x{nat.nx}, state "
+          f"{nat.state.device}) vs K2, {NATIVE_CARD_STEPS} steps: max|df| = "
+          f"{d:.3e} (bound {NATIVE_TOL})", flush=True)
+    if not (nat.state.is_cuda and d < NATIVE_TOL):
+        raise RuntimeError(f"native model on the card differs from K2: {d}")
+    host = _host_cpu()
+    for device in ("cpu", "cuda"):
+        cyl = PipeFlowCylinder(N=NATIVE_CYLINDER_N, backend="native",
+                               device=device, **CYLINDER)
+        cyl.run(5)  # warm: threads, pages
+        _no_kernel_launches("native cylinder", lambda: cyl.run(
+            NATIVE_TIMED_STEPS, timed=True))
+        if not torch.isfinite(cyl.state).all():
+            raise RuntimeError("native cylinder: non-finite state")
+        print(f"native engine, cylinder N={NATIVE_CYLINDER_N} "
+              f"({cyl.ny}x{cyl.nx}), run({NATIVE_TIMED_STEPS}) on "
+              f"device={device}{' (one copy each way included)' if device == 'cuda' else ''}: "
+              f"{cyl.last_mlups:.1f} MLUPS on the host CPU ({host}); "
+              f"card beside it: {card}", flush=True)
+    print(f"native_phase: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def examples_phase(card):
+    """``examples_torch`` on the card: ``zoo_drive.main()`` at its default
+    sizes (every row ok; every model with a kernel on a kernel backend),
+    ``backend_comparison.main(steps=1000)`` on the full 3751x1251 grid
+    (K2) with the native row, and ``poiseuille_verification`` at N = 10
+    and 50 (K3; the RMS error falls with N). Each in a counted window."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    for wrapper in COUNTERS.values():
+        wrapper.launches = 0
+    rows = zoo_drive.main()  # raises when a row is not ok
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in COUNTERS.items() if w.launches}
+    print(f"zoo_drive: launches {counts}; card: {card}", flush=True)
+    eager = [row[0] for row in rows if row[0] not in zoo_drive.NO_KERNEL
+             and ("eager" in row[1] or row[1] == "-")]
+    missing = [k for k in ZOO_KERNELS if not counts.get(k)]
+    if eager or missing:
+        raise RuntimeError(f"zoo_drive: models on no kernel {eager}, "
+                           f"kernels never launched {missing}")
+    result = {}
+    _window("backend_comparison", lambda: result.update(
+        backend_comparison.main(steps=1000)),
+        {"K2": 1000 // TEMPORAL_K})
+    native_rows = [k for k in result["rows"] if "native" in k]
+    if (result["grid"] != [1251, 3751] or result["backend"] != "temporal"
+            or len(native_rows) != 1 or not all(
+                np.isfinite(v) and v > 0 for v in result["rows"].values())):
+        raise RuntimeError(f"backend_comparison: {result}")
+    print(f"backend_comparison: {result['rows']} (the native row on the "
+          f"host CPU, {_host_cpu()}); card: {card}", flush=True)
+    poiseuille = []
+    with tempfile.TemporaryDirectory() as d:
+        _window("poiseuille_verification N=10, 50", lambda: poiseuille.extend(
+            poiseuille_verification.main(os.path.join(d, "p.png"),
+                                         Ns=(10, 50))), {"K3": 2})
+    rms = [row["rms"] for row in poiseuille]
+    if (not all(np.isfinite(rms)) or not rms[1] < rms[0]
+            or {row["backend"] for row in poiseuille} != {"resident"}):
+        raise RuntimeError(f"poiseuille_verification: {poiseuille}")
+    print(f"poiseuille_verification: RMS {rms[0]:.4e} (N=10) -> "
+          f"{rms[1]:.4e} (N=50) m/s; card: {card}", flush=True)
+    print(f"examples_phase: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
 def _field_masses(sim):
     """Float64 mass of each field of a coupled model."""
     return sim._fields4(sim.state).double().sum(dim=(0, 2, 3)).tolist()
@@ -3077,6 +3220,8 @@ def main():
     multi_card_phase()
     poisson_solver_phase(card)
     utils_phase(repelling_phase(card))
+    native_phase(card)
+    examples_phase(card)
     k2, k3 = "lb2d_tpu/ops/fused.py:888", "lb2d_tpu/ops/fused.py:1193"
     kernels = {  # key: (wrapper, source, TPU kernel, model, ops per cell)
         "K1": ("pipe_step", "pipe_step.cu", "lb2d_tpu/ops/fused.py:682",

@@ -106,6 +106,11 @@ class PipeFlowVelocityInlet(LatticePipeFlow):
         return self._feq_fn()(rho0, u0, v0).contiguous()
 
     def _pick_backend(self, backend):
+        if backend == "native":
+            raise ValueError(
+                "backend='native': the C++ engine has the pressure BCs only, "
+                "not the velocity inlet; use 'auto', 'temporal', 'resident' "
+                "or 'eager'")
         picked = super()._pick_backend(backend)
         if backend == "auto" and picked == "resident":
             return "temporal"  # the JAX model's choice at every grid size

@@ -21,8 +21,13 @@ on a CUDA device, ping-ponging between two buffers, any ``ny x nx``:
   an alias): the plain PyTorch step
   (:func:`~lb2d_tpu_torch.ops.fused.pipe_step_reference`). On a CUDA
   device it runs only when asked for by name.
+* ``"native"``, by name only: ``run(n)`` runs all ``n`` steps in the C++
+  CPU engine (:func:`lb2d_tpu_torch.native.native_run`), one copy of the
+  state to the host and one back on any ``device``; ``make_step``, the
+  getters and everything else use the eager step. float32 only.
 
-The JAX backends that are not ported yet raise ``NotImplementedError``.
+JAX's ``"pipelined"`` and ``"fused"`` are both K1 here and raise
+``NotImplementedError`` with the name to use.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from ..core import D2Q9, FlowUnits
 from ..ops import _build
 from ..ops.equilibrium import feq_incompressible, feq_quadratic
@@ -60,8 +66,6 @@ _KERNEL_IDS = {"resident": "K3", "temporal": "K2", "kernel": "K1"}
 _NOT_PORTED = {
     "pipelined": "ported as backend='kernel' (ROADMAP.md queue 2, K1)",
     "fused": "ported as backend='kernel' (ROADMAP.md queue 2, K1)",
-    "native": "the C++ CPU backend is ROADMAP.md queue 1 item 5 "
-              "(backend='native'), not ported yet",
 }
 
 
@@ -132,9 +136,15 @@ class PipeFlow(LBModel):
                                       f"{_NOT_PORTED[backend]}")
         if backend == "eager":
             return backend
+        if backend == "native":
+            if self.dtype != torch.float32:
+                raise ValueError(f"the C++ engine (backend='native') is "
+                                 f"float32 only, not {self.dtype}")
+            return backend
         if backend != "auto" and backend not in _KERNEL_IDS:
             raise ValueError(f"unknown backend {backend!r}; use 'auto', "
-                             f"{', '.join(map(repr, _KERNEL_IDS))} or 'eager'")
+                             f"{', '.join(map(repr, _KERNEL_IDS))}, 'eager' "
+                             "or 'native'")
         if backend != "auto" and backend not in self._kernel_backends:
             ported = ", ".join(f"{b!r} ({_KERNEL_IDS[b]})"
                                for b in self._kernel_backends)
@@ -213,9 +223,23 @@ class PipeFlow(LBModel):
                     incompressible=self.equilibrium == "incompressible")
 
     def make_step(self):
-        if self.backend == "eager":
+        if self.backend == "native":
+            native.build()  # build now, outside any timed region
+            self._run_n = self._native_run_n
+        if self.backend in ("eager", "native"):
             return self._make_eager_step()
         return self._make_kernel_step()
+
+    def _native_run_n(self, f, n):
+        """``n`` steps in the C++ engine: one copy of ``f`` to the host, one
+        of the result back to the model's device."""
+        mask = self.obstacle_mask
+        out = native.native_run(
+            f.cpu(), n, omega=self.omega, inlet_rho=self.inlet_rho,
+            outlet_rho=self.outlet_rho,
+            incompressible=self.equilibrium == "incompressible",
+            mask=None if mask is None else mask.cpu())
+        return torch.from_numpy(out).to(self.device)
 
     def _make_eager_step(self):
         kw = self._step_kwargs()

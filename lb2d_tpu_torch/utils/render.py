@@ -8,8 +8,11 @@ emit uint8 RGB; only the small image crosses to the host.
 capture (``field_visualizer.py:61-161``); :class:`LiveView` shows frames in
 a terminal or an HTML page.
 
-Matplotlib is imported only by :func:`colormap_lut` (and ``save_png``):
-where it is missing, pass ``render_field`` a LUT of your own (``lut=``).
+Matplotlib is imported only by :func:`colormap_lut`: where it is missing
+(the GPU machine has none), pass ``render_field``, :class:`FieldAnimator`
+and :class:`LiveView` a LUT of your own (``lut=``), for example
+``anchor_lut(MAGMA_ANCHORS)``, which needs numpy only. PNGs are written
+by a small writer of this module, without matplotlib.
 """
 
 from __future__ import annotations
@@ -17,7 +20,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["colormap_lut", "render_field", "FieldAnimator", "LiveView"]
+__all__ = ["colormap_lut", "anchor_lut", "MAGMA_ANCHORS", "render_field",
+           "FieldAnimator", "LiveView"]
+
+# matplotlib's magma at 0, 1/8, ..., 1, as uint8 RGB
+MAGMA_ANCHORS = ((0, 0, 4), (28, 16, 68), (79, 18, 123), (129, 37, 129),
+                 (181, 54, 122), (229, 80, 100), (251, 135, 97),
+                 (254, 194, 135), (252, 253, 191))
 
 
 def colormap_lut(name: str = "magma") -> np.ndarray:
@@ -28,6 +37,16 @@ def colormap_lut(name: str = "magma") -> np.ndarray:
     cmap = matplotlib.colormaps[name]
     return (np.asarray(cmap(np.linspace(0, 1, 256)))[:, :3] * 255).astype(
         np.uint8)
+
+
+def anchor_lut(anchors=MAGMA_ANCHORS) -> np.ndarray:
+    """256x3 uint8 LUT interpolated linearly between equally spaced anchor
+    colours (``[k, 3]``, 0-255); numpy only, no matplotlib."""
+    anchors = np.asarray(anchors, dtype=np.float64)
+    at = np.linspace(0.0, 1.0, len(anchors))
+    t = np.linspace(0.0, 1.0, 256)
+    return np.stack([np.interp(t, at, anchors[:, c]) for c in range(3)],
+                    axis=1).round().astype(np.uint8)
 
 
 def render_field(field, clim=None, lut=None) -> torch.Tensor:
@@ -55,15 +74,16 @@ def render_field(field, clim=None, lut=None) -> torch.Tensor:
 class FieldAnimator:
     """Run a model ``steps_per_frame`` at a time and yield rendered frames:
     the ``Field_Visualizer_Canvas`` loop without a host round-trip of the
-    field per frame."""
+    field per frame. ``lut`` (a ``[256, 3]`` uint8 table) replaces the
+    matplotlib colormap ``cmap``."""
 
     def __init__(self, model, field: str = "rho", steps_per_frame: int = 10,
-                 clim=None, cmap: str = "magma"):
+                 clim=None, cmap: str = "magma", lut=None):
         self.model = model
         self.field = field
         self.steps_per_frame = steps_per_frame
         self.clim = clim
-        self._lut = colormap_lut(cmap)
+        self._lut = colormap_lut(cmap) if lut is None else np.asarray(lut)
 
     def frame(self) -> np.ndarray:
         """Advance and return the next frame as a host uint8 array. Models
@@ -81,10 +101,10 @@ class FieldAnimator:
         return img.cpu().numpy()
 
     def save_png(self, path: str) -> None:
-        """Screenshot capture (``field_visualizer.py:159-161``)."""
-        import matplotlib.pyplot as plt
-
-        plt.imsave(path, self.frame())
+        """Advance and write the next frame as a PNG (the screenshot capture
+        of ``field_visualizer.py:159-161``)."""
+        with open(path, "wb") as fh:
+            _write_png(fh, self.frame())
 
 
 class LiveView:
@@ -98,10 +118,10 @@ class LiveView:
     """
 
     def __init__(self, model, field: str = "rho", steps_per_frame: int = 10,
-                 clim=None, cmap: str = "magma"):
+                 clim=None, cmap: str = "magma", lut=None):
         self.anim = FieldAnimator(model, field=field,
                                   steps_per_frame=steps_per_frame,
-                                  clim=clim, cmap=cmap)
+                                  clim=clim, cmap=cmap, lut=lut)
 
     # -- terminal ----------------------------------------------------------
     @staticmethod

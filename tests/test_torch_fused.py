@@ -216,7 +216,7 @@ def test_multi_step_kernel_backends_on_cpu_raise(backend):
                  **PHYS)
 
 
-@pytest.mark.parametrize("backend", ["pipelined", "fused", "native"])
+@pytest.mark.parametrize("backend", ["pipelined", "fused"])
 def test_unported_backends_name_their_roadmap_entry(backend):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         PipeFlow(N=15, pipe_length=2.0, device="cpu", backend=backend, **PHYS)

@@ -2,8 +2,9 @@
 
 A fresh interpreter blocks ``lb2d_tpu`` and ``jax`` (``sys.modules[name] =
 None`` makes any import of them raise), then imports ``lb2d_tpu_torch``,
-every one of its submodules and ``chip_smoke`` (import only), and checks
-that no module of either package was loaded.
+every one of its submodules, the scripts of ``examples_torch`` and
+``chip_smoke`` (import only), and checks that no module of either package
+was loaded.
 """
 
 import pathlib
@@ -20,13 +21,16 @@ for name in ("lb2d_tpu", "jax", "jaxlib"):
 import lb2d_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(lb2d_tpu_torch.__path__,
                                                "lb2d_tpu_torch.")]
-for name in names:
+import examples_torch
+scripts = [m.name for m in pkgutil.iter_modules(examples_torch.__path__,
+                                                "examples_torch.")]
+for name in names + scripts:
     importlib.import_module(name)
 import chip_smoke
 loaded = sorted(m for m, mod in sys.modules.items()
                 if mod is not None and m not in preloaded
                 and m.split(".")[0] in ("lb2d_tpu", "jax", "jaxlib"))
-print(" ".join(names))
+print(" ".join(names + scripts))
 sys.exit(f"loaded {loaded}" if loaded else 0)
 """
 
@@ -58,5 +62,10 @@ def test_port_and_chip_smoke_import_no_jax_package():
                  "lb2d_tpu_torch.utils.checkpoint",
                  "lb2d_tpu_torch.utils.metrics",
                  "lb2d_tpu_torch.utils.profiling",
-                 "lb2d_tpu_torch.utils.render"):
+                 "lb2d_tpu_torch.utils.render",
+                 "lb2d_tpu_torch.native"):
         assert name in imported, imported
+    scripts = [name for name in imported if name.startswith("examples_torch.")]
+    assert sorted(scripts) == sorted(
+        f"examples_torch.{p.stem}" for p in (REPO / "examples").glob("*.py")
+        if p.stem != "__init__"), scripts

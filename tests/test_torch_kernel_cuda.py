@@ -1218,3 +1218,58 @@ def test_transpose_kernel_is_exact(cuda, shape):
     torch.cuda.synchronize()
     assert transpose.launches == before + 1
     assert torch.equal(got, transpose_reference(x))
+
+
+# the C++ CPU engine (backend="native") on a CUDA model
+NATIVE_PIPE = dict(N=31, diameter=1.5, rho=10.0, viscosity=5.0,
+                   pressure_grad=-100.0, pipe_length=1.5 * 62.5 / 31)
+
+
+def _native_mask():
+    mask = np.zeros((32, 64), np.int32)
+    mask[12:20, 20:30] = 1
+    return mask
+
+
+@pytest.mark.parametrize("equilibrium,obstacle", VARIANTS, ids=IDS)
+def test_native_model_on_a_cuda_state(cuda, equilibrium, obstacle):
+    """``run(n)`` of a ``device="cuda"`` native model copies the state to
+    the host and back: it keeps the state on the card, launches no hand
+    kernel, equals the same model on the CPU bit for bit and stays within
+    1e-5 (tests/test_native.py's bar) of K2 and of the eager step on the
+    card."""
+    kw = dict(NATIVE_PIPE, equilibrium=equilibrium,
+              obstacle_mask=_native_mask() if obstacle else None)
+    on_card = PipeFlow(backend="native", device=cuda, **kw)
+    on_host = PipeFlow(backend="native", device="cpu", **kw)
+    k2 = PipeFlow(backend="temporal", device=cuda, **kw)
+    eager = PipeFlow(backend="eager", device=cuda, **kw)
+    before = (pipe_step.launches, temporal_pipe_step.launches,
+              resident_pipe_run.launches)
+    on_card.run(13)
+    on_card.run(7, timed=True)
+    torch.cuda.synchronize()
+    assert (pipe_step.launches, temporal_pipe_step.launches,
+            resident_pipe_run.launches) == before
+    assert on_card.state.is_cuda and on_card.steps_taken == 20
+    assert on_card.last_mlups > 0
+    on_host.run(20)
+    assert torch.equal(on_card.state.cpu(), on_host.state)
+    k2.run(20)
+    eager.run(20)
+    for other in (k2, eager):
+        d = float((on_card.state - other.state).abs().max())
+        assert d < 1e-5, d
+
+
+def test_native_getters_on_a_cuda_state(cuda):
+    """The native model's step and getters are the eager step's on the
+    card."""
+    sim = PipeFlow(backend="native", device=cuda, **NATIVE_PIPE)
+    eager = PipeFlow(backend="eager", device=cuda, **NATIVE_PIPE)
+    sim.run(10)
+    eager.load_numpy_state(sim.state_numpy())
+    assert torch.equal(sim.make_step()(sim.state), eager._step(eager.state))
+    fields = sim.get_fields()
+    assert fields["u"].shape == (sim.nx, sim.ny)
+    assert np.isfinite(fields["rho"]).all()
