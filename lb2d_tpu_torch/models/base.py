@@ -16,6 +16,8 @@ import time
 import numpy as np
 import torch
 
+from ..utils.tracing import span, traced
+
 __all__ = ["LBModel", "resolve_device", "plain_backend", "advance",
            "held_solve_sweep", "graph_in_place", "state_to_numpy",
            "state_from_numpy"]
@@ -101,7 +103,8 @@ def state_to_numpy(state):
     structure."""
     if isinstance(state, tuple):
         return tuple(state_to_numpy(s) for s in state)
-    return state.detach().cpu().numpy().copy()
+    with span("lb2d.wait.state_to_numpy"):
+        return state.detach().cpu().numpy().copy()
 
 
 def state_from_numpy(arrays, like, device):
@@ -152,6 +155,7 @@ class LBModel:
     def num_cells(self) -> int:
         raise NotImplementedError
 
+    @traced("lb2d.wait.synchronize")
     def _synchronize(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -168,6 +172,7 @@ class LBModel:
         override this)."""
         return None
 
+    @traced("lb2d.run")
     def run(self, num_iterations: int, *, timed: bool = False):
         """Advance ``num_iterations`` steps on the model's device.
 
@@ -206,6 +211,7 @@ class LBModel:
         self.state = state_from_numpy(f, self.state, self.device)
 
     @staticmethod
+    @traced("lb2d.wait.to_host_xy")
     def _to_host_xy(t: torch.Tensor) -> np.ndarray:
         """Device ``[..., ny, nx]`` -> host ``[..., nx, ny]``, the reference's
         (x, y)-indexed layout (``opencl_dim.py:390-415``)."""

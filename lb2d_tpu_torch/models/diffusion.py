@@ -57,6 +57,7 @@ from ..ops.fused import (
 )
 from ..ops.moments import density
 from ..ops.random import normals
+from ..utils.tracing import traced, traced_field
 from .base import LBModel, plain_backend, resolve_device
 
 __all__ = [
@@ -199,6 +200,7 @@ class PeriodicScalarModel(LBModel):
         step = self.steps_taken if step is None else step
         return normals(self.rng_seed, step, (self.ny, self.nx), self.device)
 
+    @traced_field
     def device_field(self, name):
         """``"rho"`` as a device tensor ``[ny, nx]`` (no host copy)."""
         if name == "rho":
@@ -206,6 +208,7 @@ class PeriodicScalarModel(LBModel):
         return None
 
     # -- getters (diffusion.py:385-432) ---------------------------------------
+    @traced("lb2d.readout.get_fields")
     def get_fields(self) -> dict:
         """``f``, ``feq``, ``rho`` and the imposed ``u``, ``v`` in LB units,
         as numpy arrays indexed ``[x, y]`` (``f``/``feq`` as ``[9, nx,

@@ -15,6 +15,7 @@ from ..ops.fused import (
     velocity_step_reference,
 )
 from ..ops.moments import hydro_compressible
+from ..utils.tracing import traced
 from .pipe_flow import VELOCITY_TEMPORAL_K, PipeFlow
 
 __all__ = ["LatticePipeFlow", "LatticePipeFlowPeriodicBC",
@@ -159,5 +160,6 @@ class PipeFlowVelocityInlet(LatticePipeFlow):
         self._run_n = run_n
         return step
 
+    @traced("lb2d.readout.get_fields")
     def get_fields(self) -> dict:
         return self._fields(hydro_compressible)

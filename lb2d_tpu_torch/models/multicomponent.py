@@ -68,6 +68,7 @@ from ..ops.fused_mc import (
 )
 from ..ops.spectral import screened_gradients, screened_gradients_reference
 from ..utils.metrics import accumulated_sum
+from ..utils.tracing import traced
 from .base import advance, held_solve_sweep, plain_backend, resolve_device
 
 __all__ = ["Fluid", "SimulationRunner", "SECOND_BELT_STENCIL", "get_psi",
@@ -390,6 +391,7 @@ class SimulationRunner:
             self._hydro_step = self.steps_taken
 
     # ---- numerics ------------------------------------------------------------
+    @traced("lb2d.wait.columns")
     def _columns(self):
         like = dict(dtype=self.dtype, device=self.device)
         lat = self.lattice
@@ -445,6 +447,7 @@ class SimulationRunner:
             return 1
         return min(self.stale_force, int(k_steps or self.stale_force))
 
+    @traced("lb2d.solve")
     def _solve_screened(self, rho, ext, plain):
         """Each screened-Poisson hook's force ``amplitude (xg, yg)`` of the
         post-stream densities ``rho`` into its ext pair: K8 (its plain
@@ -497,6 +500,7 @@ class SimulationRunner:
         return (lambda f: sweep(f, 1)), sweep
 
     # ---- execution -----------------------------------------------------------
+    @traced("lb2d.run")
     def run(self, num_iterations, debug=False, timed=False, k_steps=None):
         """Advance ``num_iterations`` steps. With a screened-Poisson hook
         and ``stale_force=K``, ``steps_per_call`` is K (capped by
@@ -553,6 +557,7 @@ class SimulationRunner:
             self.last_mlups = sh.last_mlups
         return self
 
+    @traced("lb2d.wait.synchronize")
     def _synchronize(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -568,6 +573,7 @@ class SimulationRunner:
         v = torch.tensordot(cy[:, 0, 0], f, dims=1).sum(0) / rho_tot
         return rho, u, v
 
+    @traced("lb2d.hydro")
     def _refresh_hydro(self):
         """rho and the barycentric velocity of the state (of the shards,
         on first access, when sharded)."""
@@ -594,6 +600,7 @@ class SimulationRunner:
         print(out)
         return out
 
+    @traced("lb2d.readout.get_fields")
     def get_fields(self):
         """Reference layout: rho (nx, ny, C), f (nx, ny, C, Q), u_bary and
         v_bary (nx, ny), as numpy arrays."""

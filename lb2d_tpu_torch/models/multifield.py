@@ -63,6 +63,7 @@ from ..ops.fused import (
     temporal_multifield_step,
 )
 from ..ops.moments import density
+from ..utils.tracing import traced, traced_field
 from .base import LBModel, plain_backend, resolve_device
 
 __all__ = ["FisherExpansion", "Expansion", "noflux_bcs_multifield",
@@ -238,6 +239,7 @@ class _MultifieldBase(LBModel):
         return lambda f: run_n(f, 1)
 
     # -- getters (multifield.py:155-178) ---------------------------------------
+    @traced("lb2d.readout.get_fields")
     def get_fields(self) -> dict:
         """``f``, ``feq`` (``[nx, ny, F, Q]``), ``rho`` (``[nx, ny, F]``) and
         the imposed ``u``, ``v`` (``[nx, ny]``) in LB units as numpy arrays,
@@ -270,6 +272,7 @@ class _MultifieldBase(LBModel):
         fields["v"] = fields["v"] * (self.L / self.T)
         return fields
 
+    @traced_field
     def device_field(self, name):
         """``"rho"``, the total density of all fields, as a device tensor
         ``[ny, nx]`` (no host copy)."""

@@ -48,6 +48,7 @@ from ..ops.fused import (
     temporal_pipe_step,
 )
 from ..ops.moments import hydro_compressible, hydro_incompressible
+from ..utils.tracing import traced, traced_field
 from .base import LBModel, plain_backend, resolve_device
 
 __all__ = ["PipeFlow", "PipeFlowCylinder", "PipeFlowObstacles", "disk_mask",
@@ -283,6 +284,7 @@ class PipeFlow(LBModel):
         self._single_step = one
         return step_k
 
+    @traced_field
     def device_field(self, name):
         """One 2-D field (``"rho"``, ``"u"`` or ``"v"``) as a device tensor
         ``[ny, nx]``, without a copy to the host."""
@@ -290,6 +292,7 @@ class PipeFlow(LBModel):
         return {"rho": rho, "u": u, "v": v}.get(name)
 
     # --- field access (opencl_dim.py:390-438) --------------------------------------
+    @traced("lb2d.readout.get_fields")
     def get_fields(self) -> dict:
         """All fields in LB units, as numpy arrays indexed ``[x, y]``
         (``f``/``feq`` as ``[9, nx, ny]``) to match the reference layout."""

@@ -43,6 +43,7 @@ from ..ops.equilibrium import feq_poisson
 from ..ops.moments import rho_poisson
 from ..ops.stream import stream
 from ..utils.metrics import synchronize
+from ..utils.tracing import traced
 from .base import graph_in_place, resolve_device, state_from_numpy, \
     state_to_numpy
 
@@ -248,6 +249,7 @@ class PoissonSolver:
                                * (self.num_iterations - it_before) / dt / 1e6)
         return self
 
+    @traced("lb2d.readout.get_fields")
     def get_fields(self):
         feq = feq_poisson(self.rho, self.lattice)
 

@@ -32,6 +32,7 @@ from ..ops.fused_coupled import (
     rocket_yeast_velocity,
     stencil_gradient,
 )
+from ..utils.tracing import traced, traced_field
 from .base import resolve_device
 from .waves import CoupledModel
 
@@ -116,6 +117,7 @@ class RocketYeast(CoupledModel):
     def _velocity_fields(self):
         return self._rocket_velocity(self.state.sum(dim=0))
 
+    @traced_field
     def device_field(self, name):
         if name == "rho":
             return self.state[:, self.POP].sum(dim=0)
@@ -123,6 +125,7 @@ class RocketYeast(CoupledModel):
             return self.state[:, self.SURF].sum(dim=0)
         return None
 
+    @traced("lb2d.readout.get_fields")
     def get_fields(self):
         f = self.state
         rho = f.sum(dim=0)

@@ -33,6 +33,7 @@ from ..ops.fused_coupled import (
     psi_shan_chen,
     psi_sticky_repulsive,
 )
+from ..utils.tracing import traced, traced_field
 from .base import resolve_device
 from .waves import CoupledModel, _ScreenedVelocity
 
@@ -125,6 +126,7 @@ class SurfactantNutrientWave(CoupledModel):
             np.asarray(rho_field), dtype=self.dtype, device=self.device))
         return self
 
+    @traced_field
     def device_field(self, name):
         if name == "rho":
             return self.state[:, self.POP].sum(dim=0)
@@ -132,6 +134,7 @@ class SurfactantNutrientWave(CoupledModel):
             return self.state[:, self.NUT].sum(dim=0)
         return None
 
+    @traced("lb2d.readout.get_fields")
     def get_fields(self):
         f = self.state
         rho = f.sum(dim=0)

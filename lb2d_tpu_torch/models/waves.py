@@ -41,6 +41,7 @@ from ..ops.moments import density, rho_poisson
 from ..ops.spectral import screened_gradients, screened_gradients_reference
 from ..ops.stream import stream
 from ..utils.metrics import mach_number
+from ..utils.tracing import traced, traced_field
 from .base import (
     LBModel,
     graph_in_place,
@@ -428,11 +429,13 @@ class ScreenedFisherWave(CoupledModel):
             np.asarray(rho_field), dtype=self.dtype, device=self.device))
         return self
 
+    @traced_field
     def device_field(self, name):
         if name == "rho":
             return density(self.state)
         return None
 
+    @traced("lb2d.readout.get_fields")
     def get_fields(self):
         f = self.state
         rho = density(f)
@@ -650,6 +653,7 @@ class RepellingFisherWave(LBModel):
         self._replays += n
         return self._static
 
+    @traced("lb2d.readout.get_fields")
     def get_fields(self):
         f, pf, pu, pv, _ = self.state
         rho = density(f)

@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from ..core import D2Q9
+from ..utils.tracing import traced_launch
 from . import _build
 from .boundary import (
     GridCoords,
@@ -345,6 +346,7 @@ def diffusion_run_reference(f: torch.Tensor, n: int, omega, u_lb, v_lb,
     return f
 
 
+@traced_launch
 def pipe_step(f_in: torch.Tensor, f_out: torch.Tensor, omega, inlet_rho,
               outlet_rho, *, incompressible: bool,
               mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -372,6 +374,7 @@ def pipe_step(f_in: torch.Tensor, f_out: torch.Tensor, omega, inlet_rho,
 pipe_step.launches = 0
 
 
+@traced_launch
 def temporal_pipe_step(f_in: torch.Tensor, f_out: torch.Tensor, k_steps: int,
                        omega, inlet_rho, outlet_rho, *, incompressible: bool,
                        mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -401,6 +404,7 @@ def temporal_pipe_step(f_in: torch.Tensor, f_out: torch.Tensor, k_steps: int,
 temporal_pipe_step.launches = 0
 
 
+@traced_launch
 def temporal_velocity_step(f_in: torch.Tensor, f_out: torch.Tensor,
                            k_steps: int, omega, u_w, u_e, *, outlet: str,
                            incompressible: bool,
@@ -439,6 +443,7 @@ def temporal_velocity_step(f_in: torch.Tensor, f_out: torch.Tensor,
 temporal_velocity_step.launches = 0
 
 
+@traced_launch
 def resident_pipe_run(f: torch.Tensor, scratch: torch.Tensor, n: int, omega,
                       inlet_rho, outlet_rho, *, incompressible: bool,
                       mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -470,6 +475,7 @@ def resident_pipe_run(f: torch.Tensor, scratch: torch.Tensor, n: int, omega,
 resident_pipe_run.launches = 0
 
 
+@traced_launch
 def resident_velocity_run(f: torch.Tensor, scratch: torch.Tensor, n: int,
                           omega, u_w, u_e, *, outlet: str,
                           incompressible: bool,
@@ -507,6 +513,7 @@ def resident_velocity_run(f: torch.Tensor, scratch: torch.Tensor, n: int,
 resident_velocity_run.launches = 0
 
 
+@traced_launch
 def temporal_diffusion_step(f_in: torch.Tensor, f_out: torch.Tensor,
                             k_steps: int, omega, u_lb, v_lb, lb_G=0.0,
                             lb_Dg=0.0, *, noisy: bool = False, seed: int = 0,
@@ -540,6 +547,7 @@ def temporal_diffusion_step(f_in: torch.Tensor, f_out: torch.Tensor,
 temporal_diffusion_step.launches = 0
 
 
+@traced_launch
 def resident_diffusion_run(f: torch.Tensor, scratch: torch.Tensor, n: int,
                            omega, u_lb, v_lb, lb_G=0.0, lb_Dg=0.0, *,
                            noisy: bool = False, seed: int = 0,
@@ -762,6 +770,7 @@ def expansion_band_reference(band: torch.Tensor, k_steps: int, omegas,
     return band[:, :, o0:o0 + 2 * k_steps]
 
 
+@traced_launch
 def temporal_multifield_step(f_in: torch.Tensor, f_out: torch.Tensor,
                              k_steps: int, omegas, lb_G, u_lb, v_lb, *,
                              physics: str = "fisher", omega_nutrient=None,
@@ -799,6 +808,7 @@ def temporal_multifield_step(f_in: torch.Tensor, f_out: torch.Tensor,
 temporal_multifield_step.launches = 0
 
 
+@traced_launch
 def expansion_band_step(band: torch.Tensor, k_steps: int, omegas,
                         omega_nutrient, lb_G, lb_Dg, cutoff, u_lb, v_lb, *,
                         seed: int = 0, step0: int = 0, row0: int = 0,

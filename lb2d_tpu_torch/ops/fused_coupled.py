@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..core import D2Q9
+from ..utils.tracing import traced_launch
 from . import _build, sweep
 from .fused import _check_k, _launch
 from .fused_halo import Halo, check_pieces, cut_region
@@ -510,6 +511,7 @@ def _k7(f_in, f_out, rho, ext, k_steps, params, cfg):
     return f_out
 
 
+@traced_launch
 def coupled_sweep(f_in: torch.Tensor, f_out: torch.Tensor,
                   ext: torch.Tensor | None, cfg: CoupledConfig, k_steps: int,
                   params: _build.CoupledParams | None = None) -> torch.Tensor:
@@ -537,6 +539,7 @@ def coupled_sweep(f_in: torch.Tensor, f_out: torch.Tensor,
 coupled_sweep.launches = 0
 
 
+@traced_launch
 def _coupled_cell_step(f_in: torch.Tensor, f_out: torch.Tensor,
                        rho: torch.Tensor, ext: torch.Tensor,
                        cfg: CoupledConfig,
@@ -589,6 +592,7 @@ def _k7h(halo, f_out, rho, ext, k_steps, params, cfg):
     return f_out
 
 
+@traced_launch
 def coupled_sweep_halo(halo: Halo, f_out: torch.Tensor,
                        ext: torch.Tensor | None, cfg: CoupledConfig,
                        k_steps: int,
@@ -615,6 +619,7 @@ def coupled_sweep_halo(halo: Halo, f_out: torch.Tensor,
 coupled_sweep_halo.launches = 0
 
 
+@traced_launch
 def _coupled_cell_step_halo(halo: Halo, f_out: torch.Tensor,
                             rho: torch.Tensor, ext: torch.Tensor,
                             cfg: CoupledConfig,

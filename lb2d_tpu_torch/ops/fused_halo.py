@@ -41,6 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.tracing import traced_launch
 from . import sweep
 from .boundary import GridCoords
 from .fused import (
@@ -259,6 +260,7 @@ def temporal_halo_step_reference(halo: Halo, k_steps: int, physics: str, *,
     return f[:, hk:hk + H, hk:hk + W].contiguous()
 
 
+@traced_launch
 def temporal_halo_step(halo: Halo, f_out: torch.Tensor, k_steps: int,
                        physics: str, *, mask: torch.Tensor | None = None,
                        step0: int = 0, **kw) -> torch.Tensor:

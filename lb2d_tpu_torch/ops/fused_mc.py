@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from ..core import D2Q9, Lattice
+from ..utils.tracing import traced_launch
 from . import _build
 from .boundary import GridCoords
 from .fused import _launch
@@ -476,6 +477,7 @@ def _belt_stencil(belt):
 
 # -- the kernels --------------------------------------------------------------
 
+@traced_launch
 def mc_density(f: torch.Tensor, rho: torch.Tensor, cfg: MCKernelConfig,
                lattice: Lattice = D2Q9) -> torch.Tensor:
     """Write each fluid's post-stream density of ``f`` into ``rho`` (``[C,
@@ -500,6 +502,7 @@ def mc_density(f: torch.Tensor, rho: torch.Tensor, cfg: MCKernelConfig,
 mc_density.launches = 0
 
 
+@traced_launch
 def mc_step(f_in: torch.Tensor, f_out: torch.Tensor,
             rho: torch.Tensor | None, ext: torch.Tensor | None,
             cfg: MCKernelConfig, lattice: Lattice = D2Q9,
@@ -570,6 +573,7 @@ def mc_step_halo_reference(halo: Halo, rho: torch.Tensor | None,
     return out.reshape(halo.f.shape)
 
 
+@traced_launch
 def mc_density_halo(halo: Halo, rho: torch.Tensor, cfg: MCKernelConfig,
                     lattice: Lattice = D2Q9) -> torch.Tensor:
     """Write the post-stream densities of a halo's shard (``halo.f`` is
@@ -598,6 +602,7 @@ def mc_density_halo(halo: Halo, rho: torch.Tensor, cfg: MCKernelConfig,
 mc_density_halo.launches = 0
 
 
+@traced_launch
 def mc_step_halo(halo: Halo, f_out: torch.Tensor, rho: torch.Tensor | None,
                  ext: torch.Tensor | None, cfg: MCKernelConfig,
                  lattice: Lattice = D2Q9,

@@ -5,11 +5,13 @@ from __future__ import annotations
 import torch
 
 from ..core import D2Q9, Lattice
+from ..utils.tracing import traced
 
 __all__ = ["density", "momentum", "hydro_compressible", "hydro_incompressible",
            "rho_poisson"]
 
 
+@traced("lb2d.wait.c_consts")
 def _c_consts(lattice: Lattice, f: torch.Tensor):
     cx = torch.tensor(lattice.cx, dtype=f.dtype, device=f.device)[:, None, None]
     cy = torch.tensor(lattice.cy, dtype=f.dtype, device=f.device)[:, None, None]

@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.tracing import traced_launch
 from . import _build
 
 __all__ = ["philox4x32_10", "box_muller", "normals_reference", "normals",
@@ -143,6 +144,7 @@ def population_normals_at(seed: int, step: int, P: int,
     return torch.stack(out)
 
 
+@traced_launch
 def normals(seed: int, step: int, shape, device) -> torch.Tensor:
     """The standard normals ``[ny, nx]`` that the noisy kernels draw at
     global step ``step`` with key ``seed``.
@@ -164,6 +166,7 @@ def normals(seed: int, step: int, shape, device) -> torch.Tensor:
 normals.launches = 0
 
 
+@traced_launch
 def normals_per_cell(seed: int, step: int, shape, device) -> torch.Tensor:
     """:func:`normals` from P1's first one-cell-a-thread loop
     (``lb2d_normals_per_cell``), which :func:`normals` never launches: the
@@ -217,6 +220,7 @@ def normals_thread_cells(split: NormalsSplit, n: int, g: int) -> list[int]:
     return cells
 
 
+@traced_launch
 def philox_bits(seed: int, step: int, n: int, device) -> torch.Tensor:
     """The four Philox words of cells ``0 .. n-1`` at step ``step``, int64
     ``[4, n]``: the integer part of :func:`normals`, for holding the CUDA

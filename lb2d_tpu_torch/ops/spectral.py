@@ -42,6 +42,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.tracing import traced_launch
 from . import _build
 from .fused import _launch
 
@@ -453,6 +454,7 @@ def _check_plane(t, name, shape=None):
         raise ValueError(f"the kernels run on cuda or cpu, not {t.device}")
 
 
+@traced_launch
 def screened_gradients(rho: torch.Tensor, lam2: float,
                        out: torch.Tensor | None = None,
                        out_scale: float | None = None):
@@ -561,6 +563,7 @@ def _whole_line_passes(rho, lam2, out, out_scale):
 screened_gradients.launches = 0
 
 
+@traced_launch
 def dft_axis0(xr: torch.Tensor, xi: torch.Tensor | None = None,
               inverse: bool = False, out_rows: int | None = None):
     """The DFT along dim 0 of ``xr + i xi`` (``[n, W]`` float32; real input

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.tracing import traced_launch
 from .fused import _launch
 
 __all__ = ["transpose", "transpose_reference"]
@@ -29,6 +30,7 @@ def transpose_reference(x: torch.Tensor) -> torch.Tensor:
     return x.t().contiguous()
 
 
+@traced_launch
 def transpose(x: torch.Tensor, out: torch.Tensor | None = None
               ) -> torch.Tensor:
     """``x [W, n]`` (float32, contiguous) transposed into ``out [n, W]``

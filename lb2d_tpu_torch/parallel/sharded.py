@@ -88,6 +88,7 @@ from ..ops.fused_mc import (
     mc_step_halo_reference,
     shard_cells,
 )
+from ..utils.tracing import traced
 from .halo import (
     Mesh,
     band,
@@ -283,6 +284,7 @@ class _ShardedModel:
     def _devices(self):
         return {t.device for t in self.state}
 
+    @traced("lb2d.wait.synchronize")
     def block_until_ready(self):
         for dev in self._devices():
             if dev.type == "cuda":
@@ -354,6 +356,7 @@ class _ShardedModel:
             h.f.copy_(torch.from_numpy(np.ascontiguousarray(
                 f[:, h.y0:h.y0 + H, h.x0:h.x0 + W])))
 
+    @traced("lb2d.readout.get_fields")
     def get_fields(self) -> dict:
         """The base model's fields of the global state (gathered to the
         base model's device for the getter)."""

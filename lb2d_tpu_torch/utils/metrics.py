@@ -21,14 +21,18 @@ import torch
 
 from ..core import D2Q9
 from .checkpoint import tree_leaves
+from .tracing import span, traced
 
 __all__ = ["mach_number", "MachWatchdog", "accumulated_sum",
            "conservation_report", "MLUPSMeter"]
 
 
+@traced("lb2d.readout.mach_number")
 def mach_number(u, v, lattice=D2Q9) -> float:
     """max |u| / cs over the grid (device reduction, scalar readback)."""
-    return float(torch.sqrt(torch.max(u * u + v * v))) / lattice.cs
+    speed = torch.sqrt(torch.max(u * u + v * v))
+    with span("lb2d.wait.mach_number"):
+        return float(speed) / lattice.cs
 
 
 class MachWatchdog:
@@ -62,11 +66,16 @@ def accumulated_sum(x: torch.Tensor, accumulate: str = "f32") -> float:
         nx = x.shape[-1]
         if nx % 128 == 0 and nx > 128:
             x = x.reshape(*x.shape[:-1], nx // 128, 128)
-        parts = x.sum(dim=-1).detach().cpu().numpy().astype(np.float64)
+        parts = x.sum(dim=-1).detach()
+        with span("lb2d.wait.accumulated_sum"):
+            parts = parts.cpu().numpy().astype(np.float64)
         return float(parts.sum())
-    return float(x.sum())
+    total = x.sum()
+    with span("lb2d.wait.accumulated_sum"):
+        return float(total)
 
 
+@traced("lb2d.readout.conservation_report")
 def conservation_report(f, rho=None, feq=None,
                         accumulate: str = "f32") -> dict:
     """Sums of f (per direction collapsed), rho, feq: the ``check_fields``
@@ -80,6 +89,7 @@ def conservation_report(f, rho=None, feq=None,
     return out
 
 
+@traced("lb2d.wait.synchronize")
 def synchronize(tree) -> None:
     """Wait until every CUDA device that holds a tensor of ``tree`` (a
     tensor, or dicts, lists and tuples of them) has finished its work."""

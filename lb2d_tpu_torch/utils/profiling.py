@@ -19,10 +19,12 @@ __all__ = ["trace", "time_steps"]
 def trace(logdir: str | None = None):
     """Profile the enclosed block with ``torch.profiler`` (host and, where
     there is a card, device activity) and write a Chrome trace,
-    ``<logdir>/trace.json`` (default: ``lb2d_trace`` in the temporary
-    directory); yields ``logdir``."""
+    ``<logdir>/trace.json`` (default: a new directory ``lb2d_trace_*`` in
+    the temporary directory for each call, so that two traced processes
+    never write one file); yields ``logdir``. The trace holds the port's
+    spans (:mod:`lb2d_tpu_torch.utils.tracing`) beside the kernels."""
     if logdir is None:
-        logdir = os.path.join(tempfile.gettempdir(), "lb2d_trace")
+        logdir = tempfile.mkdtemp(prefix="lb2d_trace_")
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
