@@ -80,6 +80,11 @@ set to 0 just before it and read just after:
   obstacle in both equilibria, on a ``device="cuda"`` state against K2,
   and timed on the reference's cylinder at N = 50 (MLUPS of the host CPU,
   printed with its ``/proc/cpuinfo`` names and thread count);
+* the flow moments (``flow_moments``, the readout's kernel): against the
+  plain moments at 4096^2, 3751x1251 and 32x256 in both forms, every plane
+  and all three, and timed per plane beside its bound and the plain
+  moments; a flow model's readout (``device_field`` u and v,
+  ``get_fields``) in a counted window, one launch each;
 * the examples (``examples_torch``) on the card: ``zoo_drive.main()`` at
   its default sizes (every row ok, every model with a kernel on it),
   ``backend_comparison.main(steps=1000)`` on the 3751x1251 cylinder (K2)
@@ -214,7 +219,9 @@ from lb2d_tpu_torch.ops.fused_mc import (
     mc_step_reference,
     shard_cells,
 )
-from lb2d_tpu_torch.ops.moments import density
+from lb2d_tpu_torch.ops import moments
+from lb2d_tpu_torch.ops.equilibrium import feq_quadratic
+from lb2d_tpu_torch.ops.moments import density, flow_moments
 from lb2d_tpu_torch.ops.spectral import (
     dft_axis0,
     dft_axis0_reference,
@@ -695,7 +702,7 @@ COUNTERS = {"K1": pipe_step, "K2": temporal_pipe_step,
             "K7": coupled_sweep, "K8": screened_gradients,
             "K8 pass": dft_axis0, "K9": temporal_halo_step,
             "K6hd": mc_density_halo, "K6hs": mc_step_halo,
-            "K7h": coupled_sweep_halo, "P2": transpose}
+            "K7h": coupled_sweep_halo, "P2": transpose, "M": flow_moments}
 
 
 def _window(label, drive, expected):
@@ -2784,6 +2791,91 @@ def transpose_phase(card):
                 shape=list(P2_SHAPE), bound_ms=bound_ms, bound_by=bound_by)
 
 
+# -- the flow moments: the readout's kernel --------------------------------
+
+# the flow cells' grids: 4096^2 (bench.py), the cylinder at N = 125, 32x256
+MOMENT_SHAPES = ((4096, 4096), (1251, 3751), (32, 256))
+# The kernel adds the populations in direction order, the plain moments in
+# torch.sum's: each order rounds to a few ulp of the partial sums (|f| sums
+# to rho ~ 1), ~1e-7 apart; of max |field| that is below 1e-6 for rho and
+# for velocities of order 0.1, as in these states (speeds up to 0.14)
+MOMENTS_TOL = 1e-6
+MOMENT_READ_BYTES, MOMENT_PLANE_BYTES = 36, 4   # per cell: f once, a plane
+
+
+def _moving_state(ny, nx):
+    """feq of rho in [0.9, 1.1] and u, v in [-0.1, 0.1] times 1 + 1% noise,
+    drawn on the card (torch.Generator seed 5)."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand((ny, nx), generator=g,
+                                           device="cuda")
+    f = feq_quadratic(uniform(0.9, 1.1), uniform(-0.1, 0.1),
+                      uniform(-0.1, 0.1))
+    return (f * (1.0 + 0.01 * torch.randn(f.shape, generator=g,
+                                         device="cuda"))).contiguous()
+
+
+def moments_phase(card):
+    """``flow_moments`` against the plain moments (``_hydro_plain``) at each
+    of ``MOMENT_SHAPES``, both forms: each plane alone and all three, to
+    ``MOMENTS_TOL`` of max |field|. Then, per shape, the device ms of one
+    plane (``u``, one launch, as ``device_field`` asks) and of all three,
+    beside their bounds (bytes) and the plain moments (all three, as the
+    readout computed them before the kernel), by CUDA events. Last, a flow
+    model's readout in a counted window: ``device_field("u")`` and
+    ``("v")`` (the Mach readout) and ``get_fields()``, one launch each."""
+    t0 = time.perf_counter()
+    rows = []
+    for ny, nx in MOMENT_SHAPES:
+        f = _moving_state(ny, nx)
+        cells = ny * nx
+        worst = 0.0
+        for incompressible in (False, True):
+            want = dict(zip(moments.FIELDS, moments._hydro_plain(
+                f, D2Q9, incompressible)))
+            for fields in [(n,) for n in moments.FIELDS] + [moments.FIELDS]:
+                got = flow_moments(f, fields, incompressible)
+                for name, plane in zip(fields, got):
+                    scale = float(want[name].abs().max())
+                    d = float((plane - want[name]).abs().max()) / scale
+                    worst = max(worst, d)
+                    if not d <= MOMENTS_TOL:
+                        raise RuntimeError(
+                            f"moments {ny}x{nx} {fields} incompressible="
+                            f"{incompressible}: {name} differs by {d:.3e} of "
+                            f"max |{name}| (bound {MOMENTS_TOL})")
+        del want, got
+        reps = 200 if cells < 1 << 20 else 50
+        ms = _events_ms(lambda: flow_moments(f, ("u",)), reps)
+        ms3 = _events_ms(lambda: flow_moments(f, moments.FIELDS), reps)
+        plain_ms = _events_ms(lambda: moments._hydro_plain(f, D2Q9, False),
+                              10)
+        bound_ms, bound_by = _bound(
+            cells * (MOMENT_READ_BYTES + MOMENT_PLANE_BYTES), 0)
+        bound3_ms, _ = _bound(
+            cells * (MOMENT_READ_BYTES + 3 * MOMENT_PLANE_BYTES), 0)
+        print(f"flow moments {ny}x{nx}: max diff {worst:.3e} of max |field| "
+              f"(bound {MOMENTS_TOL}); one plane {ms:.4f} ms (bound "
+              f"{bound_ms:.4f}, {100 * bound_ms / ms:.1f}%), three planes "
+              f"{ms3:.4f} ms (bound {bound3_ms:.4f}, "
+              f"{100 * bound3_ms / ms3:.1f}%), plain moments {plain_ms:.4f} "
+              f"ms (CUDA events); card: {card}", flush=True)
+        rows.append(dict(shape=[9, ny, nx], err=worst, ms=ms, ms3=ms3,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound3_ms=bound3_ms, bound_by=bound_by))
+        del f
+    sim = PipeFlow(N=31, device="cuda", **SMALL)
+    sim.run(10)
+    counts = _window(f"flow readout {sim.ny}x{sim.nx}: device_field u, v "
+                     "and get_fields", lambda: (
+                         sim.device_field("u"), sim.device_field("v"),
+                         sim.get_fields()), {"M": 3})
+    print(f"moments_phase: {time.perf_counter() - t0:.2f} s", flush=True)
+    return rows, counts["M"]
+
+
 # -- the Poisson slice: PoissonSolver, RepellingFisherWave, utils -----------
 
 POISSON_N = 1024           # PoissonSolver alone, examples/zoo_drive.py's
@@ -3085,7 +3177,7 @@ def examples_phase(card):
     with tempfile.TemporaryDirectory() as d:
         _window("poiseuille_verification N=10, 50", lambda: poiseuille.extend(
             poiseuille_verification.main(os.path.join(d, "p.png"),
-                                         Ns=(10, 50))), {"K3": 2})
+                                         Ns=(10, 50))), {"K3": 2, "M": 2})
     rms = [row["rms"] for row in poiseuille]
     if (not all(np.isfinite(rms)) or not rms[1] < rms[0]
             or {row["backend"] for row in poiseuille} != {"resident"}):
@@ -3217,6 +3309,7 @@ def main():
     k6h_err = mc_halo_phase()
     k7h = sharded_coupled_phase(card)
     p2 = transpose_phase(card)
+    flow_moment_rows, readout_launches = moments_phase(card)
     multi_card_phase()
     poisson_solver_phase(card)
     utils_phase(repelling_phase(card))
@@ -3382,6 +3475,20 @@ def main():
         if "graph_ms" in info:
             rows[-1].update(graph_ms=info["graph_ms"],
                             ms_per_step=info["graph_ms"] / info["k"])
+    for info in flow_moment_rows:  # one row per shape: a plane per launch
+        rows.append({
+            "name": "flow_moments", "route": "cuda",
+            "source": "lb2d_tpu_torch/csrc/moments.cu",
+            "replaces": None,  # the JAX moments are plain jnp
+            # in the counted readout window: two device_field, a get_fields
+            "launches": readout_launches,
+            "max_abs_err": None, "max_rel_err": info["err"],
+            "ms": info["ms"], "plain_ms": info["plain_ms"],
+            "bound_ms": info["bound_ms"], "bound_by": info["bound_by"],
+            "three_planes_ms": info["ms3"],
+            "three_planes_bound_ms": info["bound3_ms"],
+            "library_ms": None,  # no single PyTorch call computes the same
+            "steps_per_launch": None, "shape": info["shape"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

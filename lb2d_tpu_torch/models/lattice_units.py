@@ -120,7 +120,7 @@ class PipeFlowVelocityInlet(LatticePipeFlow):
     def _velocity_kwargs(self, mask):
         return dict(omega=self.omega, u_w=self.u_w, u_e=self.u_e,
                     outlet=self.outlet,
-                    incompressible=self.equilibrium == "incompressible",
+                    incompressible=self._incompressible,
                     mask=mask)
 
     def _make_eager_step(self):

@@ -47,7 +47,8 @@ from ..ops.fused import (
     supports_resident,
     temporal_pipe_step,
 )
-from ..ops.moments import hydro_compressible, hydro_incompressible
+from ..ops.moments import (FIELDS, hydro_compressible, hydro_incompressible,
+                           hydro_planes)
 from ..utils.tracing import traced, traced_field
 from .base import LBModel, plain_backend, resolve_device
 
@@ -208,20 +209,22 @@ class PipeFlow(LBModel):
                 * torch.as_tensor(perturb, **like)).contiguous()
 
     # --- step construction ---------------------------------------------------------
+    @property
+    def _incompressible(self) -> bool:
+        """Whether ``equilibrium`` is the He-Luo incompressible form."""
+        return self.equilibrium == "incompressible"
+
     def _feq_fn(self):
-        if self.equilibrium == "incompressible":
-            return feq_incompressible
-        return feq_quadratic
+        return feq_incompressible if self._incompressible else feq_quadratic
 
     def _hydro_fn(self):
-        if self.equilibrium == "incompressible":
-            return hydro_incompressible
-        return hydro_compressible
+        return (hydro_incompressible if self._incompressible
+                else hydro_compressible)
 
     def _step_kwargs(self):
         return dict(omega=self.omega, inlet_rho=self.inlet_rho,
                     outlet_rho=self.outlet_rho,
-                    incompressible=self.equilibrium == "incompressible")
+                    incompressible=self._incompressible)
 
     def make_step(self):
         if self.backend == "native":
@@ -238,7 +241,7 @@ class PipeFlow(LBModel):
         out = native.native_run(
             f.cpu(), n, omega=self.omega, inlet_rho=self.inlet_rho,
             outlet_rho=self.outlet_rho,
-            incompressible=self.equilibrium == "incompressible",
+            incompressible=self._incompressible,
             mask=None if mask is None else mask.cpu())
         return torch.from_numpy(out).to(self.device)
 
@@ -287,9 +290,12 @@ class PipeFlow(LBModel):
     @traced_field
     def device_field(self, name):
         """One 2-D field (``"rho"``, ``"u"`` or ``"v"``) as a device tensor
-        ``[ny, nx]``, without a copy to the host."""
-        rho, u, v = self._hydro_fn()(self.state)
-        return {"rho": rho, "u": u, "v": v}.get(name)
+        ``[ny, nx]``, without a copy to the host; None for another name. On
+        a float32 CUDA state one launch of the moments kernel that writes
+        only this plane (:func:`~lb2d_tpu_torch.ops.moments.hydro_planes`)."""
+        if name not in FIELDS:
+            return None
+        return hydro_planes(self.state, (name,), self._incompressible)[0]
 
     # --- field access (opencl_dim.py:390-438) --------------------------------------
     @traced("lb2d.readout.get_fields")

@@ -191,6 +191,8 @@ _ENTRY_POINTS = {
     "lb2d_coupled_max_k": [_I],
     # in, out, rows, cols, stream
     "lb2d_transpose": [_P, _P, _I, _I, _P],
+    # f, rho, u, v (NULL: not asked), cells, incompressible, stream
+    "lb2d_moments": [_P, _P, _P, _P, _LL, _I, _P],
     # out, n, key0, key1, step, stream
     "lb2d_normals": [_P, _LL, _U, _U, _ULL, _P],
     "lb2d_normals_per_cell": [_P, _LL, _U, _U, _ULL, _P],

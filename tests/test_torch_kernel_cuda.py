@@ -31,7 +31,9 @@ K6 / K7 and to their plain twins at 1e-6 (K6h after 5 steps, K7h at K =
 1, 2, 3 and its limit; the same per-cell code, so the unsharded kernels
 are expected to agree exactly), and the
 sharded runner (config 5, stale or not) and ``ShardedCoupled`` to the
-unsharded kernel runs. P2, the transpose, is exact.
+unsharded kernel runs. P2, the transpose, is exact. The flow moments'
+kernel is held to the plain moments at 1e-6 of max |field| (the same
+float32 terms added in another order; see ``MOMENTS_TOL``).
 """
 
 import numpy as np
@@ -127,6 +129,8 @@ from lb2d_tpu_torch.ops.random import (
     philox_bits,
 )
 from lb2d_tpu_torch.ops.transpose import transpose, transpose_reference
+from lb2d_tpu_torch.ops import moments
+from lb2d_tpu_torch.ops.equilibrium import feq_quadratic
 from lb2d_tpu_torch.parallel import (
     ShardedCoupled,
     ShardedDiffusion,
@@ -1218,6 +1222,73 @@ def test_transpose_kernel_is_exact(cuda, shape):
     torch.cuda.synchronize()
     assert transpose.launches == before + 1
     assert torch.equal(got, transpose_reference(x))
+
+
+# the flow moments (device_field, get_fields)
+# The kernel adds the populations in direction order, torch.sum in its own:
+# each order rounds to a few ulp of the partial sums (|f| sums to rho ~ 1),
+# ~1e-7 apart; of max |field| that is below 1e-6 for rho and for velocities
+# of order 0.1, as in these states (speeds up to 0.14, Mach 0.25)
+MOMENTS_TOL = 1e-6
+MOMENT_SUBSETS = [("rho",), ("u",), ("v",), ("u", "v"), ("v", "rho"),
+                  ("rho", "u", "v")]
+
+
+def _moving_state(device, ny, nx, offset=0):
+    """feq of rho in [0.9, 1.1] and u, v in [-0.1, 0.1] times 1 + 1% noise
+    (numpy seed 4), ``offset`` floats into its buffer (contiguous)."""
+    rng = np.random.RandomState(4)
+    rho, u, v = (torch.tensor(rng.uniform(lo, hi, (ny, nx)),
+                              dtype=torch.float32)
+                 for lo, hi in ((0.9, 1.1), (-0.1, 0.1), (-0.1, 0.1)))
+    f = feq_quadratic(rho, u, v) * torch.tensor(
+        1.0 + 0.01 * rng.randn(9, ny, nx), dtype=torch.float32)
+    buf = torch.empty(offset + f.numel(), device=device)
+    state = buf[offset:].view(9, ny, nx)
+    state.copy_(f)
+    return state
+
+
+@pytest.mark.parametrize("incompressible", [False, True],
+                         ids=["compressible", "incompressible"])
+@pytest.mark.parametrize("shape,offset", [((254, 382), 0), ((31, 61), 0),
+                                          ((64, 64), 1), ((1, 1), 0)],
+                         ids=["254x382", "31x61", "64x64-unaligned", "1x1"])
+def test_moments_kernel_matches_plain_moments(cuda, shape, offset,
+                                              incompressible):
+    f = _moving_state(cuda, *shape, offset)
+    want = dict(zip(moments.FIELDS,
+                    moments._hydro_plain(f, D2Q9, incompressible)))
+    for fields in MOMENT_SUBSETS:
+        before = moments.flow_moments.launches
+        got = moments.flow_moments(f, fields, incompressible)
+        planes = moments.hydro_planes(f, fields, incompressible)
+        torch.cuda.synchronize()
+        assert moments.flow_moments.launches == before + 2
+        for name, a, b in zip(fields, got, planes):
+            scale = float(want[name].abs().max())
+            assert torch.equal(a, b), (fields, name)
+            d = float((a - want[name]).abs().max())
+            assert d <= MOMENTS_TOL * scale, (fields, name, d, scale)
+
+
+def test_device_field_on_the_card_is_one_launch(cuda):
+    sim = PipeFlow(N=31, diameter=1.5, rho=10.0, viscosity=5.0,
+                   pressure_grad=-100.0, pipe_length=1.5 * 62.5 / 31,
+                   device=cuda)
+    sim.run(100)
+    want = dict(zip(moments.FIELDS, moments._hydro_plain(
+        sim.state, D2Q9, False)))
+    before = moments.flow_moments.launches
+    for name in moments.FIELDS:
+        got = sim.device_field(name)
+        d = float((got - want[name]).abs().max())
+        # near rest: a few ulp of rho ~ 1 (not of the field's own max)
+        assert d <= MOMENTS_TOL, (name, d)
+    rho, u, v = sim._hydro_fn()(sim.state)
+    assert moments.flow_moments.launches == before + 4
+    assert torch.equal(rho, sim.device_field("rho"))
+    assert torch.equal(u, sim.device_field("u"))
 
 
 # the C++ CPU engine (backend="native") on a CUDA model

@@ -19,14 +19,14 @@ import torch
 
 from lb2d_tpu_torch.models import Fluid, PipeFlow, SimulationRunner
 from lb2d_tpu_torch.ops import (fused, fused_coupled, fused_halo, fused_mc,
-                                spectral, transpose)
+                                moments, spectral, transpose)
 from lb2d_tpu_torch.ops import random as ops_random
 from lb2d_tpu_torch.utils import MachWatchdog, conservation_report, trace
 from lb2d_tpu_torch.utils import tracing
 
 PORT = Path(tracing.__file__).resolve().parent.parent
-WRAPPER_MODULES = (fused, fused_coupled, fused_halo, fused_mc, ops_random,
-                   spectral, transpose)
+WRAPPER_MODULES = (fused, fused_coupled, fused_halo, fused_mc, moments,
+                   ops_random, spectral, transpose)
 # the calls that block the host on the card in the CUDA runtime's trace
 BLOCKING = {"cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
             "cudaEventSynchronize"}
@@ -220,7 +220,7 @@ def _wrappers():
 
 def test_every_counted_wrapper_carries_a_launch_span():
     wrappers = _wrappers()
-    assert len(wrappers) == 22
+    assert len(wrappers) == 23
     launch_code = tracing.traced_launch(lambda f: f).__code__
     for module, name, fn in wrappers:
         assert fn.__code__ is launch_code, (module, name)
@@ -303,6 +303,7 @@ def test_every_wrapper_call_opens_one_launch_span(cuda):
     def calls():
         flow.run(100)            # K3: one launch
         flow_k2.run(10)          # K2 twice, K1 twice
+        flow_k2.device_field("u")  # the moments kernel
         runner.run(3)            # K6 density, K8, K6 step per step
         ops_random.normals(1, 0, (64, 64), cuda)
         transpose.transpose(x)
@@ -312,7 +313,8 @@ def test_every_wrapper_call_opens_one_launch_span(cuda):
     got = _launches_by_span(_traced(calls))
     delta = {n: counters[n].launches - before[n] for n in counters}
     calls_made = {"resident_pipe_run": 1, "temporal_pipe_step": 2,
-                  "pipe_step": 2, "mc_density": 3, "mc_step": 3,
+                  "pipe_step": 2, "flow_moments": 1, "mc_density": 3,
+                  "mc_step": 3,
                   "screened_gradients": 3, "normals": 1, "transpose": 1,
                   "dft_axis0": 1}
     assert {n.split(".", 2)[2]: c[0] for n, c in got.items()} == calls_made
@@ -363,3 +365,29 @@ def test_every_blocking_call_is_inside_a_wait_span(cuda, model):
     assert blocking, "the interval blocked nowhere"
     assert _blocking_outside_waits(
         events, (window["ts"], window["ts"] + window["dur"])) == []
+
+
+@pytest.mark.cuda
+def test_field_readout_on_the_card_launches_once_and_waits_nowhere(cuda):
+    sim = _pipe(cuda, n=63)
+    sim.run(10)
+    sim.device_field("u")
+    torch.cuda.synchronize()
+    before = moments.flow_moments.launches
+
+    def readout():
+        for name in ("u", "v", "rho"):
+            sim.device_field(name)
+        sim.get_fields()
+
+    spans = _spans(_traced(readout))
+    names = [s[0] for s in spans]
+    assert moments.flow_moments.launches == before + 4
+    assert not any(n.startswith("lb2d.wait.c_consts") for n in names)
+    launches = [s for s in spans if s[0] == "lb2d.launch.flow_moments"]
+    assert len(launches) == 4
+    for name in ("u", "v", "rho"):
+        field = spans[names.index(f"lb2d.readout.field.{name}")]
+        assert sum(_parent(s, spans) == field for s in launches) == 1
+    fields = spans[names.index("lb2d.readout.get_fields")]
+    assert sum(_parent(s, spans) == fields for s in launches) == 1
