@@ -1,22 +1,10 @@
-"""Faults planted in the timed path, to read at a cell's own size on the
-card that the check fails them (``lbbench/calibrate.py --faults``).
-
-A fault breaks either the program (``program(cell)``, given to
-``harness.run_cell`` as its ``fault``) or the plain reference put in the
-program's place (``reference(ref)``, a context in which the reference's
-step is broken; ``check.control_outputs`` in float32 then stands for the
-program). The CPU tests plant their own faults at a tiny size.
-"""
+"""Faults of ``pipe_flow``: the flow equilibrium without its velocity, or
+with u and v swapped, in the float32 reference put in the program's place.
+Each has to fail the snapshot's velocities or the monitoring readout."""
 
 import contextlib
 
 import torch
-
-
-def _k8_writes_nothing(cell):
-    """K8 never writes the force planes that ``mc_step`` reads (they keep
-    the runner's zeros)."""
-    cell.sim._solve_screened = lambda rho, ext, plain: None
 
 
 @contextlib.contextmanager
@@ -47,13 +35,11 @@ def _flow_step_with(ref, velocity):
 
 
 FAULTS = {
-    "k8_writes_nothing": {"config": "porous_two_fluid",
-                          "program": _k8_writes_nothing},
     "feq_without_velocity": {
-        "config": "pipe_flow",
         "reference": lambda ref: _flow_step_with(
-            ref, lambda ux, uy: (torch.zeros_like(ux), torch.zeros_like(uy)))},
+            ref, lambda ux, uy: (torch.zeros_like(ux), torch.zeros_like(uy))),
+        "fails": ["uv_win", "mon_win"]},
     "feq_velocity_swapped": {
-        "config": "pipe_flow",
-        "reference": lambda ref: _flow_step_with(ref, lambda ux, uy: (uy, ux))},
+        "reference": lambda ref: _flow_step_with(ref, lambda ux, uy: (uy, ux)),
+        "fails": ["uv_win", "mon_win"]},
 }

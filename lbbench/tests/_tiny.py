@@ -1,47 +1,49 @@
 """Each cell at a size a CPU test run holds: the same configuration and
-traffic with a smaller grid and fewer steps per interval."""
+traffic with a smaller grid and fewer steps per interval. A cell's size is
+``tests/tiny/<workload>.json``, found by name as ``limits/<workload>.json``
+is: the keys of the traffic mix that it replaces."""
 
 import math
+from pathlib import Path
 
 from lbbench import harness
 
-TINY = {
-    "pipe_flow.open_4096": {
-        "physical": {"diameter": 1.0, "rho": 1.0, "viscosity": 0.1,
-                     "pressure_grad": -0.01, "pipe_length": 1.0, "N": 31},
-        "steps_per_interval": 8},
-    "pipe_flow.cylinder_n125": {
-        "physical": {"diameter": 1.0, "rho": 1.0, "viscosity": 1.0,
-                     "pressure_grad": -10.0, "pipe_length": 3.0, "N": 10},
-        "steps_per_interval": 8},
-    "pipe_flow.poiseuille_32x256": {"steps_per_interval": 20},
-    "porous_two_fluid.8192": {"grid": [24, 32], "steps_per_interval": 3},
-}
+TINY = Path(__file__).resolve().parent / "tiny"
 SEED = 2**31 + 4321   # more than 32 signed bits hold
 
 
-# numbers that only the card's path gives: the runner's eager step on the
-# CPU solves the screened-Poisson force inside the step and holds no planes
-CARD_ONLY = {"force_win"}
+def path(workload) -> Path:
+    return TINY / f"{workload}.json"
+
+
+def size(workload) -> dict:
+    """The cell's traffic keys at its CPU size."""
+    return harness.load_json(path(workload))
 
 
 def limits(workload, card_only=False):
-    """The cell's limits, without ``CARD_ONLY``'s unless ``card_only``."""
+    """The cell's limits, without those of the numbers that only the card's
+    path gives unless ``card_only``: the planes the program holds (the
+    reference's ``HELD_GROUPS``). Config 5's runner on the CPU solves the
+    screened-Poisson force inside its eager step and holds none."""
     lim = harness.load_limits(workload)
-    return lim if card_only else {k: v for k, v in lim.items()
-                                  if k not in CARD_ONLY}
+    if card_only:
+        return lim
+    ref = harness.load_reference(harness.cell_spec(workload)["config"])
+    held = getattr(ref, "HELD_GROUPS", {})
+    return {k: v for k, v in lim.items() if k not in held}
 
 
 def run(workload, seed=SEED, seconds=0.0, trace=False, fault=None,
         card_only=False):
     return harness.run_cell(workload, seed, seconds, trace=trace,
-                            device="cpu", mix_override=TINY[workload],
+                            device="cpu", mix_override=size(workload),
                             fault=fault, limits=limits(workload, card_only))
 
 
 def mix(workload):
     spec = harness.cell_spec(workload)
-    return dict(harness.load_mix(spec["traffic"]), **TINY[workload])
+    return dict(harness.load_mix(spec["traffic"]), **size(workload))
 
 
 def failing(checks):

@@ -2,7 +2,8 @@
 ``BENCHMARK.json`` keeps to its contract, the work counts, the readers on
 a made-up trace, the reference against the port's eager path, a run's last
 line, a run without a card, and the check against broken timed paths and
-the bfloat16 control. Each cell runs at the size of ``_tiny.TINY``."""
+the bfloat16 control. Each cell runs at its CPU size,
+``tests/tiny/<workload>.json``."""
 
 import json
 import math
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from lbbench import check, harness, peaks
+from lbbench import check, faults, harness, peaks
 from lbbench.kernels import _counts
 from lbbench.tests import _tiny
 from lbbench.trace import READOUT, RUN, WINDOW, Context, Trace
@@ -22,6 +23,10 @@ from lbbench.trace import READOUT, RUN, WINDOW, Context, Trace
 BENCH = harness.benchmark()
 CELLS = [w["name"] for w in BENCH["workloads"]]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
+# each cell with each fault of its configuration that breaks the reference
+REFERENCE_FAULTS = [(w["name"], name) for w in BENCH["workloads"]
+                    for name, f in faults.FAULTS.items()
+                    if f["config"] == w["config"] and "reference" in f]
 
 pytestmark = pytest.mark.filterwarnings("ignore:Max Mach number")
 
@@ -30,6 +35,8 @@ pytestmark = pytest.mark.filterwarnings("ignore:Max Mach number")
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_cell_resolves_to_its_files(workload):
+    tiny = _tiny.path(workload)
+    assert tiny.is_file(), f"{workload} has no CPU size: add {tiny}"
     spec = harness.cell_spec(workload)
     cfg = harness.load_config(spec["config"])
     ref = harness.load_reference(spec["config"])
@@ -48,6 +55,9 @@ def test_cell_resolves_to_its_files(workload):
     assert set(limits) <= {"f_warm", "mon_win", *ref.SNAPSHOT_GROUPS, *held}
     assert not held or hasattr(ref, "held")
     assert all(0 < v < 1 for v in limits.values())
+    for name, fault in faults.FAULTS.items():
+        if fault["config"] == spec["config"]:
+            assert fault["fails"] and set(fault["fails"]) <= set(limits), name
     metrics = harness.per_layer_metrics(workload, BENCH)
     assert metrics
     fams = harness.families()
@@ -201,9 +211,7 @@ def test_readers_on_a_made_up_trace():
 
 # -- the reference against the port's eager path -------------------------------
 
-@pytest.mark.parametrize("workload", ["pipe_flow.open_4096",
-                                      "pipe_flow.cylinder_n125",
-                                      "porous_two_fluid.8192"])
+@pytest.mark.parametrize("workload", CELLS)
 def test_reference_agrees_with_the_ports_eager_path(workload):
     spec = harness.cell_spec(workload)
     cfg = harness.load_config(spec["config"])
@@ -301,7 +309,7 @@ def test_main_prints_no_result_once_a_reader_loads_jax(monkeypatch, capsys):
     monkeypatch.setattr(harness, "cards_missing", lambda spec: None)
     monkeypatch.setattr(harness, "load_metric", lambda name: Reader)
     monkeypatch.setattr(harness, "run_cell", lambda *a, **k: run_cell(
-        *a, **dict(k, device="cpu", mix_override=_tiny.TINY[workload],
+        *a, **dict(k, device="cpu", mix_override=_tiny.size(workload),
                    limits=_tiny.limits(workload))))
     rc = harness.main(["--workload", workload, "--seed", "1", "--seconds",
                        "0.05", "--trace", "1"])
@@ -402,15 +410,14 @@ def test_a_broken_timed_path_is_not_correct(workload, fault):
     assert _tiny.failing(result["checks"])
 
 
-@pytest.mark.parametrize("workload", [w for w in CELLS
-                                      if w.startswith("pipe_flow.")])
-@pytest.mark.parametrize("fault", ["feq_without_velocity",
-                                   "feq_velocity_swapped"])
+@pytest.mark.parametrize(("workload", "fault"), REFERENCE_FAULTS,
+                         ids=[f"{f}-{w}" for w, f in REFERENCE_FAULTS])
 def test_a_fault_in_the_flow_velocity_terms_is_not_correct(workload, fault):
-    """``lbbench/faults.py``'s flow faults, read on the card at each cell's
-    own size, fail the cell's limits at the tiny size too."""
-    from lbbench import faults
-
+    """Each fault of the cell's configuration that breaks the reference
+    (``lbbench/faults/<config>.py``; for ``pipe_flow`` the equilibrium's
+    velocity terms), read on the card at the cell's own size, fails one of
+    its ``fails`` numbers at the tiny size too; the float32 reference
+    without it passes."""
     spec = harness.cell_spec(workload)
     cfg = harness.load_config(spec["config"])
     ref = harness.load_reference(spec["config"])
@@ -423,7 +430,7 @@ def test_a_fault_in_the_flow_velocity_terms_is_not_correct(workload, fault):
     values = check.readings(ref, mix, inputs, out, "cpu")
     correct, checks = check.verdict(values, harness.load_limits(workload))
     assert not correct
-    assert {"uv_win", "mon_win"} & set(_tiny.failing(checks))
+    assert set(faults.FAULTS[fault]["fails"]) & set(_tiny.failing(checks))
     sound = check.readings(ref, mix, inputs, check.control_outputs(
         ref, mix, inputs, j, "cpu", dtype=torch.float32), "cpu")
     assert check.verdict(sound, harness.load_limits(workload))[0], sound

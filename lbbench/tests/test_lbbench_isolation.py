@@ -16,6 +16,7 @@ import pytest
 from lbbench import harness
 
 REPO = pathlib.Path(__file__).resolve().parents[2]
+CELLS = [w["name"] for w in harness.benchmark()["workloads"]]
 
 RUN_CELL = r"""
 import json, sys, warnings
@@ -37,8 +38,7 @@ def _child(code, *args):
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("workload", ["pipe_flow.poiseuille_32x256",
-                                      "porous_two_fluid.8192"])
+@pytest.mark.parametrize("workload", CELLS)
 def test_a_run_loads_no_jax_and_reads_no_jax_benchmark(workload):
     got = _child(RUN_CELL, workload)
     assert got["correct"]

@@ -2,7 +2,9 @@
 ``run_wait_ms``, ``idle_launch_pct``, ``idle_readout_pct``) on a made-up
 trace with known answers, on a trace without the port's spans (a program
 that records none: each reads nothing), and on a traced run of each cell
-at the size of ``_tiny.TINY``."""
+at its CPU size (``tests/tiny/<workload>.json``)."""
+
+import functools
 
 import pytest
 
@@ -12,7 +14,16 @@ from lbbench.trace import READOUT, RUN, WINDOW, Context, Trace
 
 SPAN_METRICS = ("launch_host_us", "run_wait_ms", "idle_launch_pct",
                 "idle_readout_pct")
-CELLS = [w["name"] for w in harness.benchmark()["workloads"]]
+# the span metrics that a CPU run reads: there no kernel runs and the
+# eager path calls no wrapper, so the wrapper spans and the idle shares
+# are the card's alone
+CPU_READS = ("run_wait_ms",)
+# the cells each span metric lists: a cell may join a list, none leaves it
+LISTED = ("pipe_flow.open_4096", "porous_two_fluid.8192",
+          "pipe_flow.poiseuille_32x256", "pipe_flow.cylinder_n125")
+BENCH = harness.benchmark()
+CELLS = [w["name"] for w in BENCH["workloads"]]
+PER_LAYER = {m["name"]: m for m in BENCH["per_layer"]}
 
 pytestmark = pytest.mark.filterwarnings("ignore:Max Mach number")
 
@@ -97,20 +108,35 @@ def test_interval_measures():
                                              (540, 560), (770, 780)]
 
 
+@functools.cache
+def _traced_metrics(workload):
+    """The per-layer metrics of one traced CPU run of ``workload``."""
+    result, _ = _tiny.run(workload, trace=True, seconds=0.05)
+    return result["metrics"]
+
+
 def test_span_metrics_are_in_the_benchmark():
-    per_layer = {m["name"]: m for m in harness.benchmark()["per_layer"]}
+    """Each span metric lists only cells of the benchmark, still lists
+    every cell of ``LISTED``, and is reported by each cell it lists in a
+    traced CPU run where a CPU run reads it."""
     for name in SPAN_METRICS:
-        assert per_layer[name]["source"] == "program_span"
-        assert per_layer[name]["workloads"] == CELLS
+        m = PER_LAYER[name]
+        assert m["source"] == "program_span"
+        assert set(m["workloads"]) <= set(CELLS), name
+        assert set(LISTED) <= set(m["workloads"]), name
+    for name in CPU_READS:
+        for workload in PER_LAYER[name]["workloads"]:
+            assert name in _traced_metrics(workload), (name, workload)
 
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_traced_cell_reads_the_ports_spans(workload):
     """On the CPU no kernel runs and the eager path calls no wrapper: the
     run and readout spans are there, the wrapper spans and the idle shares
-    are not."""
-    result, _ = _tiny.run(workload, trace=True, seconds=0.05)
-    metrics = result["metrics"]
-    assert metrics["run_wait_ms"]["value"] >= 0
-    for name in ("launch_host_us", "idle_launch_pct", "idle_readout_pct"):
-        assert name not in metrics
+    are not. ``run_wait_ms`` comes only from a cell on its list."""
+    metrics = _traced_metrics(workload)
+    for name in SPAN_METRICS:
+        if name in CPU_READS and workload in PER_LAYER[name]["workloads"]:
+            assert metrics[name]["value"] >= 0
+        else:
+            assert name not in metrics
