@@ -15,7 +15,7 @@ from ..ops.fused import (
     velocity_step_reference,
 )
 from ..ops.moments import hydro_compressible
-from ..utils.tracing import traced
+from ..utils.tracing import span, traced
 from .pipe_flow import VELOCITY_TEMPORAL_K, PipeFlow
 
 __all__ = ["LatticePipeFlow", "LatticePipeFlowPeriodicBC",
@@ -50,7 +50,8 @@ class LatticePipeFlow(PipeFlow):
         dr, dt = self.dr, self.dt_lattice
         self.viscosity = (dr**2 / (3 * dt)) * (self.omega - 0.5)
         _, u, v = self._hydro_fn()(self.state)
-        U = float(torch.sqrt(u * u + v * v).max())
+        with span("lb2d.wait.dimensionless_nums"):
+            U = float(torch.sqrt(u * u + v * v).max())
         L = self.ly * dr
         self.Re = U * L / self.viscosity if self.viscosity else float("inf")
         self.Ma = (dr / (L * np.sqrt(3.0))) * (self.omega - 0.5) * self.Re

@@ -17,7 +17,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from lb2d_tpu_torch.models import Fluid, PipeFlow, SimulationRunner
+from lb2d_tpu_torch.models import (Fluid, PipeFlow, PipeFlowVelocityInlet,
+                                   SimulationRunner)
 from lb2d_tpu_torch.ops import (fused, fused_coupled, fused_halo, fused_mc,
                                 moments, spectral, transpose)
 from lb2d_tpu_torch.ops import random as ops_random
@@ -198,6 +199,16 @@ def test_get_fields_and_synchronize_spans():
     assert len(hosts) == 5 and all(_parent(h, spans) == fields[0]
                                    for h in hosts)
     assert [s[0] for s in spans].count("lb2d.wait.synchronize") == 1
+
+
+def test_the_lattice_models_set_up_wait_has_its_span():
+    """``LatticePipeFlow.update_dimensionless_nums`` reads the largest speed
+    on the host once, at set-up, inside ``lb2d.wait.dimensionless_nums``."""
+    spans = _spans(_traced(lambda: PipeFlowVelocityInlet(lx=20, ly=20,
+                                                         device="cpu")))
+    waits = [s for s in spans if s[0] == "lb2d.wait.dimensionless_nums"]
+    assert len(waits) == 1
+    assert _parent(waits[0], spans) is None   # set-up, outside any run
 
 
 def test_wrapper_on_cpu_tensors_opens_no_launch_span():
@@ -391,3 +402,15 @@ def test_field_readout_on_the_card_launches_once_and_waits_nowhere(cuda):
         assert sum(_parent(s, spans) == field for s in launches) == 1
     fields = spans[names.index("lb2d.readout.get_fields")]
     assert sum(_parent(s, spans) == fields for s in launches) == 1
+
+
+@pytest.mark.cuda
+def test_the_lattice_models_set_up_blocks_inside_its_wait_span(cuda):
+    PipeFlowVelocityInlet(lx=40, ly=40, device=cuda)   # the library built
+    torch.cuda.synchronize()
+    events = _traced(lambda: PipeFlowVelocityInlet(lx=40, ly=40,
+                                                   device=cuda))
+    wait = next(s for s in _spans(events)
+                if s[0] == "lb2d.wait.dimensionless_nums")
+    assert any(e.get("cat") == "cuda_runtime" and e["name"] in BLOCKING
+               and wait[1] <= e["ts"] <= wait[2] for e in events)
