@@ -35,18 +35,23 @@
 // Bound: per cell and step, 72/K B of HBM (f read and written once per
 // launch) against the card's 3.35 TB/s, and the update's arithmetic,
 // computed 128 / (128 - 2K) times over for the x halo. The flow updates are
-// instruction-bound (their IEEE divisions, the BC branches): a thread takes
-// two columns 64 apart of its level, so their pulls, arithmetic and
-// stores overlap, and they share the quotients of opposite directions
-// (collide<.., kPaired>, the same bits); the diffusion family forms its
-// (1 + c.u / cs2) once per launch. Each thread's input planes are
-// constants of an unrolled copy per load lane. Shared memory per block,
+// instruction-bound: a thread takes two columns 64 apart of its level, so
+// their pulls, arithmetic and stores overlap; they share the terms of
+// opposite directions and multiply by the equilibrium's exact reciprocals
+// (collide<.., kPaired, kProducts>), so 1 / rho and the Zou-He columns'
+// divisions are the only IEEE divisions left. A level's two cells are 690
+// SASS instructions with 4 FCHK (962 and 22 with a division per constant);
+// the BC branches, one barrier a phase and the ring index remain. The
+// diffusion family forms its (1 + c.u / cs2) once per launch. Each
+// thread's input planes are constants of an unrolled copy per load lane.
+// Shared memory per block,
 // (27 K + 9) rows of 128 floats (row_sweep.cuh), sets the blocks per SM:
 // 4 up to K = 3, 3 up to K = 5, 2 up to K = 8; K <= 8, as K =
 // 9-16 (one block per SM) ran 1.8-2x slower per step. On an H100 80GB HBM3
-// at 700 W (PERF.md, section 6): 4096^2 flow 0.27 ms per step at K =
-// 4, 2048^2 diffusion 0.035 at K = 8 and noisy Fisher 0.075 at K = 4,
-// against 0.35, 0.086 and 0.122 for the first K2's 32 x 32 tiles.
+// at 700 W (PERF.md, section 6): 4096^2 flow 0.17 ms per step at K =
+// 4 (0.26 with the divisions), 2048^2 diffusion 0.035 at K = 8 and noisy
+// Fisher 0.075 at K = 4, against 0.35, 0.086 and 0.122 for the first K2's
+// 32 x 32 tiles.
 //
 // The first K2 ran 32 x 32 tiles with a K-cell halo, three
 // blocks per SM and a block-wide barrier per step: at K = 3 it read 1.51x
@@ -251,13 +256,13 @@ __device__ __forceinline__ void sweep_steps(const Src& src,
 #pragma unroll
       for (int i = 0; i < kCols; ++i) {
         if constexpr (kPhys == kFlow) {
-          cell_update<kIncomp, kObstacle, true>(v[i], out[i], gy, gx[i], d.ny,
-                                                d.nx, sol[i], prm.omega,
-                                                prm.a, prm.b);
+          cell_update<kIncomp, kObstacle, true, true>(
+              v[i], out[i], gy, gx[i], d.ny, d.nx, sol[i], prm.omega, prm.a,
+              prm.b);
         } else if constexpr (kVelocity) {
           velocity_cell_update<kPhys == kVelocityPair, kIncomp, kObstacle,
-                               true>(v[i], up[i], out[i], gx[i], d.nx, sol[i],
-                                     prm.omega, prm.a, prm.b);
+                               true, true>(v[i], up[i], out[i], gx[i], d.nx,
+                                           sol[i], prm.omega, prm.a, prm.b);
         } else {
           diffusion_cell_update<kPhys == kNoisyFisher>(
               v[i], out[i], prm, (unsigned long long)gy * d.nx + gx[i],

@@ -92,7 +92,13 @@ and K9 flow at its 2048 x 8192 shard, by events and graph replay;
 and P1 (``normals``) for a 2048^2 field, the shapes of ``chip_smoke.py``'s
 rows, each by CUDA-graph replay (as ``graph``) beside CUDA events around
 host launches, and P1's first one-cell-a-thread loop where the checkout
-keeps it (``normals_per_cell``).
+keeps it (``normals_per_cell``); ``k2flow``, K2 flow alone on the states of
+the benchmark's two K2 cells (``lbbench/traffic/open_4096.json``: 4096^2,
+standing density waves; ``cylinder_n125.json``: 3751 x 1251 with the
+disk, the program's noisy start), each built by ``lbbench``'s
+``pipe_flow.Cell`` from seed 1, at the checkout's ``TEMPORAL_K``, by CUDA
+events around host launches and by CUDA-graph replay, three rounds in
+turns.
 """
 
 import json
@@ -195,6 +201,10 @@ def main():
         return
     if sys.argv[2:] == ["k5p1"]:
         out.update(_k5_p1_times())
+        print(json.dumps(out), flush=True)
+        return
+    if sys.argv[2:] == ["k2flow"]:
+        out.update(_k2_flow_times())
         print(json.dumps(out), flush=True)
         return
     if sys.argv[2:] == ["inlet"]:
@@ -841,6 +851,34 @@ def _k2_k4_times():
     out[f"K5 band {2 * B}x{sim.nx} F={sim.num_fields}"] = _entry(
         _median_ms(lambda: expansion_band_step(band, k, *args, **band_kw)),
         k)
+    return out
+
+
+def _k2_flow_times():
+    """K2 flow on the benchmark cells' states: ms per launch by events and
+    by graph replay, three rounds in turns."""
+    from lbbench.configs.pipe_flow import Cell
+    from lbbench.harness import load_mix
+    from lb2d_tpu_torch.models.pipe_flow import TEMPORAL_K
+
+    k = TEMPORAL_K
+    launches = {}
+    for name in ("open_4096", "cylinder_n125"):
+        sim = Cell(load_mix(name), 1, "cuda").sim
+        mask = (None if sim.obstacle_mask is None
+                else sim.obstacle_mask.to(torch.int32).contiguous())
+        kw = dict(omega=sim.omega, inlet_rho=sim.inlet_rho,
+                  outlet_rho=sim.outlet_rho, incompressible=False, mask=mask)
+        label = f"K2 flow {name} {sim.ny}x{sim.nx}"
+        launches[label] = _ping_pong(
+            sim.state, lambda a, b, kw=kw: temporal_pipe_step(a, b, k, **kw))
+    out = {f"{label} {how}": [] for label in launches
+           for how in ("events", "graph")}
+    for _ in range(3):
+        for label, launch in launches.items():
+            out[f"{label} events"].append(_median_ms(launch))
+            out[f"{label} graph"].append(_graph_ms(launch))
+    out["k"] = k
     return out
 
 
