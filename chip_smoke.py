@@ -292,8 +292,9 @@ NORMALS_TOL = 5e-6  # |eta| < 6: the card's logf/cosf against torch's
 BYTES_PER_CELL = 72  # 9 float32 reads + 9 writes per cell-step
 MAIN_STEPS = 1000    # 4096^2: 250 K2 launches of TEMPORAL_K = 4 steps
 SMALL_STEPS = 20000  # 32x256: one K3 launch
-INLET_STEPS = 1000   # 401x401 velocity inlet: 250 K2 launches of
-# VELOCITY_TEMPORAL_K = 4 steps, or one K3
+KERNEL_STEPS = 100   # 4096^2 through backend="kernel": 100 K1 launches
+INLET_STEPS = 1000   # 401x401 velocity inlet: 125 K2 launches of
+# VELOCITY_TEMPORAL_K = 8 steps, or one K3
 DIFFUSION_STEPS = 2000  # 2048^2: run_all.py's step count
 RESIDENT_DIFFUSION_STEPS = 20000  # 256^2 and 512^2: one K3 launch each
 RESIDENT_CHECK_STEPS = (8, 9)  # both parities of K3's exchange slots
@@ -732,16 +733,28 @@ def main_path_phase(main, small, inlet, card, times, copy_bw):
     inlet.run(VELOCITY_TEMPORAL_K + 1)
 
     def drive():
-        main.run(1)  # one step short of a K2 launch: K1
+        main.run(1)  # one step short of a K2 launch: a K2 launch of 1 step
         main.run(MAIN_STEPS, timed=True)
         small.run(SMALL_STEPS, timed=True)
         inlet.run(INLET_STEPS, timed=True)
 
-    expected = {"K1": 1 + MAIN_STEPS % TEMPORAL_K,
-                "K2": MAIN_STEPS // TEMPORAL_K, "K3": 1,
+    expected = {"K2": 1 + -(-MAIN_STEPS // TEMPORAL_K), "K3": 1,
                 "K2v": -(-INLET_STEPS // VELOCITY_TEMPORAL_K)}
     counts = _window("main path (flow)", drive, expected)
     launches = {k: counts[k] for k in expected}
+    # K1 is the path of backend="kernel" only, asked for by name
+    one = PipeFlow(N=4095, device="cuda", backend="kernel", **BENCH_PHYS)
+    one.run(2)
+    launches["K1"] = _window(
+        f'main path (backend="kernel") {one.ny}x{one.nx}',
+        lambda: one.run(KERNEL_STEPS, timed=True),
+        {"K1": KERNEL_STEPS})["K1"]
+    print(f"main path PipeFlow {one.ny}x{one.nx} backend=kernel: "
+          f"{one.last_mlups:.1f} MLUPS over {KERNEL_STEPS} steps; card: "
+          f"{card}", flush=True)
+    if not torch.isfinite(one.state).all():
+        raise RuntimeError("non-finite state after backend='kernel'")
+    del one
     for sim in (main, small, inlet):
         if not torch.isfinite(sim.state).all():
             raise RuntimeError("non-finite state after the main path")
@@ -2373,10 +2386,9 @@ def sharded_main_path_phase(single, sh, err, card):
     if not all(torch.isfinite(t).all() for t in sh.state):
         raise RuntimeError("ShardedPipeFlow: non-finite state")
     single.run(TEMPORAL_K + 1)
-    k2 = {"K2": SHARDED_STEPS // TEMPORAL_K, "K1": SHARDED_STEPS % TEMPORAL_K}
     _window(f"PipeFlow {single.ny}x{single.nx} (K2)",
             lambda: single.run(SHARDED_STEPS, timed=True),
-            {name: n for name, n in k2.items() if n})
+            {"K2": -(-SHARDED_STEPS // TEMPORAL_K)})
     exchange_ms = _events_ms(lambda: exchange_halos(sh.mesh, sh.halos), 20)
     sweep_ms = sh.num_cells * SHARDED_STEPS / (sh.last_mlups * 1e6) * 1e3 / (
         sweeps)

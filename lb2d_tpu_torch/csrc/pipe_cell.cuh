@@ -18,13 +18,12 @@
 // Numerics: no fast math (IEEE division, denormals kept). Expressions
 // follow the JAX float32 order term by term; in the flow updates nvcc may
 // contract a multiply and an add into one FMA, so results differ from the
-// plain PyTorch step by a few ulp. The row sweep's flow updates (K2, K9:
-// collide's kProducts) multiply where the plain step divides by float32's
-// cs2, 2 cs2 cs2 and 2 cs2: by 3, 4.5 and 1.5, the exact reciprocals of
-// 1/3, 2/9 and 2/3, one rounding each, which the quotients by the rounded
-// constants only approximate; the other flow kernels keep the quotients.
-// The diffusion update rounds every operation on its own and matches the
-// plain step bit for bit.
+// plain PyTorch step by a few ulp. Every flow update (collide) multiplies
+// where the plain step divides by float32's cs2, 2 cs2 cs2 and 2 cs2: by 3,
+// 4.5 and 1.5, the exact reciprocals of 1/3, 2/9 and 2/3, one rounding
+// each, which the quotients by the rounded constants only approximate. The
+// diffusion update rounds every operation on its own and matches the plain
+// step bit for bit.
 
 #pragma once
 
@@ -51,10 +50,8 @@ constexpr float kW0 = (float)(4.0 / 9.0);
 constexpr float kW1 = (float)(1.0 / 9.0);
 constexpr float kW2 = (float)(1.0 / 36.0);
 constexpr float kCs2 = (float)(1.0 / 3.0);
-constexpr float kTwoCs4 = 2.0f * kCs2 * kCs2;  // 2.0 * cs2 * cs2 in float32
-constexpr float kTwoCs2 = 2.0f * kCs2;
 // 1 / cs2, 1 / (2 cs4) and 1 / (2 cs2) of the exact cs2 = 1/3, exact in
-// float32 (collide's kProducts)
+// float32 (collide)
 constexpr float kInvCs2 = 3.0f;
 constexpr float kInvTwoCs4 = 4.5f;
 constexpr float kInvTwoCs2 = 1.5f;
@@ -164,19 +161,14 @@ __device__ __forceinline__ void bounce_back(float (&st)[9]) {
 // Moments, feq and BGK on the post-BC values st. The moments are summed in
 // direction order as the plain version sums them; u = j / rho, or u = j
 // with kIncompMoments (He-Luo); u = v = 0 when zero_vel. feq is the
-// quadratic (compressible) or, with kIncompFeq, the incompressible one.
-// With kPaired the opposite directions share their quotients: IEEE
-// division and rounding are odd in the dividend, so (-c) / k = -(c / k)
-// and (-c)^2 = c^2 exactly: 8 of the 17 divisions by constants go, with
-// the same bits (K2, K3 and K9; K1 and K2's velocity tiles keep a division
-// per direction). With kProducts (the row sweep: K2 and K9) no division by
-// a constant is left: c.u / cs2 is cu * 3, (c.u)^2 / (2 cs4) is cu^2 * 4.5
-// and u^2 / (2 cs2) is (u^2 + v^2) * 1.5, and the pairing holds as well,
-// (-c) * k = -(c * k). Without fast math each division is a reciprocal, a
-// Newton step and a checked branch to a slow path, about ten instructions
-// that end a basic block; 1 / rho stays one correctly rounded reciprocal.
-template <bool kIncompMoments, bool kIncompFeq, bool kPaired = false,
-          bool kProducts = false>
+// quadratic (compressible) or, with kIncompFeq, the incompressible one. No
+// division by a constant: c.u / cs2 is cu * 3, (c.u)^2 / (2 cs4) is
+// cu^2 * 4.5 and u^2 / (2 cs2) is (u^2 + v^2) * 1.5, and the opposite
+// directions share their terms, (-c) * k = -(c * k) and (-c)^2 = c^2
+// exactly. Without fast math each division is a reciprocal, a Newton step
+// and a checked branch to a slow path, about ten instructions that end a
+// basic block; 1 / rho stays one correctly rounded reciprocal.
+template <bool kIncompMoments, bool kIncompFeq>
 __device__ __forceinline__ void collide(const float (&st)[9], float (&out)[9],
                                         bool zero_vel, float omega) {
   const float rho = st[0] + st[1] + st[2] + st[3] + st[4] + st[5] + st[6]
@@ -197,8 +189,7 @@ __device__ __forceinline__ void collide(const float (&st)[9], float (&out)[9],
     v = 0.0f;
   }
   const float A = 1.0f - omega;
-  const float usq = kProducts ? (u * u + v * v) * kInvTwoCs2
-                              : (u * u + v * v) / kTwoCs2;
+  const float usq = (u * u + v * v) * kInvTwoCs2;
   const float cu[9] = {0.0f, u, v, -u, -v, u + v, -u + v, -u - v, u - v};
   const float w[9] = {kW0, kW1, kW1, kW1, kW1, kW2, kW2, kW2, kW2};
   float lin[9], sq[9];  // cu / cs2 and cu^2 / (2 cs4) per direction
@@ -206,15 +197,12 @@ __device__ __forceinline__ void collide(const float (&st)[9], float (&out)[9],
   for (int j = 0; j < 9; ++j) {
     // directions 3, 4, 7, 8 are the opposites of 1, 2, 5, 6
     const int o = j == 3 ? 1 : j == 4 ? 2 : j == 7 ? 5 : j == 8 ? 6 : j;
-    if (kPaired && o != j) {
+    if (o != j) {
       lin[j] = -lin[o];
       sq[j] = sq[o];
-    } else if (kProducts) {
+    } else {
       lin[j] = cu[j] * kInvCs2;
       sq[j] = (cu[j] * cu[j]) * kInvTwoCs4;
-    } else {
-      lin[j] = cu[j] / kCs2;
-      sq[j] = (cu[j] * cu[j]) / kTwoCs4;
     }
   }
 #pragma unroll
@@ -233,8 +221,7 @@ __device__ __forceinline__ void collide(const float (&st)[9], float (&out)[9],
 // post-collision values out: BCs, bounce-back if `solid`, moments, feq,
 // BGK. The incompressible equilibrium uses He-Luo moments and zeroes the
 // velocity inside the obstacle.
-template <bool kIncomp, bool kObstacle, bool kPaired = false,
-          bool kProducts = false>
+template <bool kIncomp, bool kObstacle>
 __device__ __forceinline__ void cell_update(const float (&s)[9],
                                             float (&out)[9], int y, int x,
                                             int ny, int nx, bool solid,
@@ -245,8 +232,7 @@ __device__ __forceinline__ void cell_update(const float (&s)[9],
   for (int j = 0; j < 9; ++j) st[j] = s[j];
   apply_bcs<kIncomp>(s, st, y, x, ny, nx, rin, rout);
   if (kObstacle && solid) bounce_back(st);  // from the post-BC snapshot
-  collide<kIncomp, kIncomp, kPaired, kProducts>(
-      st, out, kIncomp && kObstacle && solid, omega);
+  collide<kIncomp, kIncomp>(st, out, kIncomp && kObstacle && solid, omega);
 }
 
 // Zou-He velocity inlet (u = uw) on the whole column x = 0 and, on
@@ -288,8 +274,7 @@ __device__ __forceinline__ void apply_velocity_bcs(const float (&s)[9],
 // of DIVERGENCES.md #20-21): velocity BCs, bounce-back if `solid`,
 // compressible moments with the velocity zeroed inside the obstacle, feq
 // (incompressible with kIncompFeq), BGK.
-template <bool kPair, bool kIncompFeq, bool kObstacle, bool kPaired = false,
-          bool kProducts = false>
+template <bool kPair, bool kIncompFeq, bool kObstacle>
 __device__ __forceinline__ void velocity_cell_update(
     const float (&s)[9], const float (&up)[3], float (&out)[9], int x, int nx,
     bool solid, float omega, float uw, float ue) {
@@ -298,8 +283,7 @@ __device__ __forceinline__ void velocity_cell_update(
   for (int j = 0; j < 9; ++j) st[j] = s[j];
   apply_velocity_bcs<kPair>(s, up, st, x, nx, uw, ue);
   if (kObstacle && solid) bounce_back(st);
-  collide<false, kIncompFeq, kPaired, kProducts>(st, out, kObstacle && solid,
-                                                 omega);
+  collide<false, kIncompFeq>(st, out, kObstacle && solid, omega);
 }
 
 // (1 + c_j.u / cs2) per direction, as feq_linear forms it: the same for

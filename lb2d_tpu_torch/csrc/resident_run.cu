@@ -309,9 +309,8 @@ resident_band_kernel(float* __restrict__ f, float* scratch,
         const int x = kStrip ? y0 + r : v;
         const bool solid = kObstacle && __ldg(mask + (size_t)gy * nx + x) != 0;
         if constexpr (kPhys == kFlow) {
-          cell_update<kIncomp, kObstacle, true>(s, out[c], gy, x, ny, nx,
-                                                solid, prm.omega, prm.a,
-                                                prm.b);
+          cell_update<kIncomp, kObstacle>(s, out[c], gy, x, ny, nx, solid,
+                                          prm.omega, prm.a, prm.b);
         } else if constexpr (kPhys == kDiffusion || kPhys == kNoisyFisher) {
           diffusion_cell_update<kPhys == kNoisyFisher>(
               s, out[c], prm, (unsigned long long)gy * nx + x, step, coef);
@@ -331,9 +330,8 @@ resident_band_kernel(float* __restrict__ f, float* scratch,
               upv[2] = r0[7 * len + vp];
             }
           }
-          velocity_cell_update<kPhys == kVelocityPair, kIncomp, kObstacle,
-                               true>(s, upv, out[c], x, nx, solid,
-                                     prm.omega, prm.a, prm.b);
+          velocity_cell_update<kPhys == kVelocityPair, kIncomp, kObstacle>(
+              s, upv, out[c], x, nx, solid, prm.omega, prm.a, prm.b);
         }
         if constexpr (kStrip) transpose_values(out[c]);
       }

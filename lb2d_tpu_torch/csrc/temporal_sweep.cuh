@@ -36,12 +36,13 @@
 // launch) against the card's 3.35 TB/s, and the update's arithmetic,
 // computed 128 / (128 - 2K) times over for the x halo. The flow updates are
 // instruction-bound: a thread takes two columns 64 apart of its level, so
-// their pulls, arithmetic and stores overlap; they share the terms of
-// opposite directions and multiply by the equilibrium's exact reciprocals
-// (collide<.., kPaired, kProducts>), so 1 / rho and the Zou-He columns'
-// divisions are the only IEEE divisions left. A level's two cells are 690
-// SASS instructions with 4 FCHK (962 and 22 with a division per constant);
-// the BC branches, one barrier a phase and the ring index remain. The
+// their pulls, arithmetic and stores overlap; collide (pipe_cell.cuh), as
+// in every flow kernel, shares the terms of opposite directions and
+// multiplies by the equilibrium's exact reciprocals, so 1 / rho and the
+// Zou-He columns' divisions are the only IEEE divisions left. A level's two
+// cells are 690 SASS instructions with 4 FCHK (962 and 22 with a division
+// per constant); the BC branches, one barrier a phase and the ring index
+// remain. The
 // diffusion family forms its (1 + c.u / cs2) once per launch. Each
 // thread's input planes are constants of an unrolled copy per load lane.
 // Shared memory per block,
@@ -256,13 +257,13 @@ __device__ __forceinline__ void sweep_steps(const Src& src,
 #pragma unroll
       for (int i = 0; i < kCols; ++i) {
         if constexpr (kPhys == kFlow) {
-          cell_update<kIncomp, kObstacle, true, true>(
-              v[i], out[i], gy, gx[i], d.ny, d.nx, sol[i], prm.omega, prm.a,
-              prm.b);
+          cell_update<kIncomp, kObstacle>(v[i], out[i], gy, gx[i], d.ny,
+                                          d.nx, sol[i], prm.omega, prm.a,
+                                          prm.b);
         } else if constexpr (kVelocity) {
-          velocity_cell_update<kPhys == kVelocityPair, kIncomp, kObstacle,
-                               true, true>(v[i], up[i], out[i], gx[i], d.nx,
-                                           sol[i], prm.omega, prm.a, prm.b);
+          velocity_cell_update<kPhys == kVelocityPair, kIncomp, kObstacle>(
+              v[i], up[i], out[i], gx[i], d.nx, sol[i], prm.omega, prm.a,
+              prm.b);
         } else {
           diffusion_cell_update<kPhys == kNoisyFisher>(
               v[i], out[i], prm, (unsigned long long)gy * d.nx + gx[i],

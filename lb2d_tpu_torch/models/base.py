@@ -130,8 +130,9 @@ class LBModel:
     ``make_step`` may set two run hooks:
 
     * ``steps_per_call`` > 1 with ``_single_step``: the step advances that
-      many steps (temporal blocking) and ``_single_step`` runs the rest of
-      ``run(n)``;
+      many steps and ``_single_step`` runs the rest of ``run(n)`` as exact
+      single steps (the stale-solve models of ``waves.py``, whose shorter
+      sweep would hold a solve for other steps);
     * ``_run_n(f, n) -> f``: the whole ``run(n)`` in one call.
 
     ``steps_taken`` counts the steps run so far; during ``run`` it is the

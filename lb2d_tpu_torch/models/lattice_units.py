@@ -7,16 +7,15 @@ import numpy as np
 import torch
 
 from ..core import D2Q9
-from ..ops import _build
+from ..ops import fused
 from ..ops.fused import (
-    resident_scratch,
     resident_velocity_run,
     temporal_velocity_step,
     velocity_step_reference,
 )
 from ..ops.moments import hydro_compressible
 from ..utils.tracing import span, traced
-from .pipe_flow import VELOCITY_TEMPORAL_K, PipeFlow
+from .pipe_flow import TEMPORAL_K, VELOCITY_TEMPORAL_K, PipeFlow
 
 __all__ = ["LatticePipeFlow", "LatticePipeFlowPeriodicBC",
            "PipeFlowVelocityInlet"]
@@ -79,15 +78,24 @@ class PipeFlowVelocityInlet(LatticePipeFlow):
     :func:`~lb2d_tpu_torch.ops.fused.temporal_velocity_step`: 32 x 32 tiles
     up to 640^2, the row sweep above), as the JAX model runs
     ``make_temporal_pipe_step(physics="velocity_inlet")`` on a TPU:
-    ``VELOCITY_TEMPORAL_K`` (4) steps per launch, on an H100 the fastest K
-    per step on the sweep and the steadiest end to end in the tiles (JAX
-    takes the largest of 8, 6, 4 that its chunks allow), and one shorter
-    launch for the rest of ``run(n)``. ``backend="resident"``, asked for by
-    name, runs all of ``run(n)`` as one K3 launch with the same BCs
+    ``_temporal_k`` steps per launch (``VELOCITY_TEMPORAL_K`` in the tiles,
+    ``TEMPORAL_K`` on the sweep), and one shorter launch for the rest of
+    ``run(n)``. ``backend="resident"``, asked for by name, runs all of
+    ``run(n)`` as one K3 launch with the same BCs
     (:func:`~lb2d_tpu_torch.ops.fused.resident_velocity_run`).
     """
 
     _kernel_backends = ("temporal", "resident")
+
+    @property
+    def _temporal_k(self):
+        """Steps per K2 launch, for the loop the wrapper picks at this
+        grid: ``VELOCITY_TEMPORAL_K`` in the 32 x 32 tiles (grids of at most
+        ``VELOCITY_TILE_MAX_CELLS`` cells), ``TEMPORAL_K`` on the row
+        sweep."""
+        return (VELOCITY_TEMPORAL_K
+                if self.ny * self.nx <= fused.VELOCITY_TILE_MAX_CELLS
+                else TEMPORAL_K)
 
     def __init__(self, u_w=0.1, omega=0.99, lx=400, ly=400,
                  outlet="zero_gradient", **kwargs):
@@ -128,38 +136,9 @@ class PipeFlowVelocityInlet(LatticePipeFlow):
         kw = self._velocity_kwargs(self.obstacle_mask)
         return lambda f: velocity_step_reference(f, **kw)
 
-    def _make_kernel_step(self):
-        """K2 over two buffers, ``run(n)`` as ``n // VELOCITY_TEMPORAL_K``
-        launches and one of ``n % VELOCITY_TEMPORAL_K`` steps; or K3,
-        ``run(n)`` as one launch."""
-        _build.load_library()  # build now, outside any timed region
-        kw = self._velocity_kwargs(
-            None if self.obstacle_mask is None
-            else self.obstacle_mask.to(torch.int32).contiguous())
-        if self.backend == "resident":
-            scratch = resident_scratch(self.state)
-
-            def run_resident(f, n):  # K3, in place
-                return resident_velocity_run(f, scratch, n, **kw)
-
-            self._run_n = run_resident
-            return lambda f: run_resident(f, 1)
-        spare = [torch.empty_like(self.state)]
-
-        def step(f, k=1):
-            out = temporal_velocity_step(f, spare[0], k, **kw)
-            spare[0] = f
-            return out
-
-        def run_n(f, n):
-            while n > 0:
-                k = min(n, VELOCITY_TEMPORAL_K)
-                f = step(f, k)
-                n -= k
-            return f
-
-        self._run_n = run_n
-        return step
+    def _kernels(self, mask):
+        return (resident_velocity_run, temporal_velocity_step,
+                self._velocity_kwargs(mask))
 
     @traced("lb2d.readout.get_fields")
     def get_fields(self) -> dict:

@@ -54,6 +54,7 @@ import torch
 
 from ..core import D2Q9, D2Q25, Lattice
 from ..ops import _build
+from ..ops.equilibrium import lattice_columns
 from ..ops.fused_mc import (
     MAX_MC_FLUIDS,
     SECOND_BELT_STENCIL,
@@ -391,17 +392,11 @@ class SimulationRunner:
             self._hydro_step = self.steps_taken
 
     # ---- numerics ------------------------------------------------------------
-    @traced("lb2d.wait.columns")
-    def _columns(self):
-        like = dict(dtype=self.dtype, device=self.device)
-        lat = self.lattice
-        return tuple(torch.tensor(c, **like)[:, None, None]
-                     for c in (lat.w, lat.cx, lat.cy))
-
     def _feq_single(self, rho, u, v, epsilon):
         """Porosity feq for one component (``single_component.cl:39-60``)."""
         cs2 = self.lattice.cs2
-        w, cx, cy = self._columns()
+        w, cx, cy, _, _ = lattice_columns(self.lattice, self.dtype,
+                                          self.device)
         cu = cx * u + cy * v
         usq = u * u + v * v
         return w * rho * (1.0 + cu / cs2 + cu * cu / (2 * cs2 * cs2 * epsilon)
@@ -566,7 +561,7 @@ class SimulationRunner:
         """rho per fluid and the barycentric velocity without the half-force
         term of populations ``f [q, C, ...]`` (``multicomponent.py:
         948-963``)."""
-        _, cx, cy = self._columns()
+        _, cx, cy, _, _ = lattice_columns(self.lattice, f.dtype, f.device)
         rho = f.sum(dim=0)
         rho_tot = rho.sum(dim=0)
         u = torch.tensordot(cx[:, 0, 0], f, dims=1).sum(0) / rho_tot

@@ -13,8 +13,8 @@ on a CUDA device, ping-ponging between two buffers, any ``ny x nx``:
   picks it on CUDA for grids of up to ``RESIDENT_MAX_CELLS`` cells, where
   the host's launch per step would set the pace.
 * ``"temporal"`` (K2, :func:`~lb2d_tpu_torch.ops.fused.temporal_pipe_step`):
-  ``TEMPORAL_K`` steps per pass over ``f``, the remainder of ``run(n)`` by
-  K1. ``"auto"`` picks it on CUDA for larger grids.
+  ``TEMPORAL_K`` steps per pass over ``f``, the remainder of ``run(n)`` as
+  one shorter pass. ``"auto"`` picks it on CUDA for larger grids.
 * ``"kernel"`` (K1, :func:`~lb2d_tpu_torch.ops.fused.pipe_step`): one step
   per launch.
 * ``"eager"`` (the default on the CPU; JAX's name ``"xla"`` is taken as
@@ -56,14 +56,16 @@ __all__ = ["PipeFlow", "PipeFlowCylinder", "PipeFlowObstacles", "disk_mask",
            "TEMPORAL_K", "VELOCITY_TEMPORAL_K"]
 
 TEMPORAL_K = 4  # steps per K2 pass: the fastest K at 4096^2 on an H100
-# steps per K2 pass of the velocity inlet (PipeFlowVelocityInlet): of K =
-# 3, 4, 6, 8 on an H100 (PERF.md, section 6) the fastest per step on its
-# row sweep (2048^2 and 4096^2) and the steadiest end to end in its tiles
-# (401^2 run(1000), MLUPS medians of six on two machines: K = 4
-# 22,251.3-22,418.4 on both; K = 3 23,647.8-23,822.7 on one, 17,966.8-
-# 18,712.2 on the other, where a 0.019 ms launch left the card waiting on
-# the host's launches)
-VELOCITY_TEMPORAL_K = 4
+# steps per launch of the velocity inlet's 32 x 32 K2 tiles (grids of up to
+# 640^2; its row sweep above takes TEMPORAL_K, the fastest K per step
+# there at 2048^2): of K = 3, 4, 6, 8 on an H100 (PERF.md, section 6) the
+# steadiest end to end, as the tiles' 0.033-0.036 ms launch outlasts the
+# host's 18-26 us a launch, so that the card sets the pace (the
+# benchmark's 401^2 cell: 33,786-34,490 MLUPS in seven runs on two
+# machines, against 31,768-38,483 at K = 6 and 22,764-32,307 at K = 4,
+# which follow the host). JAX takes the largest of 8, 6, 4 that its chunks
+# allow.
+VELOCITY_TEMPORAL_K = 8
 _KERNEL_IDS = {"resident": "K3", "temporal": "K2", "kernel": "K1"}
 _NOT_PORTED = {
     "pipelined": "ported as backend='kernel' (ROADMAP.md queue 2, K1)",
@@ -92,6 +94,7 @@ class PipeFlow(LBModel):
     """
 
     _kernel_backends = tuple(_KERNEL_IDS)  # the CUDA backends of this model
+    _temporal_k = TEMPORAL_K  # steps per K2 launch
 
     def __init__(self, diameter=None, rho=None, viscosity=None,
                  pressure_grad=None, pipe_length=None, N=200,
@@ -250,42 +253,55 @@ class PipeFlow(LBModel):
         mask = self.obstacle_mask
         return lambda f: pipe_step_reference(f, mask=mask, **kw)
 
+    def _kernels(self, mask):
+        """K3's run, K2's step and the keyword arguments of both (and of
+        K1's step), for the int32 obstacle ``mask`` or None."""
+        return (resident_pipe_run, temporal_pipe_step,
+                dict(self._step_kwargs(), mask=mask))
+
     def _make_kernel_step(self):
         """The kernel backends: K1 and K2 over two buffers, each launch
         writing into the buffer the previous one read, K3 in place with its
-        exchange buffer, so ``run`` allocates nothing. Sets the run hooks of
-        :class:`LBModel` that the backend needs."""
+        exchange buffer, so ``run`` allocates nothing. K2 runs ``run(n)`` as
+        launches of ``_temporal_k`` steps and one of the rest, K3 as one
+        launch. Sets the run hooks of :class:`LBModel` that the backend
+        needs."""
         _build.load_library()  # build now, outside any timed region
-        kw = self._step_kwargs()
-        mask = (None if self.obstacle_mask is None
-                else self.obstacle_mask.to(torch.int32).contiguous())
+        resident_run, temporal_step, kw = self._kernels(
+            None if self.obstacle_mask is None
+            else self.obstacle_mask.to(torch.int32).contiguous())
         if self.backend == "resident":
             scratch = resident_scratch(self.state)
 
             def run_n(f, n):  # K3, in place
-                return resident_pipe_run(f, scratch, n, mask=mask, **kw)
+                return resident_run(f, scratch, n, **kw)
 
             self._run_n = run_n
             return lambda f: run_n(f, 1)
         spare = [torch.empty_like(self.state)]
-
-        def one(f):  # K1
-            out = pipe_step(f, spare[0], mask=mask, **kw)
-            spare[0] = f
-            return out
-
         if self.backend == "kernel":
-            return one
-        k = TEMPORAL_K
+            def one(f):  # K1
+                out = pipe_step(f, spare[0], **kw)
+                spare[0] = f
+                return out
 
-        def step_k(f):  # K2
-            out = temporal_pipe_step(f, spare[0], k, mask=mask, **kw)
+            return one
+        K = self.steps_per_call = self._temporal_k
+
+        def step(f, k=K):  # K2
+            out = temporal_step(f, spare[0], k, **kw)
             spare[0] = f
             return out
 
-        self.steps_per_call = k
-        self._single_step = one
-        return step_k
+        def run_n(f, n):
+            while n > 0:
+                k = min(n, K)
+                f = step(f, k)
+                n -= k
+            return f
+
+        self._run_n = run_n
+        return step
 
     @traced_field
     def device_field(self, name):

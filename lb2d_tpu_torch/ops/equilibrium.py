@@ -1,10 +1,11 @@
 """Equilibrium distributions (counterpart of ``lb2d_tpu.ops.equilibrium``).
 
-Constants are float32 tensors on the field's device, rounded as the JAX
-module rounds them, so both packages evaluate the same float32 expressions.
-They are made once per lattice, dtype, device and rank and then reused, so
-that a call copies nothing from the host (and can be captured in a CUDA
-graph once it has run).
+Constants are tensors of the field's dtype on its device, rounded as the
+JAX module rounds them, so both packages evaluate the same float32
+expressions. They come from :func:`lattice_columns`, the port's one source
+of the lattice's columns, made once per lattice, dtype, device and rank
+and then reused, so that a call copies nothing from the host (and can be
+captured in a CUDA graph once it has run).
 """
 
 from __future__ import annotations
@@ -15,19 +16,24 @@ import torch
 
 from ..core import D2Q9, Lattice
 
-__all__ = ["feq_quadratic", "feq_incompressible", "feq_linear", "feq_poisson"]
+__all__ = ["feq_quadratic", "feq_incompressible", "feq_linear", "feq_poisson",
+           "lattice_columns"]
 
 
 def _consts(lattice: Lattice, rho: torch.Tensor):
-    """The lattice columns shaped ``(Q, 1, ...)`` to broadcast against
-    ``rho`` of any rank (``[ny, nx]``, or ``[F, ny, nx]`` for the
-    multifield models): ``w``, ``cx``, ``cy``, ``cs2`` and ``w - e_0`` (the
-    Poisson weights)."""
-    return _columns(lattice, rho.dtype, rho.device, rho.dim())
+    """:func:`lattice_columns` shaped to broadcast against ``rho`` of any
+    rank (``[ny, nx]``, or ``[F, ny, nx]`` for the multifield models)."""
+    return lattice_columns(lattice, rho.dtype, rho.device, rho.dim())
 
 
 @functools.lru_cache(maxsize=None)
-def _columns(lattice: Lattice, dtype, device, rank: int):
+def lattice_columns(lattice: Lattice, dtype, device, rank: int = 2):
+    """The lattice's columns as tensors of ``dtype`` on ``device``, each
+    ``(Q,)`` followed by ``rank`` ones: ``w``, ``cx``, ``cy``, then the
+    scalar ``cs2`` and ``w - e_0`` (the Poisson weights). Made once per
+    (lattice, dtype, device, rank), so that a later call copies nothing
+    from the host and waits for nothing. The tensors are shared by every
+    caller and read-only: never write into them."""
     def col(values):
         return torch.tensor(values, dtype=dtype, device=device
                             ).reshape((len(values),) + (1,) * rank)

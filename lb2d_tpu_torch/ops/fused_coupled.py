@@ -55,6 +55,7 @@ import torch
 from ..core import D2Q9
 from ..utils.tracing import traced_launch
 from . import _build, sweep
+from .equilibrium import lattice_columns
 from .fused import _check_k, _launch
 from .fused_halo import Halo, check_pieces, cut_region
 from .fused_mc import (
@@ -252,18 +253,10 @@ def density_in_order(f):
     return _sum_in_order([f[j] for j in range(f.shape[0])])
 
 
-def _columns(like):
-    """D2Q9 ``w``, ``cx``, ``cy`` as ``[9, 1, 1]`` columns of ``like``'s
-    dtype and device."""
-    kw = dict(dtype=like.dtype, device=like.device)
-    return tuple(torch.tensor(c, **kw)[:, None, None]
-                 for c in (D2Q9.w, D2Q9.cx, D2Q9.cy))
-
-
 def coupled_feq(rho, u, v):
     """The linear feq of every field: ``w rho (1 + c.u / cs^2)``, ``[9, F,
     ny, nx]`` for ``rho[F, ny, nx]``."""
-    w, cx, cy = (c[:, None] for c in _columns(rho))
+    w, cx, cy, _, _ = lattice_columns(D2Q9, rho.dtype, rho.device, rho.dim())
     cu = cx * u + cy * v
     return w * rho[None] * (1.0 + cu / D2Q9.cs2)
 
@@ -294,7 +287,7 @@ def _rocket_yeast_update(f, cfg, belt=None):
     belt = belt or _own_belt(rho)
     u, v = rocket_yeast_velocity(rho, cfg, belt)
     feq = coupled_feq(rho, u, v)
-    w, cx, cy = _columns(f)
+    w, cx, cy, _, _ = lattice_columns(D2Q9, f.dtype, f.device)
     om, om_c = _f32(cfg.omega, f), _f32(cfg.omega2, f)
     pop_rho = rho[0]
     growth = _f32(cfg.lb_G, f) * pop_rho * (1.0 - pop_rho)
@@ -331,7 +324,7 @@ def _screened_fisher_update(f, cfg, ext, velocity=None):
     """The screened Fisher step of ``f[9, R, S]`` after the stream."""
     rho = density_in_order(f)
     u, v = _velocity_of(rho, ext, velocity)
-    w, cx, cy = _columns(f)
+    w, cx, cy, _, _ = lattice_columns(D2Q9, f.dtype, f.device)
     feq = w * rho * (1.0 + (cx * u + cy * v) / D2Q9.cs2)
     om = _f32(cfg.omega, f)
     react = _f32(cfg.lb_G, f) * rho * (1.0 - rho)
@@ -355,7 +348,7 @@ def _surfactant_update(f, cfg, ext, velocity=None, belt=None):
     rho = density_in_order(f)
     u, v = _velocity_of(rho[0], ext, velocity)
     feq = coupled_feq(rho, u, v)
-    w, cx, cy = _columns(f)
+    w, cx, cy, _, _ = lattice_columns(D2Q9, f.dtype, f.device)
     om, om_n = _f32(cfg.omega, f), _f32(cfg.omega2, f)
     growth = _f32(cfg.lb_G, f) * rho[0] * rho[1]
     new_pop = f[:, 0] * (1 - om) + om * feq[:, 0] + w * growth

@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 
 from ..core import D2Q9, Lattice
-from ..utils.tracing import traced, traced_launch
+from ..utils.tracing import traced_launch
+from .equilibrium import lattice_columns
 from .fused import _launch
 
 __all__ = ["FIELDS", "density", "momentum", "hydro_compressible",
@@ -24,13 +25,6 @@ __all__ = ["FIELDS", "density", "momentum", "hydro_compressible",
 FIELDS = ("rho", "u", "v")
 
 
-@traced("lb2d.wait.c_consts")
-def _c_consts(lattice: Lattice, f: torch.Tensor):
-    cx = torch.tensor(lattice.cx, dtype=f.dtype, device=f.device)[:, None, None]
-    cy = torch.tensor(lattice.cy, dtype=f.dtype, device=f.device)[:, None, None]
-    return cx, cy
-
-
 def density(f: torch.Tensor) -> torch.Tensor:
     """``rho = sum_j f_j`` over the direction axis."""
     return f.sum(dim=0)
@@ -38,7 +32,8 @@ def density(f: torch.Tensor) -> torch.Tensor:
 
 def momentum(f: torch.Tensor, lattice: Lattice = D2Q9):
     """``(sum_j cx_j f_j, sum_j cy_j f_j)``."""
-    cx, cy = _c_consts(lattice, f)
+    _, cx, cy, _, _ = lattice_columns(lattice, f.dtype, f.device,
+                                      f.dim() - 1)
     return (cx * f).sum(dim=0), (cy * f).sum(dim=0)
 
 

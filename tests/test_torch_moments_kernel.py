@@ -9,7 +9,7 @@ models' ``device_field`` equals the matching plane of their moments; the
 wrapper's argument checks; and the dispatch by device and dtype, driven on
 the ``meta`` device (float32 off the CPU, as a CUDA state) with the C call
 replaced by a recorder: exactly the planes named reach the kernel, and
-the plain path's host-built constants (``_c_consts``) are never made.
+the plain path's lattice columns (``lattice_columns``) are never read.
 """
 
 import contextlib
@@ -119,14 +119,14 @@ class _Recorder:
 @pytest.fixture
 def recorder(monkeypatch):
     """The kernel path on the meta device: the C call recorded, no CUDA
-    device context, and the plain path's constants refused."""
+    device context, and the plain path's lattice columns refused."""
     rec = _Recorder()
 
     def refuse(*args):
-        raise AssertionError("_c_consts on the kernel path")
+        raise AssertionError("lattice_columns on the kernel path")
 
     monkeypatch.setattr(moments, "_launch", rec)
-    monkeypatch.setattr(moments, "_c_consts", refuse)
+    monkeypatch.setattr(moments, "lattice_columns", refuse)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda device: contextlib.nullcontext())
     return rec
@@ -177,9 +177,9 @@ def test_other_states_run_the_plain_functions(recorder):
     a non-D2Q9 lattice on the kernel path raises."""
     f = _state()
     launches = flow_moments.launches
-    with pytest.raises(AssertionError, match="_c_consts"):
-        hydro_planes(f)          # the plain path: it builds the constants
-    with pytest.raises(AssertionError, match="_c_consts"):
+    with pytest.raises(AssertionError, match="lattice_columns"):
+        hydro_planes(f)          # the plain path: it reads the columns
+    with pytest.raises(AssertionError, match="lattice_columns"):
         hydro_planes(torch.empty((9, 4, 8), dtype=torch.float64,
                                  device="meta"))
     with pytest.raises(ValueError, match="D2Q9"):

@@ -223,70 +223,83 @@ def test_auto_backend_ladder_on_cuda():
         inlet._pick_backend("kernel")
 
 
-@pytest.mark.parametrize("backend", ["resident", "temporal", "kernel"])
-def test_kernel_backend_wiring_matches_eager(backend, monkeypatch):
-    """The kernel backends' buffers and run hooks, driven on the CPU where
-    each wrapper runs its plain version: 7 steps are K2 passes of
-    TEMPORAL_K steps and K1 steps for the rest with "temporal", and one
-    call with "resident"."""
-    from lb2d_tpu_torch.models import pipe_flow
-    from lb2d_tpu_torch.ops import fused
-
-    monkeypatch.setattr(pipe_flow._build, "load_library", lambda: None)
-    kw = _pipe(31, 61, obstacle_mask=_mask(31, 61))
-    eager = torch_models.PipeFlowObstacles(device="cpu", **kw)
-    sim = torch_models.PipeFlowObstacles(device="cpu", **kw)
-    sim.backend = backend
-    calls = []
-    for name in ("pipe_step", "temporal_pipe_step", "resident_pipe_run"):
-        wrapper = getattr(fused, name)
-
-        def counted(*args, _w=wrapper, _n=name, **kwargs):
-            calls.append(_n)
-            return _w(*args, **kwargs)
-
-        monkeypatch.setattr(pipe_flow, name, counted)
-    sim._step = sim.make_step()
-    eager.run(7)
-    sim.run(7)
-    assert torch.equal(sim.state, eager.state)
-    assert sim.steps_taken == 7
-    k = pipe_flow.TEMPORAL_K
-    assert calls == {
-        "resident": ["resident_pipe_run"],
-        "temporal": ["temporal_pipe_step"] * (7 // k) + ["pipe_step"] * (7 % k),
-        "kernel": ["pipe_step"] * 7}[backend]
+WIRING = {  # case -> (model of CASES, backend)
+    "resident": ("obstacle", "resident"),
+    "temporal": ("obstacle", "temporal"),
+    "kernel": ("obstacle", "kernel"),
+    "velocity-inlet-obstacle": ("velocity-inlet-obstacle", "temporal"),
+    "velocity-pair": ("velocity-pair", "temporal"),
+    "velocity-inlet-obstacle-resident": ("velocity-inlet-obstacle",
+                                         "resident"),
+}
+WRAPPERS = ("pipe_step", "temporal_pipe_step", "resident_pipe_run",
+            "temporal_velocity_step", "resident_velocity_run")
 
 
-@pytest.mark.parametrize("case", ["velocity-inlet-obstacle", "velocity-pair"])
-def test_velocity_kernel_wiring_matches_eager(case, monkeypatch):
-    """The velocity inlet's K2 backend driven on the CPU, where the wrapper
-    runs its plain version: 7 steps are launches of VELOCITY_TEMPORAL_K
-    steps and one launch of the rest."""
+@pytest.mark.parametrize("case", list(WIRING))
+def test_kernel_backend_wiring_matches_eager(case, monkeypatch):
+    """The kernel backends' buffers and run hooks, one `_make_kernel_step`
+    for the pressure-driven and the velocity-inlet models, on the CPU where
+    each wrapper runs its plain version: K + 3 steps, K the model's
+    TEMPORAL_K or VELOCITY_TEMPORAL_K, are one K2 launch of K steps and one
+    of 3 with "temporal", one K3 call with "resident" and K + 3 K1 steps
+    with "kernel"."""
     from lb2d_tpu_torch.models import lattice_units, pipe_flow
     from lb2d_tpu_torch.ops import fused
 
-    monkeypatch.setattr(lattice_units._build, "load_library", lambda: None)
-    ks = []
+    monkeypatch.setattr(pipe_flow._build, "load_library", lambda: None)
+    model, backend = WIRING[case]
+    cls, make_kw = CASES[model]
+    kw = make_kw(31, 61)
+    eager = getattr(torch_models, cls)(device="cpu", **kw)
+    sim = getattr(torch_models, cls)(device="cpu", **kw)
+    sim.backend = backend
+    calls = []  # (wrapper, steps)
+    for module in (pipe_flow, lattice_units):
+        for name in WRAPPERS:
+            if not hasattr(module, name):
+                continue
 
-    def counted(f_in, f_out, k, **kw):
-        ks.append(k)
-        return fused.temporal_velocity_step(f_in, f_out, k, **kw)
+            def counted(*args, _w=getattr(fused, name), _n=name, **kwargs):
+                calls.append((_n, args[2] if len(args) > 2 else 1))
+                return _w(*args, **kwargs)
 
-    monkeypatch.setattr(lattice_units, "temporal_velocity_step", counted)
-    kw = CASES[case][1](31, 61)
-    eager = torch_models.PipeFlowVelocityInlet(device="cpu", **kw)
-    sim = torch_models.PipeFlowVelocityInlet(device="cpu", **kw)
-    sim.backend = "temporal"
+            monkeypatch.setattr(module, name, counted)
     sim._step = sim.make_step()
+    velocity = cls == "PipeFlowVelocityInlet"
+    k = pipe_flow.VELOCITY_TEMPORAL_K if velocity else pipe_flow.TEMPORAL_K
+    n = k + 3
     f0 = _perturbed(eager.state)
     eager.load_numpy_state(f0)
     sim.load_numpy_state(f0)
-    eager.run(7)
-    sim.run(7)
+    eager.run(n)
+    sim.run(n)
     assert torch.equal(sim.state, eager.state)
-    k = pipe_flow.VELOCITY_TEMPORAL_K
-    assert ks == [k] * (7 // k) + [7 % k] * (7 % k > 0)
+    assert sim.steps_taken == n
+    family = "velocity" if velocity else "pipe"
+    assert calls == {
+        "resident": [(f"resident_{family}_run", n)],
+        "temporal": [(f"temporal_{family}_step", k),
+                     (f"temporal_{family}_step", 3)],
+        "kernel": [("pipe_step", 1)] * n}[backend]
+    assert sim.steps_per_call == (k if backend == "temporal" else 1)
+
+
+
+def test_velocity_inlet_launch_length_follows_the_loop():
+    """The velocity inlet's steps per K2 launch: VELOCITY_TEMPORAL_K where
+    the wrapper runs the 32 x 32 tiles (up to VELOCITY_TILE_MAX_CELLS
+    cells), TEMPORAL_K on the row sweep above."""
+    from lb2d_tpu_torch.models import pipe_flow
+    from lb2d_tpu_torch.ops import fused
+
+    side = {"tiles": 400, "sweep": 640}  # lx: an (lx + 1)^2 grid
+    for loop, lx in side.items():
+        sim = torch_models.PipeFlowVelocityInlet(lx=lx, ly=lx, device="cpu")
+        tiles = sim.ny * sim.nx <= fused.VELOCITY_TILE_MAX_CELLS
+        assert tiles == (loop == "tiles")
+        assert sim._temporal_k == (pipe_flow.VELOCITY_TEMPORAL_K if tiles
+                                   else pipe_flow.TEMPORAL_K)
 
 
 def test_velocity_inlet_matches_jax_temporal_kernel():

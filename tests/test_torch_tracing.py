@@ -148,13 +148,12 @@ def test_pipe_flow_run_and_field_readout_spans():
     field_u = spans[names.index("lb2d.readout.field.u")]
     assert field_u[1] >= run[2]   # the readout follows the run
     waits = [s for s in spans if s[0].startswith("lb2d.wait.")]
-    assert {s[0] for s in waits} == {"lb2d.wait.c_consts",
-                                     "lb2d.wait.mach_number"}
+    # the plain moments read the cached lattice columns: no wait of theirs
+    assert {s[0] for s in waits} == {"lb2d.wait.mach_number"}
     for w in waits:
         parent = _parent(w, spans)[0]
         assert parent.startswith("lb2d.readout."), (w, parent)
-    assert _parent(spans[names.index("lb2d.wait.c_consts")],
-                   spans) == field_u
+    assert not any(_parent(w, spans) == field_u for w in waits)
     mach = spans[names.index("lb2d.readout.mach_number")]
     assert _parent(spans[names.index("lb2d.wait.mach_number")],
                    spans) == mach
@@ -173,8 +172,11 @@ def test_runner_run_hydro_and_wait_nesting():
     run = spans[names.index("lb2d.run")]
     hydro = spans[names.index("lb2d.hydro")]
     assert _parent(hydro, spans) == run
-    columns = [s for s in spans if s[0] == "lb2d.wait.columns"]
-    assert columns and all(_parent(c, spans) == hydro for c in columns)
+    # the cached lattice columns: the refresh copies nothing and waits for
+    # nothing
+    assert not any(s[0].startswith("lb2d.wait.")
+                   and _parent(s, spans) == hydro for s in spans)
+    assert "lb2d.wait.columns" not in names
     solves = [s for s in spans if s[0] == "lb2d.solve"]
     assert len(solves) == 2   # one per two-step sweep
     assert all(_parent(s, spans) == run for s in solves)
@@ -303,9 +305,12 @@ def test_every_wrapper_call_opens_one_launch_span(cuda):
     flow_k2 = PipeFlow(N=63, pipe_length=1.0, diameter=1.0, rho=1.0,
                        viscosity=1.0, pressure_grad=-10.0, device=cuda,
                        backend="temporal")
+    flow_k1 = PipeFlow(N=63, pipe_length=1.0, diameter=1.0, rho=1.0,
+                       viscosity=1.0, pressure_grad=-10.0, device=cuda,
+                       backend="kernel")
     runner = _runner(cuda, n=64)
     x = torch.rand((48, 80), device=cuda)
-    for warm in (flow.run, flow_k2.run, runner.run):
+    for warm in (flow.run, flow_k2.run, flow_k1.run, runner.run):
         warm(1)
     torch.cuda.synchronize()
     counters = {n: fn for _, n, fn in _wrappers()}
@@ -313,7 +318,8 @@ def test_every_wrapper_call_opens_one_launch_span(cuda):
 
     def calls():
         flow.run(100)            # K3: one launch
-        flow_k2.run(10)          # K2 twice, K1 twice
+        flow_k2.run(10)          # K2 three times: 4, 4 and 2 steps
+        flow_k1.run(2)           # K1 twice
         flow_k2.device_field("u")  # the moments kernel
         runner.run(3)            # K6 density, K8, K6 step per step
         ops_random.normals(1, 0, (64, 64), cuda)
@@ -323,7 +329,7 @@ def test_every_wrapper_call_opens_one_launch_span(cuda):
 
     got = _launches_by_span(_traced(calls))
     delta = {n: counters[n].launches - before[n] for n in counters}
-    calls_made = {"resident_pipe_run": 1, "temporal_pipe_step": 2,
+    calls_made = {"resident_pipe_run": 1, "temporal_pipe_step": 3,
                   "pipe_step": 2, "flow_moments": 1, "mc_density": 3,
                   "mc_step": 3,
                   "screened_gradients": 3, "normals": 1, "transpose": 1,
@@ -394,7 +400,9 @@ def test_field_readout_on_the_card_launches_once_and_waits_nowhere(cuda):
     spans = _spans(_traced(readout))
     names = [s[0] for s in spans]
     assert moments.flow_moments.launches == before + 4
-    assert not any(n.startswith("lb2d.wait.c_consts") for n in names)
+    waits = [s for s in spans if s[0].startswith("lb2d.wait.")]
+    assert not any((_parent(w, spans) or ("",))[0].startswith(
+        "lb2d.readout.field.") for w in waits)
     launches = [s for s in spans if s[0] == "lb2d.launch.flow_moments"]
     assert len(launches) == 4
     for name in ("u", "v", "rho"):

@@ -70,6 +70,7 @@ def test_the_ports_cpu_path_follows_the_reference(seed):
 def test_the_tiles_follow_the_reference_on_the_card(seed):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    from lb2d_tpu_torch.models.pipe_flow import VELOCITY_TEMPORAL_K
     from lb2d_tpu_torch.ops import fused
 
     before = fused.temporal_velocity_step.launches
@@ -77,7 +78,8 @@ def test_the_tiles_follow_the_reference_on_the_card(seed):
     assert cell.backend == "temporal"
     assert cell.cells <= fused.VELOCITY_TILE_MAX_CELLS   # the tiles
     assert cell.sim.obstacle_mask.any()
-    assert fused.temporal_velocity_step.launches - before == 3 * 2  # K = 4
+    launches = -(-cell.steps_per_interval // VELOCITY_TEMPORAL_K)
+    assert fused.temporal_velocity_step.launches - before == 3 * launches
     assert max(gaps.values()) <= 2e-6, gaps
 
 

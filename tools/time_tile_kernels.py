@@ -658,10 +658,10 @@ def _inlet_times():
     # the model end to end through auto at each K (the checkout's constant
     # for the inlet's steps per launch, set between runs), the K in
     # rotating order so that host noise falls on each alike
-    put_k = _inlet_k_setter(lattice_units)
+    model = PipeFlowVelocityInlet(device="cuda")
+    put_k = _inlet_k_setter(lattice_units, model)
     model_k = put_k(INLET_KS[0])
     out["model K"] = model_k
-    model = PipeFlowVelocityInlet(device="cuda")
     for k in INLET_KS:  # warm
         put_k(k)
         model.run(100)
@@ -696,10 +696,22 @@ def _inlet_times():
     return out
 
 
-def _inlet_k_setter(lattice_units):
-    """A function that sets the velocity inlet model's steps per K2 launch
-    (the checkout's constant, ``VELOCITY_TEMPORAL_K`` or ``TEMPORAL_K``) and
-    returns the value it replaced; the model reads it at every ``run``."""
+def _inlet_k_setter(lattice_units, model):
+    """A function that sets the velocity inlet ``model``'s steps per K2
+    launch and returns the value it replaced: the class's ``_temporal_k``,
+    which the model reads when it builds its step (rebuilt here), or in
+    checkouts up to commit b864ddc, which have no ``_temporal_k``, the
+    module's constant (``VELOCITY_TEMPORAL_K`` or ``TEMPORAL_K``), which
+    the model reads at every ``run``. That second branch goes once no
+    comparison runs such a checkout."""
+    cls = type(model)
+    if hasattr(cls, "_temporal_k"):
+        def put(k):
+            old = model._temporal_k
+            cls._temporal_k = k  # in place of the class's own rule
+            model._step = model.make_step()
+            return old
+        return put
     name = ("VELOCITY_TEMPORAL_K"
             if hasattr(lattice_units, "VELOCITY_TEMPORAL_K") else "TEMPORAL_K")
 
